@@ -10,7 +10,15 @@ against the same step on the CPU plain path, then drives the port's main
 path -- a ``Simulation`` of the flagship blowout-wake deck
 (``hipace_tpu_torch.decks.BLOWOUT_WAKE``) at 1023^2 x 64 slices in float32
 -- for one warm-up and two timed steps, and checks that every kernel ran as
-often as the slice structure predicts. It imports nothing but the port.
+often as the slice structure predicts, that a multigrid solve is at most
+three device launches, and prints the share of deposit blocks that took the
+kernel's direct path. Two more timed steps follow the counted ones. It
+imports nothing but the port.
+
+Beside each kernel's time it prints the kernel's bound: the least time the
+card could take, the larger of the bytes the function must move (each input
+read once, each output written once) over the HBM rate and its operations
+over the peak rate of their type (NVIDIA's H100 SXM data sheet).
 
 The second-to-last line is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero before
@@ -44,6 +52,10 @@ KERNELS = {
            "hipace_tpu/ops/pallas_mg.py:204"),
 }
 
+# NVIDIA H100 SXM data sheet: HBM3 bytes/s, non-tensor FLOP/s by itemsize
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {4: 67e12, 8: 34e12}
+
 failures: list = []
 
 
@@ -73,6 +85,36 @@ def cuda_ms(fn, reps=5):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def wall_ms(fn, reps=5):
+    """Mean host time of fn() over reps calls, device work included."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    torch.cuda.synchronize()
+    return 1e3 * (time.perf_counter() - t0) / reps
+
+
+def bound(nbytes, flops, itemsize):
+    """(ms, "bytes" or "operations"): the least time the card could take."""
+    t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
+    t_flops = 1e3 * flops / PEAK_FLOPS[itemsize]
+    return max(t_bytes, t_flops), "bytes" if t_bytes >= t_flops else "operations"
+
+
+def bound_line(kernel, name, ms, nbytes, flops, itemsize):
+    b_ms, by = bound(nbytes, flops, itemsize)
+    print(f"{kernel} {name} bound: {nbytes / 1e6:.3f} MB moved once, "
+          f"{flops / 1e9:.4f} GFLOP -> {b_ms:.4f} ms at "
+          f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s / "
+          f"{PEAK_FLOPS[itemsize] / 1e12:.0f} TFLOP/s, bound by {by}; "
+          f"kernel {ms:.4f} ms = {100 * b_ms / ms:.1f}% of the bound's rate",
+          flush=True)
+    return b_ms, by
 
 
 def compare(kernel, dtype_name, got, ref):
@@ -106,11 +148,16 @@ def k1_phase(torch, g, dtype, lanes, results):
     name = str(dtype).split(".")[1]
     gen = torch.Generator(device="cuda").manual_seed(2)
     NY, NX = g.slice_shape
-    cases = []
     ym, xm = lanes
-    vals = torch.randn((13, ym.numel()), generator=gen, device="cuda",
-                       dtype=dtype)
-    cases.append(("plasma C=13 deriv_type 2", ym, xm, vals, 2))
+    N = ym.numel()
+    vals = torch.randn((13, N), generator=gen, device="cuda", dtype=dtype)
+    perm = torch.randperm(N, generator=gen, device="cuda")
+    # every lane moved by up to +-40 cells: patches no longer fit a tile
+    far = (torch.rand((2, N), generator=gen, device="cuda",
+                      dtype=torch.float64) - 0.5) * 80.0
+    live = ym < 1.5 * NY
+    fym = torch.where(live, ym + far[0].to(dtype), ym)
+    fxm = xm + far[1].to(dtype)
     # gaussian beam slice: sigma 0.3 of a 16-wide box, ~30k lanes, 15% dead
     nb = 30000
     pos = torch.randn((2, nb), generator=gen, device="cuda",
@@ -119,26 +166,48 @@ def k1_phase(torch, g, dtype, lanes, results):
     bxm = (pos[1] + g.nguards + g.nx / 2).to(dtype)
     bym[torch.rand(nb, generator=gen, device="cuda") < 0.15] = 2.0 * NY
     bvals = torch.randn((2, nb), generator=gen, device="cuda", dtype=dtype)
-    cases.append(("gaussian beam C=2", bym, bxm, bvals, -1))
-    for label, y, x, v, dtyp in cases:
+    # label, ym, xm, values, deriv_type, lattice width
+    cases = [
+        ("plasma C=13 deriv_type 2, lattice order with the hint", ym, xm,
+         vals, 2, g.nx),
+        ("the same lanes, lattice order without the hint", ym, xm, vals, 2,
+         None),
+        ("the same lanes shuffled, no hint", ym[perm], xm[perm],
+         vals[:, perm].contiguous(), 2, None),
+        ("lanes moved by up to 40 cells, with the hint", fym, fxm, vals, 2,
+         g.nx),
+        ("gaussian beam C=2", bym, bxm, bvals, -1, None),
+    ]
+    for i, (label, y, x, v, dtyp, width) in enumerate(cases):
         C = v.shape[0]
         zero = torch.zeros((C, NY, NX), dtype=dtype, device="cuda")
-        got = dep.deposit_cuda(zero.clone(), y, x, v, 2, dtyp)
+        dep.reset_block_counts()
+        got = dep.deposit_cuda(zero.clone(), y, x, v, 2, dtyp,
+                               lattice_width=width)
+        direct, blocks = dep.direct_block_count("cuda"), dep.deposit.blocks
         ref = dep.deposit_plain(zero.clone(), y, x, v, 2, dtyp)
         torch.cuda.synchronize()
         ok, err, rel, tol = compare("K1", name, got, ref)
         scratch = zero.clone()
-        ms = cuda_ms(lambda: dep.deposit_cuda(scratch, y, x, v, 2, dtyp))
+        ms = cuda_ms(lambda: dep.deposit_cuda(scratch, y, x, v, 2, dtyp,
+                                              lattice_width=width))
         plain_ms = cuda_ms(lambda: dep.deposit_plain(scratch, y, x, v, 2,
                                                       dtyp))
         print(f"K1 {name} {label} N={y.numel()} on {NY}x{NX}: max abs err "
               f"{err:.3e}, / max {rel:.3e} (tol {tol:g}) "
-              f"{'ok' if ok else 'FAIL'}; kernel {ms:.3f} ms, plain "
-              f"{plain_ms:.3f} ms", flush=True)
+              f"{'ok' if ok else 'FAIL'}; direct-path blocks {direct} of "
+              f"{blocks}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms",
+              flush=True)
         if not ok:
             raise AssertionError(f"K1 {name} {label} outside tolerance")
-        if label.startswith("plasma"):
-            results[("K1", name)] = (err, ms, plain_ms)
+        if i == 0:
+            # lanes and values in, the field stack in and out; per live lane
+            # and channel 3 x 3 nonzero taps of a multiply and an add
+            size = zero.element_size()
+            nbytes = size * ((2 + C) * N + 2 * C * NY * NX)
+            flops = 2 * 9 * C * int((y < 1.5 * NY).sum())
+            b_ms, by = bound_line("K1", name, ms, nbytes, flops, size)
+            results[("K1", name)] = (err, ms, plain_ms, b_ms, by)
 
 
 @phase("K2")
@@ -161,37 +230,75 @@ def k2_phase(torch, g, dtype, lanes, results):
           f"{ms:.3f} ms, plain {plain_ms:.3f} ms", flush=True)
     if not ok:
         raise AssertionError(f"K2 {name} outside tolerance")
-    results[("K2", name)] = (err, ms, plain_ms)
+    # the stack and the lanes in, six values per lane out; per live lane
+    # 6 outputs x 4 x 4 taps of a multiply and an add
+    size, N = stack.element_size(), ym.numel()
+    b_ms, by = bound_line("K2", name, ms, size * (5 * NY * NX + 8 * N),
+                          2 * 6 * 16 * int((ym < 1.5 * NY).sum()), size)
+    results[("K2", name)] = (err, ms, plain_ms, b_ms, by)
+
+
+def k3_case(torch, dtype, ny, nx, dx, dy, C, acf_kind, max_iters, seed):
+    """One solve on the kernel and on the plain version: (label, mg, args,
+    kwargs, got, ref, cycles, plain cycles, device launches)."""
+    from hipace_tpu_torch.fields.multigrid import MultiGrid
+    from hipace_tpu_torch.ops.mg_kernel import mg_solve
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    mg = MultiGrid(nx, ny, dx, dy, device="cuda", dtype=dtype)
+    shape = (C, ny, nx) if C else (ny, nx)
+    rhs = torch.randn(shape, generator=gen, device="cuda", dtype=dtype)
+    acf = 1.0 + 0.1 * torch.rand((ny, nx), generator=gen, device="cuda",
+                                 dtype=dtype) if acf_kind == "2-D" else 1.05
+    u0 = torch.zeros_like(rhs)
+    kwargs = {"max_iters": max_iters}
+    before = mg_solve.kernel_launches
+    got, cycles, _ = mg_solve(mg, u0, rhs, acf, **kwargs)
+    launches = mg_solve.kernel_launches - before
+    ref = mg.solve_plain(u0, rhs, acf, **kwargs)
+    torch.cuda.synchronize()
+    label = (f"C={C or 'none'} on {ny}x{nx}, {mg.nlevels} levels, {acf_kind} "
+             f"acf, max_iters {max_iters}")
+    return (label, mg, (u0, rhs, acf), kwargs, got, ref, int(cycles),
+            mg.last_cycles, launches)
 
 
 @phase("K3")
 def k3_phase(torch, g, dtype, results):
-    from hipace_tpu_torch.fields.multigrid import MultiGrid
     from hipace_tpu_torch.ops.mg_kernel import mg_solve
     name = str(dtype).split(".")[1]
-    gen = torch.Generator(device="cuda").manual_seed(4)
-    mg = MultiGrid(g.nx, g.ny, g.dx, g.dy, device="cuda", dtype=dtype)
-    rhs = torch.randn((2, g.ny, g.nx), generator=gen, device="cuda",
-                      dtype=dtype)
-    acf = 1.0 + 0.1 * torch.rand((g.ny, g.nx), generator=gen, device="cuda",
-                                 dtype=dtype)
-    u0 = torch.zeros_like(rhs)
-    got = mg_solve(mg, u0, rhs, acf)
-    cycles = mg.last_cycles
-    ref = mg.solve_plain(u0, rhs, acf)
-    plain_cycles = mg.last_cycles
-    torch.cuda.synchronize()
-    ok, err, rel, tol = compare("K3", name, got, ref)
-    ms = cuda_ms(lambda: mg_solve(mg, u0, rhs, acf), reps=3)
-    plain_ms = cuda_ms(lambda: mg.solve_plain(u0, rhs, acf), reps=3)
-    print(f"K3 {name} C=2 on {g.ny}x{g.nx}, {mg.nlevels} levels: V-cycles "
-          f"{cycles} (plain {plain_cycles}); max abs err {err:.3e}, / max "
-          f"{rel:.3e} (tol {tol:g}) {'ok' if ok else 'FAIL'}; kernel "
-          f"{ms:.3f} ms, plain {plain_ms:.3f} ms", flush=True)
-    if not ok or cycles != plain_cycles:
-        raise AssertionError(f"K3 {name} outside tolerance or V-cycle counts "
-                             "differ")
-    results[("K3", name)] = (err, ms, plain_ms)
+    # (ny, nx, C, acf, max_iters); the first is the main path's solve
+    cases = [(g.ny, g.nx, 2, "2-D", 40), (g.ny, g.nx // 2, 1, "2-D", 40),
+             (g.ny, g.nx, 2, "scalar", 40), (g.ny, g.nx, 0, "2-D", 2)]
+    for i, (ny, nx, C, acf_kind, max_iters) in enumerate(cases):
+        (label, mg, args, kwargs, got, ref, cycles, plain_cycles,
+         launches) = k3_case(torch, dtype, ny, nx, g.dx, g.dy, C, acf_kind,
+                             max_iters, 4 + i)
+        ok, err, rel, tol = compare("K3", name, got, ref)
+        print(f"K3 {name} {label}: V-cycles {cycles} (plain {plain_cycles}), "
+              f"device launches per solve {launches}; max abs err {err:.3e}, "
+              f"/ max {rel:.3e} (tol {tol:g}) {'ok' if ok else 'FAIL'}",
+              flush=True)
+        if not ok or cycles != plain_cycles or launches > 3:
+            raise AssertionError(f"K3 {name} {label}: outside tolerance, "
+                                 "V-cycle counts differ or too many launches")
+        if max_iters == 2 and cycles != 2:
+            raise AssertionError(f"K3 {name} {label} did not end at max_iters")
+        if i:
+            continue
+        ms = cuda_ms(lambda: mg_solve(mg, *args, **kwargs), reps=10)
+        host_ms = wall_ms(lambda: mg_solve(mg, *args, **kwargs), reps=10)
+        plain_ms = cuda_ms(lambda: mg.solve_plain(*args, **kwargs), reps=3)
+        print(f"K3 {name} main-path solve: kernel {ms:.3f} ms between events, "
+              f"{host_ms:.3f} ms on the host clock; plain {plain_ms:.3f} ms",
+              flush=True)
+        # u0, rhs and acf in, u out; per V-cycle and cell of every level the
+        # sweeps (7 operations each), the residual (9), the transfers (~5)
+        size = got.element_size()
+        cells = sum(h * w for h, w in mg.shapes)
+        nbytes = size * (3 * C + 1) * ny * nx
+        flops = cycles * C * cells * (7 * 4 + 9 + 5)
+        b_ms, by = bound_line("K3", name, ms, nbytes, flops, size)
+        results[("K3", name)] = (err, ms, plain_ms, b_ms, by)
 
 
 @phase("reference")
@@ -228,21 +335,29 @@ def reference_phase(torch):
 
 @phase("main path")
 def main_path(torch, sim, counts):
-    from hipace_tpu_torch.ops.deposit import deposit
+    from hipace_tpu_torch.ops.deposit import (deposit, direct_block_count,
+                                              reset_block_counts)
     from hipace_tpu_torch.ops.gather import gather_main
     from hipace_tpu_torch.ops.mg_kernel import mg_solve
     n0 = int(sim.binned["valid"].sum())
-    steps = 3
+    steps, extra_steps = 3, 2
     for fn in (deposit, gather_main, mg_solve):
         fn.launches = 0
-    t_timed = 0.0
-    for step in range(steps):
+    mg_solve.kernel_launches = 0
+    reset_block_counts()
+    step_seconds = []
+    for step in range(steps + extra_steps):
+        if step == steps:
+            # the counted run ends here; the extra steps are only timed
+            counts.update({"K1": deposit.launches, "K2": gather_main.launches,
+                           "K3": mg_solve.launches})
+            mg_launches = mg_solve.kernel_launches
+            direct, blocks = direct_block_count("cuda"), deposit.blocks
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         res = sim.run_step(step)
         torch.cuda.synchronize()
-        if step:
-            t_timed += time.perf_counter() - t0
+        step_seconds.append(time.perf_counter() - t0)
         sim.binned = res["binned"]
         sim.time += sim.dt
         finite = bool(torch.isfinite(res["diag"]).all())
@@ -253,17 +368,25 @@ def main_path(torch, sim, counts):
               f"{max(res['mg_cycles'])}", flush=True)
         if not finite or n != n0:
             raise AssertionError("non-finite fields or beam particles lost")
-    counts.update({"K1": deposit.launches, "K2": gather_main.launches,
-                   "K3": mg_solve.launches})
     g = sim.geom
     pcfg, bcfg = sim.plasma_cfgs[0], sim.beam_cfgs[0]
     per_step = {"K1": int(pcfg.neutralize_background) + 3 * g.nz,
                 "K2": g.nz * (pcfg.n_subcycles + bcfg.n_subcycles),
                 "K3": g.nz}
+    t_timed = sum(step_seconds[1:steps])
     slices = g.nz * (steps - 1)
     print(f"main path {NXY}^2 x {NZ} float32, {NPART} beam particles: "
           f"{slices / t_timed:.3f} slices/s, {1e3 * t_timed / slices:.3f} "
           "ms/slice over 2 timed steps after 1 warm-up", flush=True)
+    print("main path slices/s per timed step: "
+          + ", ".join(f"{g.nz / t:.3f}" for t in step_seconds[1:]),
+          flush=True)
+    print(f"main path K1 blocks on the direct path: {direct} of {blocks} "
+          f"({100 * direct / blocks:.2f}%)", flush=True)
+    print(f"main path K3 device launches per solve: "
+          f"{mg_launches / counts['K3']:.2f}", flush=True)
+    if mg_launches > 3 * counts["K3"]:
+        raise AssertionError("a multigrid solve took more than 3 launches")
     for k, (fn_name, _, _) in KERNELS.items():
         want = per_step[k] * steps
         print(f"launches {k} {fn_name}: {counts[k]} (slice structure "
@@ -307,7 +430,8 @@ def main() -> int:
 
     t0 = time.perf_counter()
     lib = cuda_lib.library()
-    print(f"build: {' '.join(lib.command)}")
+    for cmd in lib.commands:
+        print(f"build: {' '.join(cmd)}")
     print(f"build: {'compiled' if lib.built else 'cached'} in "
           f"{lib.build_seconds:.1f} s ({time.perf_counter() - t0:.1f} s "
           "with loading)", flush=True)
@@ -342,11 +466,13 @@ def main() -> int:
         return 1
     kernels = []
     for k, (fn_name, source, replaces) in KERNELS.items():
-        err, ms, plain_ms = results[(k, "float32")]
+        err, ms, plain_ms, bound_ms, bound_by = results[(k, "float32")]
+        # no single PyTorch call computes any of the three functions
         kernels.append({"name": f"{k} {fn_name}", "route": "cuda",
                         "source": source, "replaces": replaces,
                         "launches": counts[k], "max_abs_err": err,
-                        "ms": ms, "plain_ms": plain_ms})
+                        "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+                        "bound_by": bound_by, "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

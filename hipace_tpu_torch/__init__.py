@@ -9,9 +9,10 @@ hand-written CUDA C++ kernels for sm_90a (``csrc/``):
 - K3 multigrid Bx/By solve (``ops/mg_kernel.py``).
 
 Each kernel has a plain PyTorch version beside it. CPU tensors take the
-plain version; CUDA tensors launch the kernel or raise. The JAX package is
-the reference the port is held to and is never imported here: deck parsing,
-constants and geometry are shared through its jax-free modules.
+plain version; CUDA tensors launch the kernel or raise. A run is on the card
+unless the caller asks for the CPU. The JAX package is the reference the
+port is held to and nothing of it is imported here: the port keeps its own
+deck parser, constants, geometry and atomic data.
 """
 
 __version__ = "0.1.0"

@@ -1,8 +1,9 @@
 """Device and dtype policy.
 
-CPU runs are float64 parity runs against the JAX package's x64 results.
-CUDA runs are float32 (the production type) or float64. Asking for CUDA on
-a machine without a usable GPU raises: nothing silently runs on the CPU.
+A run is on the card unless the caller asks for the CPU: CUDA in float32
+(the production type) or float64. Without a usable GPU that raises; nothing
+silently runs on the CPU. ``device="cpu"`` asks for the float64 parity run
+against the JAX package's x64 results, as the tests do.
 """
 
 from __future__ import annotations
@@ -11,13 +12,15 @@ import torch
 
 
 def resolve(device=None, dtype=None) -> tuple[torch.device, torch.dtype]:
-    """Return the (device, dtype) a run uses; raise on unsupported pairs."""
-    dev = torch.device("cpu" if device is None else device)
+    """Return the (device, dtype) a run uses; raise on unsupported pairs.
+    `device=None` is the card."""
+    dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
-                "device 'cuda' requested but torch.cuda.is_available() is "
-                "False")
+                "a CUDA device is needed but torch.cuda.is_available() is "
+                "False; pass device='cpu' (--device cpu) for the float64 "
+                "CPU run")
         dt = torch.float32 if dtype is None else dtype
         if dt not in (torch.float32, torch.float64):
             raise ValueError(f"CUDA runs are float32 or float64, not {dt}")

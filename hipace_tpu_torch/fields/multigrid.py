@@ -13,8 +13,11 @@ max(tol_abs, max(tol_rel, 1e-16) * max(|res0|, |rhs|)) or max_iters.
 ``solve_plain`` is the plain PyTorch version and K3's reference: the
 transfers are the dense separable products Ry r Rx^T of the XLA path.
 ``solve`` takes it for CPU tensors; CUDA tensors go to the hand-written
-kernels of ``ops/mg_kernel.py``. Even (cell-centered) grids and the complex
-laser system are not ported.
+kernel of ``ops/mg_kernel.py``. ``cycles`` holds the last solve's V-cycle
+count as that path left it -- an int from the plain version, a 0-d device
+tensor from the kernel, which no one has to read back -- and
+``last_cycles`` reads it as an int. Even (cell-centered) grids and the
+complex laser system are not ported.
 """
 
 from __future__ import annotations
@@ -74,8 +77,17 @@ class MultiGrid(torch.nn.Module):
             for name, n in (("Ry", n_y), ("Rx", n_x)):
                 self.register_buffer(f"{name}{lev}", torch.as_tensor(
                     restrict_matrix(n), dtype=dtype, device=device))
-        # V-cycles taken by the last solve (CPU or CUDA)
-        self.last_cycles = 0
+        # workspace layouts of the kernel's solves (ops/mg_kernel.py)
+        self.kernel_layouts = {}
+        # V-cycles taken by the last solve: an int (plain version) or a
+        # 0-d device tensor (kernel)
+        self.cycles = 0
+
+    @property
+    def last_cycles(self) -> int:
+        """V-cycles taken by the last solve; on the kernel path this reads
+        the device scalar, so it waits for the solve."""
+        return int(self.cycles)
 
     # ------------------------------------------------------------------
     def _offdiag(self, u, lev):
@@ -145,18 +157,19 @@ class MultiGrid(torch.nn.Module):
             resnorm = float(torch.max(torch.abs(
                 rhs - self.apply_op(u, acfs[0], 0))))
             it += 1
-        self.last_cycles = it
+        self.cycles = it
         return u
 
     def solve(self, u0, rhs, acf, tol_rel=1e-4, tol_abs=0.0, max_iters=40,
               nu1=2, nu2=2):
         """Solve Laplacian(u) - acf*u = rhs from u0: the plain version for
-        CPU tensors, the K3 kernels for CUDA tensors."""
+        CPU tensors, the K3 kernel for CUDA tensors."""
         if cuda_lib.use_kernel(u0):
             from ..ops.mg_kernel import mg_solve   # imports this module
-            return mg_solve(self, u0, rhs, acf, tol_rel=tol_rel,
-                            tol_abs=tol_abs, max_iters=max_iters, nu1=nu1,
-                            nu2=nu2)
+            u, self.cycles, _ = mg_solve(
+                self, u0, rhs, acf, tol_rel=tol_rel, tol_abs=tol_abs,
+                max_iters=max_iters, nu1=nu1, nu2=nu2)
+            return u
         return self.solve_plain(u0, rhs, acf, tol_rel=tol_rel,
                                 tol_abs=tol_abs, max_iters=max_iters,
                                 nu1=nu1, nu2=nu2)

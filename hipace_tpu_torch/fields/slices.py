@@ -8,7 +8,7 @@ from __future__ import annotations
 
 import torch
 
-from hipace_tpu.geometry import Geometry
+from ..geometry import Geometry
 
 
 def interior(f: torch.Tensor, geom: Geometry) -> torch.Tensor:

@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels (``hipace_tpu_torch/csrc``).
 
-The sources are compiled with ``nvcc`` for sm_90a into one shared library
-with a plain C interface, loaded through ctypes. The build happens at the
-first kernel launch, into ``build/hipace_tpu_torch/<hash>/`` at the root of
-the checkout, keyed by a hash of the sources and flags, so a changed source
-is rebuilt and an unchanged one reused. Importing this module builds
-nothing; a machine without nvcc fails at the first launch.
+The sources are compiled with ``nvcc`` for sm_90a, one process per source
+and all at once, and linked into one shared library with a plain C
+interface, loaded through ctypes. The build happens at the first kernel
+launch, into ``build/hipace_tpu_torch/<hash>/`` at the root of the checkout,
+keyed by a hash of the sources and flags, so a changed source is rebuilt and
+an unchanged one reused. Importing this module builds nothing; a machine
+without nvcc fails at the first launch.
 """
 
 from __future__ import annotations
@@ -23,22 +24,18 @@ import torch
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "hipace_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 LIB_NAME = "libhipace_tpu_torch.so"
 
 _P, _I, _LL, _U, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                        ctypes.c_uint, ctypes.c_double)
 # C signatures, one per dtype suffix (_f32, _f64)
 SIGNATURES = {
-    "hipace_deposit": [_P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _U, _U, _P],
+    "hipace_deposit": [_P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _U, _U, _I,
+                       _U, _P, _P],
     "hipace_gather_main": [_P, _P, _P, _P, _LL, _I, _I, _I, _P],
-    "hipace_mg_smooth": [_P, _P, _P, _I, _I, _I, _D, _D, _I, _P],
-    "hipace_mg_residual": [_P, _P, _P, _P, _I, _I, _I, _D, _D, _P],
-    "hipace_mg_restrict": [_P, _P, _P, _I, _I, _I, _P],
-    "hipace_mg_prolong_add": [_P, _P, _I, _I, _I, _P],
-    "hipace_mg_maxabs": [_P, _P, _LL, _P],
-    "hipace_mg_coarse": [_P, _P, _I, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I,
-                         _I, _I, _P],
+    "hipace_mg_solve": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                        _I, _D, _D, _I, _D, _P, _P, _P, _I, _P],
 }
 
 
@@ -72,22 +69,44 @@ class KernelLibrary:
         out_dir = BUILD_ROOT / source_hash()
         self.path = out_dir / LIB_NAME
         cus, _ = _sources()
-        self.command = [nvcc_path()] + NVCC_FLAGS + [
-            "-o", str(self.path)] + [str(p) for p in cus]
+        nvcc = [nvcc_path()] + NVCC_FLAGS
+        tag = f".{os.getpid()}.tmp"
+        objects = [out_dir / f"{p.stem}{tag}.o" for p in cus]
+        tmp = out_dir / f".{LIB_NAME}{tag}"
+        self.commands = [nvcc + ["-c", "-o", str(o), str(p)]
+                         for o, p in zip(objects, cus)]
+        self.commands.append(nvcc + ["-shared", "-o", str(tmp)]
+                             + [str(o) for o in objects])
         self.build_seconds = 0.0
         self.compiler_output = ""
         self.built = False
         if not self.path.exists():
             out_dir.mkdir(parents=True, exist_ok=True)
-            tmp = out_dir / f".{LIB_NAME}.{os.getpid()}.tmp"
-            cmd = self.command[:]
-            cmd[cmd.index(str(self.path))] = str(tmp)
             t0 = time.perf_counter()
-            proc = subprocess.run(cmd, capture_output=True, text=True,
-                                  check=False)
+            procs, outputs = [], []
+            try:
+                for cmd in self.commands[:-1]:
+                    procs.append(subprocess.Popen(
+                        cmd, stdout=subprocess.PIPE,
+                        stderr=subprocess.STDOUT, text=True))
+                outputs = [proc.communicate()[0] for proc in procs]
+                failed = any(proc.returncode for proc in procs)
+                if not failed:
+                    link = subprocess.run(
+                        self.commands[-1], stdout=subprocess.PIPE,
+                        stderr=subprocess.STDOUT, text=True, check=False)
+                    outputs.append(link.stdout)
+                    failed = link.returncode != 0
+            finally:
+                for proc in procs:
+                    if proc.poll() is None:
+                        proc.kill()
+                        proc.wait()
+                for o in objects:
+                    o.unlink(missing_ok=True)
             self.build_seconds = time.perf_counter() - t0
-            self.compiler_output = proc.stdout + proc.stderr
-            if proc.returncode != 0:
+            self.compiler_output = "".join(outputs)
+            if failed:
                 raise RuntimeError("nvcc failed:\n" + self.compiler_output)
             os.replace(tmp, self.path)
             self.built = True

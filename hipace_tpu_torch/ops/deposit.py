@@ -15,7 +15,15 @@ the grid are dropped.
 
 ``deposit`` adds into `fields` in place and returns it: CPU tensors take
 ``deposit_plain`` (exact index_add_ scatter), CUDA tensors launch the
-hand-written kernel ``csrc/deposit.cu``.
+hand-written kernel ``csrc/deposit.cu``, in which a block stages and bins
+its lanes in shared memory, sums every touched cell in registers and adds
+it to global memory once. A caller whose lanes are
+in lattice order (lane p started at lattice cell (p // W, p % W), as the
+plasma's are) passes W as `lattice_width`: blocks then take 2-D patches of
+the lattice, whose stencils stay compact. It is a hint about locality only;
+any value gives the same sums. A block whose stencil origins do not fit its
+32 x 32 box deposits straight to global memory inside the same kernel;
+``deposit.blocks`` and ``direct_block_count`` say how many did.
 """
 
 from __future__ import annotations
@@ -26,6 +34,10 @@ from . import cuda_lib
 from .shape import DW_KIND, W_KIND, ntaps, stencil_i0, wfun
 
 LIVE_FRACTION = 1.5   # lanes with ym >= LIVE_FRACTION * NY are dead
+# the kernel's block: a 16 x 16 lattice patch or 256 consecutive lanes
+PATCH = 16
+# per device: the kernel's count of blocks that took the direct path
+_DIRECT_BLOCKS: dict = {}
 
 
 def _blocks(blocks, C, order, deriv_type):
@@ -71,7 +83,34 @@ def deposit_plain(fields, ym, xm, values, order, deriv_type=-1, blocks=None):
     return fields
 
 
-def deposit_cuda(fields, ym, xm, values, order, deriv_type=-1, blocks=None):
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _direct_counter(device) -> torch.Tensor:
+    device = torch.device(device)
+    if device.index is None:      # "cuda" is the current card
+        device = torch.device(device.type, torch.cuda.current_device())
+    if device not in _DIRECT_BLOCKS:
+        _DIRECT_BLOCKS[device] = torch.zeros(1, dtype=torch.int32,
+                                             device=device)
+    return _DIRECT_BLOCKS[device]
+
+
+def direct_block_count(device) -> int:
+    """Blocks that deposited straight to global memory on `device` since
+    ``reset_block_counts`` (reads the kernel's device counter)."""
+    return int(_direct_counter(device))
+
+
+def reset_block_counts() -> None:
+    deposit.blocks = 0
+    for counter in _DIRECT_BLOCKS.values():
+        counter.zero_()
+
+
+def deposit_cuda(fields, ym, xm, values, order, deriv_type=-1, blocks=None,
+                 lattice_width=None):
     """Launch the K1 kernel on CUDA tensors."""
     C, NY, NX = fields.shape
     blocks = _blocks(blocks, C, order, deriv_type)
@@ -96,19 +135,33 @@ def deposit_cuda(fields, ym, xm, values, order, deriv_type=-1, blocks=None):
         c += n
     if N == 0:
         return fields
+    lattice_w = int(lattice_width or 0)
+    if lattice_w < 0:
+        raise ValueError(f"lattice_width {lattice_width} is negative")
+    if lattice_w:
+        grid = (_ceil_div(_ceil_div(N, lattice_w), PATCH)
+                * _ceil_div(lattice_w, PATCH))
+    else:
+        grid = _ceil_div(N, PATCH * PATCH)
     fn = cuda_lib.library().fn("hipace_deposit", dt)
     cuda_lib.check(fn(fields.data_ptr(), ym.data_ptr(), xm.data_ptr(),
                       values.data_ptr(), C, N, NY, NX, order, deriv_type,
-                      ymask, xmask, cuda_lib.stream_ptr(fields)), "deposit")
+                      ymask, xmask, lattice_w, grid,
+                      _direct_counter(fields.device).data_ptr(),
+                      cuda_lib.stream_ptr(fields)), "deposit")
     deposit.launches += 1
+    deposit.blocks += grid
     return fields
 
 
-def deposit(fields, ym, xm, values, order, deriv_type=-1, blocks=None):
+def deposit(fields, ym, xm, values, order, deriv_type=-1, blocks=None,
+            lattice_width=None):
     """Add the (C, N) channel values into fields (C, NY, NX) in place."""
     if cuda_lib.use_kernel(fields):
-        return deposit_cuda(fields, ym, xm, values, order, deriv_type, blocks)
+        return deposit_cuda(fields, ym, xm, values, order, deriv_type, blocks,
+                            lattice_width)
     return deposit_plain(fields, ym, xm, values, order, deriv_type, blocks)
 
 
 deposit.launches = 0
+deposit.blocks = 0

@@ -1,4 +1,4 @@
-"""K3: the multigrid Bx/By solve on the hand-written kernels.
+"""K3: the multigrid Bx/By solve on the hand-written kernel.
 
 Port of the Pallas kernel ``_mg_kernel`` / ``FusedMG.solve``
 (``hipace_tpu/ops/pallas_mg.py:62-249``), held to the XLA path of
@@ -6,37 +6,105 @@ Port of the Pallas kernel ``_mg_kernel`` / ``FusedMG.solve``
 plain version is ``MultiGrid.solve_plain`` in ``fields/multigrid.py``;
 ``MultiGrid.solve`` sends CUDA tensors here.
 
-A block's 227 KB of shared memory cannot hold the 1023^2 ladder, so this is
-a host-driven V-cycle over the kernels of ``csrc/multigrid.cu``: one
-launch per red-black colour, residual, stencil restriction and prolong-add
-on the fine levels, and one single-block shared-memory kernel for every
-level from the first one of at most COARSE_CELLS cells down. The per-level
-invd = 1/(diag - acf) and dma = diag - acf are torch set-up (as in
-``FusedMG.solve``); the acf coarsening runs on the restriction kernel. The
-max-norm residual is read back once per V-cycle for the convergence test.
+One solve is ONE cooperative launch of the persistent kernel of
+``csrc/multigrid.cu``: the acf coarsening, the first norms, the stopping
+threshold and the V-cycle loop all run on the device, and the V-cycle count
+and the last residual norm come back as device scalars that nobody has to
+read. This module only lays out the solve: it picks the first level Lc
+whose ladder fits one block's shared memory (by dtype and channel count),
+carves the per-level buffers out of one workspace (the layout is worked out
+once per MultiGrid and kind of solve), and hands the kernel the table of
+pointers. If the launch is refused, the call raises.
 
-``mg_solve.launches`` counts solves, not kernel launches: a V-cycle
-launches 11 kernels per fine level, the coarse kernel, and the residual
-and max-abs kernels of the convergence test.
+``mg_solve.launches`` counts solves; ``mg_solve.kernel_launches`` counts
+every device launch those solves made (the cooperative kernel, plus a copy
+or cast where an argument had to be made contiguous or of the working
+type).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from . import cuda_lib
-from ..fields.multigrid import COARSE_SWEEPS, convergence_target
+from ..fields.multigrid import COARSE_SWEEPS
 
-COARSE_CELLS = 1024      # levels of at most this many cells run in one block
-MAX_SMEM = 227 * 1024
+TILE_DIM = 64               # the kernel's tile array, halo included
+MAX_SMEM = 227 * 1024       # dynamic shared memory one block may have
+# blocks per SM the kernel is built for, by itemsize (csrc/multigrid.cu)
+BLOCKS_PER_SM = {4: 2, 8: 1}
+# rows of the kernel's table of per-level pointers
+TABLE_ROWS = {"A": 0, "B": 1, "rhs": 2, "acf": 3}
 
 
-def _coarse_start(shapes) -> int:
-    for lev, (ny, nx) in enumerate(shapes):
-        if ny * nx <= COARSE_CELLS:
-            return lev
-    return len(shapes) - 1
+def plan(shapes, C: int, itemsize: int, nu1: int, nu2: int):
+    """(halo, Lc, shared-memory bytes) of a solve on `shapes`.
+
+    The halo covers one cell per colour half-sweep plus the reach of the
+    residual and of the restriction. Lc is the first level from which the
+    whole ladder -- per level u and rhs (C planes each), dma and invd, plus
+    one residual scratch of level Lc -- fits the block's share of the SM."""
+    halo = 2 * max(nu1, nu2) + 2
+    if TILE_DIM - 2 * halo < 16:
+        raise ValueError(f"nu1={nu1}, nu2={nu2} leave no room in a "
+                         f"{TILE_DIM}-cell tile")
+    # u, and the residual or the coarse tile
+    tile = 2 * (TILE_DIM + 2) ** 2 * itemsize
+    # 1 KB per resident block is the system's
+    budget = max(tile, MAX_SMEM // BLOCKS_PER_SM[itemsize] - 1024)
+    cells = [ny * nx for ny, nx in shapes]
+    for lc in range(len(shapes)):
+        coarse = itemsize * ((2 * C + 2) * sum(cells[lc:]) + C * cells[lc])
+        if coarse <= budget:
+            # the tile stages run only above level Lc
+            return halo, lc, max(coarse, tile if lc else 0)
+    raise ValueError(f"the coarsest level of {shapes} with {C} channels does "
+                     "not fit one block's shared memory")
+
+
+@dataclasses.dataclass(frozen=True)
+class Layout:
+    """Where a solve's per-level buffers lie in its one workspace."""
+    halo: int
+    Lc: int
+    smem: int
+    total: int               # workspace elements
+    offsets: np.ndarray      # (4, L) element offsets by TABLE_ROWS, -1: none
+    ny: np.ndarray
+    nx: np.ndarray
+    facx: np.ndarray
+    facy: np.ndarray
+
+
+def _layout(mg, C, itemsize, nu1, nu2, scalar_acf) -> Layout:
+    """The layout of this kind of solve, worked out once per MultiGrid: A
+    (the down-leg's u) for l < Lc; B (the final u), rhs and acf for
+    1 <= l <= Lc; acf[0] for a scalar acf."""
+    key = (C, itemsize, nu1, nu2, scalar_acf)
+    if key not in mg.kernel_layouts:
+        halo, Lc, smem = plan(mg.shapes, C, itemsize, nu1, nu2)
+        cells = [ny * nx for ny, nx in mg.shapes]
+        sizes = {("A", l): C * cells[l] for l in range(Lc)}
+        for l in range(1, Lc + 1):
+            sizes["B", l] = sizes["rhs", l] = C * cells[l]
+            sizes["acf", l] = cells[l]
+        if scalar_acf:
+            sizes["acf", 0] = cells[0]
+        offsets = np.full((4, mg.nlevels), -1, np.int64)
+        total = 0
+        for (name, l), n in sizes.items():
+            offsets[TABLE_ROWS[name], l] = total
+            total += n
+        mg.kernel_layouts[key] = Layout(
+            halo, Lc, smem, total, offsets,
+            np.array([s[0] for s in mg.shapes], np.int32),
+            np.array([s[1] for s in mg.shapes], np.int32),
+            np.array([f[0] for f in mg.facs], np.float64),
+            np.array([f[1] for f in mg.facs], np.float64))
+    return mg.kernel_layouts[key]
 
 
 def mg_solve(mg, u0, rhs, acf, tol_rel=1e-4, tol_abs=0.0, max_iters=40,
@@ -44,7 +112,8 @@ def mg_solve(mg, u0, rhs, acf, tol_rel=1e-4, tol_abs=0.0, max_iters=40,
     """Solve Laplacian(u) - acf*u = rhs from u0 on CUDA tensors.
 
     u0, rhs: (C, ny, nx) or (ny, nx); acf: (ny, nx) tensor or a scalar.
-    Returns a new tensor; mg.last_cycles holds the V-cycle count."""
+    Returns (u, cycles, resnorm): a new tensor, and the V-cycle count
+    (int32) and the last max-norm residual as 0-d device tensors."""
     squeeze = u0.ndim == 2
     if squeeze:
         u0, rhs = u0[None], rhs[None]
@@ -52,101 +121,55 @@ def mg_solve(mg, u0, rhs, acf, tol_rel=1e-4, tol_abs=0.0, max_iters=40,
     if (ny, nx) != mg.shapes[0]:
         raise ValueError(f"grid {(ny, nx)} does not match the multigrid "
                          f"{mg.shapes[0]}")
+    if max_iters < 0:
+        raise ValueError(f"max_iters {max_iters} is negative")
     dt, dev = u0.dtype, u0.device
+    launched = 1
+    if not u0.is_contiguous():
+        u0, launched = u0.contiguous(), launched + 1
+    if not rhs.is_contiguous():
+        rhs, launched = rhs.contiguous(), launched + 1
     cuda_lib.require(u0, "u0", dtype=dt)
-    rhs = rhs.contiguous()
     cuda_lib.require(rhs, "rhs", dtype=dt, shape=(C, ny, nx), device=dev)
-    lib = cuda_lib.library()
-    stream = cuda_lib.stream_ptr(u0)
-    L = mg.nlevels
-    shapes = mg.shapes
+    acf_plane = None
+    if torch.is_tensor(acf):
+        if acf.ndim == 0:       # no readback: spread the 0-d value
+            acf = acf.expand(ny, nx)
+        if acf.dtype != dt or not acf.is_contiguous():
+            launched += 1
+        acf_plane = acf.to(dtype=dt).contiguous()
+        cuda_lib.require(acf_plane, "acf", shape=(ny, nx), device=dev)
 
-    def call(name, *args):
-        cuda_lib.check(lib.fn(name, dt)(*args, stream), name)
+    itemsize = u0.element_size()
+    lay = _layout(mg, C, itemsize, nu1, nu2, acf_plane is None)
+    work = torch.empty(lay.total, dtype=dt, device=dev)
+    u = torch.empty_like(u0)
+    # the norm slots, then the V-cycle count and the last norm, 8 bytes each
+    stats = torch.empty(max_iters + 4, dtype=torch.int64, device=dev)
+    table = np.where(lay.offsets >= 0,
+                     work.data_ptr() + lay.offsets * itemsize, 0)
+    table[TABLE_ROWS["B"], 0] = u.data_ptr()
+    table[TABLE_ROWS["rhs"], 0] = rhs.data_ptr()
+    if acf_plane is not None:
+        table[TABLE_ROWS["acf"], 0] = acf_plane.data_ptr()
+    table = table.astype(np.uint64)
+    cycles_at = stats.data_ptr() + 8 * (max_iters + 2)
 
-    # per-level coefficients
-    if torch.is_tensor(acf) and acf.ndim == 2:
-        acf0 = acf.to(dtype=dt).contiguous()
-        cuda_lib.require(acf0, "acf", shape=(ny, nx), device=dev)
-    else:
-        acf0 = torch.full((ny, nx), float(acf), dtype=dt, device=dev)
-    acfs = [acf0]
-    for lev in range(1, L):
-        a = torch.empty(shapes[lev], dtype=dt, device=dev)
-        call("hipace_mg_restrict", a.data_ptr(), None, acfs[-1].data_ptr(),
-             1, *shapes[lev - 1])
-        acfs.append(a)
-    dma = [mg.diags[lev] - acfs[lev] for lev in range(L)]
-    invd = [1.0 / (mg.diags[lev] - acfs[lev]) for lev in range(L)]
-
-    Lc = _coarse_start(shapes)
-    u = [u0.clone()] + [torch.empty((C,) + shapes[lev], dtype=dt,
-                                    device=dev) for lev in range(1, Lc + 1)]
-    r = [rhs] + [torch.empty((C,) + shapes[lev], dtype=dt, device=dev)
-                 for lev in range(1, Lc + 1)]
-    res = torch.empty((C, ny, nx), dtype=dt, device=dev)
-    bits = torch.empty(1, dtype={torch.float32: torch.int32,
-                                 torch.float64: torch.int64}[dt], device=dev)
-
-    itemsize = torch.empty((), dtype=dt).element_size()
-    smem = C * itemsize * (2 * sum(shapes[lev][0] * shapes[lev][1]
-                                   for lev in range(Lc, L))
-                           + shapes[Lc][0] * shapes[Lc][1])
-    if smem > MAX_SMEM:
-        raise ValueError(f"coarse levels of {shapes} need {smem} B of "
-                         "shared memory")
-    lv_ny = np.array([s[0] for s in shapes], np.int32)
-    lv_nx = np.array([s[1] for s in shapes], np.int32)
-    lv_fx = np.array([f[0] for f in mg.facs], np.float64)
-    lv_fy = np.array([f[1] for f in mg.facs], np.float64)
-    lv_invd = np.array([t.data_ptr() for t in invd], np.uint64)
-    lv_dma = np.array([t.data_ptr() for t in dma], np.uint64)
-
-    def norm(x):
-        call("hipace_mg_maxabs", bits.data_ptr(), x.data_ptr(), x.numel())
-        return float(bits.view(dt).item())
-
-    def resnorm():
-        fx, fy = mg.facs[0]
-        call("hipace_mg_residual", res.data_ptr(), u[0].data_ptr(),
-             r[0].data_ptr(), dma[0].data_ptr(), C, ny, nx, fx, fy)
-        return norm(res)
-
-    def smooth(lev, sweeps):
-        fx, fy = mg.facs[lev]
-        for _ in range(sweeps):
-            for color in (0, 1):
-                call("hipace_mg_smooth", u[lev].data_ptr(), r[lev].data_ptr(),
-                     invd[lev].data_ptr(), C, *shapes[lev], fx, fy, color)
-
-    def vcycle():
-        for lev in range(Lc):
-            fx, fy = mg.facs[lev]
-            smooth(lev, nu1)
-            call("hipace_mg_residual", res.data_ptr(), u[lev].data_ptr(),
-                 r[lev].data_ptr(), dma[lev].data_ptr(), C, *shapes[lev],
-                 fx, fy)
-            call("hipace_mg_restrict", r[lev + 1].data_ptr(),
-                 u[lev + 1].data_ptr(), res.data_ptr(), C, *shapes[lev])
-        call("hipace_mg_coarse", u[Lc].data_ptr(), r[Lc].data_ptr(), C, Lc,
-             L, lv_ny.ctypes.data, lv_nx.ctypes.data, lv_fx.ctypes.data,
-             lv_fy.ctypes.data, lv_invd.ctypes.data, lv_dma.ctypes.data,
-             nu1, nu2, COARSE_SWEEPS, smem)
-        for lev in range(Lc - 1, -1, -1):
-            call("hipace_mg_prolong_add", u[lev].data_ptr(),
-                 u[lev + 1].data_ptr(), C, *shapes[lev])
-            smooth(lev, nu2)
-
-    current = resnorm()
-    target = convergence_target(current, norm(r[0]), tol_rel, tol_abs, dt)
-    it = 0
-    while current > target and it < max_iters:
-        vcycle()
-        current = resnorm()
-        it += 1
-    mg.last_cycles = it
+    fn = cuda_lib.library().fn("hipace_mg_solve", dt)
+    cuda_lib.check(fn(
+        u0.data_ptr(), table.ctypes.data, lay.ny.ctypes.data,
+        lay.nx.ctypes.data, lay.facx.ctypes.data, lay.facy.ctypes.data, C,
+        mg.nlevels, lay.Lc, nu1, nu2, COARSE_SWEEPS, lay.halo, max_iters,
+        tol_rel, tol_abs, int(acf_plane is None),
+        0.0 if acf_plane is not None else float(acf), stats.data_ptr(),
+        cycles_at, cycles_at + 8, lay.smem, cuda_lib.stream_ptr(u0)),
+        "mg_solve")
+    cycles = stats[max_iters + 2:max_iters + 3].view(torch.int32)[0]
+    resnorm = stats[max_iters + 3:].view(dt)[0]
     mg_solve.launches += 1
-    return u[0][0] if squeeze else u[0]
+    mg_solve.kernel_launches += launched
+    return (u[0] if squeeze else u), cycles, resnorm
 
 
 mg_solve.launches = 0
+mg_solve.kernel_launches = 0

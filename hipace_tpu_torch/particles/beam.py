@@ -19,13 +19,11 @@ import math
 import numpy as np
 import torch
 
-from hipace_tpu.constants import PhysConst
-from hipace_tpu.geometry import Geometry
-from hipace_tpu.parser import Inputs
-
 from .. import unsupported
+from ..constants import PhysConst
+from ..geometry import Geometry
 from ..ops.deposit import deposit
-from ..parser import TorchFunction
+from ..parser import Inputs, TorchFunction
 from .plasma import (cell_positions, enforce_particle_bc, gather_fields,
                      gather_stack)
 

@@ -20,14 +20,13 @@ import dataclasses
 
 import torch
 
-from hipace_tpu.constants import SI_c, PhysConst
-from hipace_tpu.geometry import Geometry
-from hipace_tpu.parser import Inputs
-
+from .. import unsupported
+from ..constants import SI_c, PhysConst
+from ..geometry import Geometry
 from ..ops.deposit import deposit
 from ..ops.gather import gather_main
-from .. import unsupported
-from ..parser import TorchFunction, deck_function
+from ..parser import Inputs, TorchFunction, deck_function
+from ..utils.atomic_data import ATOMIC_WEIGHTS_DA
 
 
 @dataclasses.dataclass(frozen=True)
@@ -84,7 +83,6 @@ class PlasmaConfig:
         elif element == "proton":
             charge, mass = pc.q_e, pc.m_p
         else:
-            from hipace_tpu.utils.atomic_data import ATOMIC_WEIGHTS_DA
             charge = pc.q_e
             mass = pc.m_p * ATOMIC_WEIGHTS_DA.get(element, 1.007276466621) \
                 / 1.007276466621
@@ -353,8 +351,9 @@ def deposit_plasma(p: dict, stack_comps, fields: dict, geom: Geometry,
     }
     ym, xm = cell_positions(p["x"], p["y"], p["valid"], geom)
     stack = torch.stack([fields[c] for c in stack_comps])
+    # lanes are in init_plasma's lattice order: rows of geom.nx
     deposit(stack, ym, xm, torch.stack([values[c] for c in stack_comps]),
-            order)
+            order, lattice_width=geom.nx)
     out = dict(fields)
     out.update(zip(stack_comps, stack))
     new_p = dict(p)
@@ -411,7 +410,8 @@ def fused_plasma_deposits(p: dict, stack_comps, fields: dict, geom: Geometry,
                                  dtype=psi_inv.dtype,
                                  device=psi_inv.device)])
     ym, xm = cell_positions(p["x"], p["y"], p["valid"], geom)
-    deposit(acc, ym, xm, torch.stack(vall), order, deriv_type=2)
+    deposit(acc, ym, xm, torch.stack(vall), order, deriv_type=2,
+            lattice_width=geom.nx)
     dgrids = (acc[Cm:Cm + C1], acc[Cm + C1:Cm + C1 + 2], acc[Cm + C1 + 2:])
     out = dict(fields)
     out.update(zip(stack_comps, acc[:Cm]))

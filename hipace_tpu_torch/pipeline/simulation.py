@@ -12,12 +12,11 @@ from __future__ import annotations
 
 import torch
 
-from hipace_tpu.constants import make_constants
-from hipace_tpu.geometry import Geometry
-from hipace_tpu.parser import Inputs
-
 from .. import device as dev_policy
 from .. import unsupported
+from ..constants import make_constants
+from ..geometry import Geometry
+from ..parser import Inputs
 from ..particles import beam as bm
 from ..particles import plasma as pl
 from .step import (DIAG_COMPS, SimConfig, SliceStep, empty_slip,
@@ -121,6 +120,10 @@ class Simulation:
             emitted[islice] = out["beam_out"]
             diag[islice] = out["diag"]
             cycles.append(out["mg_cycles"])
+        # the kernel leaves its V-cycle counts on the device: read them
+        # once, after the sweep
+        if cycles and torch.is_tensor(cycles[0]):
+            cycles = torch.stack(cycles).tolist()
         # merge emitted beam + final slip, re-bin by new z
         flat = {k: torch.cat([e[k] for e in emitted] + [carry["slip"][k]])
                 for k in bm.ALL_ATTRS}

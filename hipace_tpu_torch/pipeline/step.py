@@ -21,12 +21,11 @@ import dataclasses
 
 import torch
 
-from hipace_tpu.constants import PhysConst
-from hipace_tpu.geometry import Geometry
-
+from ..constants import PhysConst
 from ..fields import slices as sl
 from ..fields.multigrid import MultiGrid
 from ..fields.poisson import VARIANTS, DirichletPoissonSolver
+from ..geometry import Geometry
 from ..particles import beam as bm
 from ..particles import plasma as pl
 
@@ -133,7 +132,8 @@ class SliceStep:
                  beam_next: dict):
         """One slice. carry: fields, plasma (list), slip, dt. Returns
         (carry, out) with out = {beam_out: emitted lanes, diag: (16, ny,
-        nx) field record, mg_cycles}."""
+        nx) field record, mg_cycles: the solve's V-cycle count, an int on
+        the CPU and an unread 0-d device tensor on the card}."""
         cfg = self.cfg
         g, pc, order = cfg.geom, cfg.pc, cfg.depos_order_xy
         f = carry["fields"]
@@ -211,7 +211,7 @@ class SliceStep:
                                              "jy_beam": this["jy_beam"]})
         carry = dict(carry, fields=f, plasma=plasmas, slip=slip)
         return carry, {"beam_out": emit, "diag": diag,
-                       "mg_cycles": self.mg.last_cycles}
+                       "mg_cycles": self.mg.cycles}
 
 
 def empty_slip(device, dtype) -> dict:

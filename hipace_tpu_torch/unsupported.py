@@ -9,7 +9,7 @@ beam_buckets) select no physics and are accepted as no-ops.
 
 from __future__ import annotations
 
-from hipace_tpu.parser import Inputs
+from .parser import Inputs
 
 PDF_BEAM = "fixed_weight_pdf beam and the transverse-benchmark deck"
 PC_AND_OPEN = "predictor-corrector Bx/By solver and open boundaries"

@@ -77,24 +77,101 @@ def test_gather_kernel(cuda, dtype, order):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("ny,nx,nchan", [(31, 31, 2), (63, 31, 1),
-                                         (15, 127, 2), (255, 255, 2)])
-def test_multigrid_kernel(cuda, dtype, ny, nx, nchan):
+@pytest.mark.parametrize("case", ["lattice hint", "no hint", "shuffled",
+                                  "far with hint", "wrong hint"])
+def test_deposit_kernel_tile_and_direct_paths(cuda, dtype, case):
+    """Lattice-ordered lanes fill shared-memory tiles; shuffled or far-moved
+    lanes overflow them and take the in-kernel direct path. The sums are
+    the same whatever the hint."""
+    from hipace_tpu_torch.ops import deposit as dep
+    rng = np.random.default_rng(5)
+    ny = nx = 100
+    G, C = 2, 13
+    NY, NX = ny + 2 * G, nx + 2 * G
+    N = ny * nx
+    iy, ix = np.divmod(np.arange(N), nx)
+    spread = 40.0 if case == "far with hint" else 0.5
+    ym = iy + G + rng.uniform(-spread, spread, N)
+    xm = ix + G + rng.uniform(-spread, spread, N)
+    ym[::97] = 2.0 * NY
+    vals = rng.standard_normal((C, N))
+    if case == "shuffled":
+        perm = rng.permutation(N)
+        ym, xm, vals = ym[perm], xm[perm], np.ascontiguousarray(vals[:, perm])
+    width = {"lattice hint": nx, "far with hint": nx, "wrong hint": 37}.get(
+        case)
+    ym, xm, vals = (torch.tensor(a, dtype=dtype, device=cuda)
+                    for a in (ym, xm, vals))
+    zero = torch.zeros((C, NY, NX), dtype=dtype, device=cuda)
+    dep.reset_block_counts()
+    got = dep.deposit_cuda(zero.clone(), ym, xm, vals, 2, 2,
+                           lattice_width=width)
+    direct, blocks = dep.direct_block_count(cuda), dep.deposit.blocks
+    ref = dep.deposit_plain(zero.clone(), ym, xm, vals, 2, 2)
+    torch.cuda.synchronize()
+    assert _rel(got, ref) < _tol(dtype, 1e-12, 1e-5)
+    assert 0 <= direct <= blocks and blocks > 0
+    if case == "lattice hint":
+        assert direct == 0
+    if case in ("shuffled", "far with hint"):
+        assert direct > blocks // 2
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("ny,nx,nchan,acf_kind,max_iters", [
+    (31, 31, 2, "2-D", 40), (63, 31, 1, "2-D", 40), (15, 127, 2, "2-D", 40),
+    (95, 63, 2, "2-D", 40), (95, 63, 1, "scalar", 40),
+    (255, 255, 2, "2-D", 40), (255, 255, 1, "scalar", 40),
+    (255, 255, 0, "2-D", 40), (255, 255, 2, "2-D", 1),
+    (1023, 511, 1, "2-D", 40), (1023, 511, 2, "scalar", 1)])
+def test_multigrid_kernel(cuda, dtype, ny, nx, nchan, acf_kind, max_iters):
+    """One cooperative launch per solve, the plain version's V-cycle count,
+    on grids that are not multiples of the kernel's tile; nchan 0 is the
+    unbatched (ny, nx) system."""
     from hipace_tpu_torch.fields.multigrid import MultiGrid
     from hipace_tpu_torch.ops.mg_kernel import mg_solve
     rng = np.random.default_rng(ny + nx)
     mg = MultiGrid(nx, ny, 0.05, 0.07, device=cuda, dtype=dtype)
-    rhs = torch.tensor(rng.standard_normal((nchan, ny, nx)), dtype=dtype,
-                       device=cuda)
+    shape = (nchan, ny, nx) if nchan else (ny, nx)
+    rhs = torch.tensor(rng.standard_normal(shape), dtype=dtype, device=cuda)
     acf = torch.tensor(np.abs(rng.standard_normal((ny, nx))), dtype=dtype,
-                       device=cuda)
+                       device=cuda) if acf_kind == "2-D" else 0.75
     u0 = torch.zeros_like(rhs)
-    got = mg_solve(mg, u0, rhs, acf, tol_rel=1e-4)
-    cycles = mg.last_cycles
-    ref = mg.solve_plain(u0, rhs, acf, tol_rel=1e-4)
+    before = (mg_solve.launches, mg_solve.kernel_launches)
+    got, cycles, resnorm = mg_solve(mg, u0, rhs, acf, tol_rel=1e-4,
+                                    max_iters=max_iters)
+    assert mg_solve.launches == before[0] + 1
+    assert mg_solve.kernel_launches == before[1] + 1
+    ref = mg.solve_plain(u0, rhs, acf, tol_rel=1e-4, max_iters=max_iters)
     torch.cuda.synchronize()
-    assert cycles == mg.last_cycles
+    assert int(cycles) == mg.last_cycles > 0
+    if max_iters == 1:
+        assert int(cycles) == 1
     assert _rel(got, ref) < _tol(dtype, 1e-9, 1e-4)
+    res = (rhs - mg.apply_op(got, acf)).abs().max()
+    assert abs(float(resnorm) - float(res)) <= 1e-3 * float(res)
+
+
+def test_multigrid_solve_sends_cuda_tensors_to_the_kernel(cuda):
+    """MultiGrid.solve keeps the kernel's count on the device; last_cycles
+    reads it. A converged first guess takes no V-cycle and comes back
+    unchanged; NaNs end the solve at once, as in the plain version."""
+    from hipace_tpu_torch.fields.multigrid import MultiGrid
+    from hipace_tpu_torch.ops.mg_kernel import mg_solve
+    rng = np.random.default_rng(3)
+    mg = MultiGrid(127, 127, 0.05, 0.07, device=cuda, dtype=torch.float64)
+    rhs = torch.tensor(rng.standard_normal((2, 127, 127)), device=cuda)
+    before = mg_solve.launches
+    u = mg.solve(torch.zeros_like(rhs), rhs, 0.5)
+    assert mg_solve.launches == before + 1
+    assert torch.is_tensor(mg.cycles) and mg.cycles.device.type == "cuda"
+    assert mg.last_cycles > 0
+    again = mg.solve(u, rhs, 0.5, tol_rel=1e-2)
+    assert mg.last_cycles == 0 and torch.equal(again, u)
+    bad = rhs.clone()
+    bad[0, 5, 5] = float("nan")
+    mg.solve(torch.zeros_like(rhs), bad, 0.5)
+    assert mg.last_cycles == 0
 
 
 def test_kernels_count_launches(cuda):

@@ -22,10 +22,13 @@ from hipace_tpu.parser import Inputs, compile_function
 from hipace_tpu.particles import beam as jbm
 from hipace_tpu.particles import plasma as jpl
 from hipace_tpu_torch import device as tdevice
+from hipace_tpu_torch.constants import make_constants as tmake_constants
 from hipace_tpu_torch.fields import poisson as tpoisson
 from hipace_tpu_torch.fields import slices as tsl
+from hipace_tpu_torch.geometry import Geometry as TGeometry
 from hipace_tpu_torch.ops import dst as tdst
 from hipace_tpu_torch.ops import shape as tshape
+from hipace_tpu_torch.parser import Inputs as TInputs
 from hipace_tpu_torch.parser import TorchFunction
 from hipace_tpu_torch.particles import beam as tbm
 from hipace_tpu_torch.particles import plasma as tpl
@@ -36,6 +39,10 @@ RTOL = 1e-12
 GEOM = Geometry(n_cell=(31, 27, 16), prob_lo=(-4.0, -3.0, -6.0),
                 prob_hi=(4.0, 3.0, 2.0), nguards=2)
 PC = make_constants(True)
+# the port's own copies of the same geometry and constants
+TGEOM = TGeometry(n_cell=GEOM.n_cell, prob_lo=GEOM.prob_lo,
+                  prob_hi=GEOM.prob_hi, nguards=GEOM.nguards)
+TPC = tmake_constants(True)
 
 DECK = """
 amr.n_cell = 31 27 16
@@ -130,9 +137,9 @@ def test_poisson_solver(variant, nx, ny):
 def test_slice_derivatives():
     f = np.random.default_rng(5).standard_normal(GEOM.slice_shape)
     for name in ("interior", "ddx_interior", "ddy_interior"):
-        _close(getattr(tsl, name)(_t(f), GEOM),
+        _close(getattr(tsl, name)(_t(f), TGEOM),
                getattr(jsl, name)(jnp.asarray(f), GEOM))
-    for a, b in zip(tsl.grad_neg_full(_t(f), GEOM),
+    for a, b in zip(tsl.grad_neg_full(_t(f), TGEOM),
                     jsl.grad_neg_full(jnp.asarray(f), GEOM)):
         _close(a, b)
 
@@ -152,19 +159,24 @@ def test_parser_matches_numpy_evaluation(expr):
 
 
 def test_device_policy():
-    assert tdevice.resolve() == (torch.device("cpu"), torch.float64)
+    """The card unless the caller asks for the CPU; never a silent CPU
+    run."""
+    assert tdevice.resolve("cpu") == (torch.device("cpu"), torch.float64)
     with pytest.raises(ValueError):
         tdevice.resolve("cpu", torch.float32)
-    if not torch.cuda.is_available():
-        with pytest.raises(RuntimeError):
-            tdevice.resolve("cuda")
+    if torch.cuda.is_available():
+        assert tdevice.resolve() == (torch.device("cuda"), torch.float32)
+    else:
+        for asked in (None, "cuda"):
+            with pytest.raises(RuntimeError, match="CUDA"):
+                tdevice.resolve(asked)
 
 
 # ---------------------------------------------------------------- plasma
 def _plasma_cfgs(bc="Periodic"):
-    inputs = Inputs(DECK.format(bc=bc))
-    return (jpl.PlasmaConfig.from_inputs(inputs, "plasma", PC, bc),
-            tpl.PlasmaConfig.from_inputs(inputs, "plasma", PC, bc))
+    deck = DECK.format(bc=bc)
+    return (jpl.PlasmaConfig.from_inputs(Inputs(deck), "plasma", PC, bc),
+            tpl.PlasmaConfig.from_inputs(TInputs(deck), "plasma", TPC, bc))
 
 
 def _to_torch(p):
@@ -198,7 +210,7 @@ def test_init_plasma_and_pad():
     jcfg, tcfg = _plasma_cfgs()
     ref = jpl.pad_plasma(jpl.init_plasma(jcfg, GEOM, jax.random.PRNGKey(0),
                                          jnp.float64), 7)
-    got = tpl.pad_plasma(tpl.init_plasma(tcfg, GEOM, "cpu", torch.float64),
+    got = tpl.pad_plasma(tpl.init_plasma(tcfg, TGEOM, "cpu", torch.float64),
                          7)
     assert not bool(got["valid"].all())       # the radius cut bites
     for k in got:
@@ -214,7 +226,7 @@ def test_particle_bc(mode):
     ref = jpl.enforce_particle_bc(*[jnp.asarray(a) for a in
                                     (x, y, ux, uy, w, valid)], GEOM, mode)
     got = tpl.enforce_particle_bc(*[_t(a) for a in (x, y, ux, uy, w, valid)],
-                                  GEOM, mode)
+                                  TGEOM, mode)
     for a, b in zip(got, ref):
         _close(a.to(torch.float64), np.asarray(b, np.float64))
 
@@ -230,7 +242,7 @@ def test_advance_plasma():
                              {k: jnp.asarray(v) for k, v in f.items()},
                              GEOM, jcfg, PC, temp_slice=False, order=2)
     got = tpl.advance_plasma(_to_torch(p), {k: _t(v) for k, v in f.items()},
-                             GEOM, tcfg, PC, order=2)
+                             TGEOM, tcfg, TPC, order=2)
     v = p["valid"]
     for k in got:
         _close(got[k].numpy()[v].astype(np.float64),
@@ -249,7 +261,7 @@ def test_fused_deposit_and_combine():
                                         f0.items()}, GEOM, jcfg, PC, 2, True)
     tf, tp, dg = tpl.fused_plasma_deposits(_to_torch(p), comps,
                                            {k: _t(v) for k, v in f0.items()},
-                                           GEOM, tcfg, PC, 2, True)
+                                           TGEOM, tcfg, TPC, 2, True)
     for c in comps:
         _close(tf[c], jf[c])
     for k in ("w", "valid"):
@@ -259,7 +271,7 @@ def test_fused_deposit_and_combine():
                                        solved.items()}, GEOM, jcfg, PC, 2, 2,
                                   True)
     got = tpl.combine_explicit_sxsy({k: _t(v) for k, v in solved.items()},
-                                    dg, PC)
+                                    dg, TPC)
     for c in ("Sx", "Sy"):
         _close(got[c], ref[c])
 
@@ -274,16 +286,17 @@ def test_background_deposit():
                                True, flip_charge=True)
     tf, _ = tpl.deposit_plasma(_to_torch(p), ["rhomjz", "jz", "rho"],
                                {c: _t(zero) for c in ("rhomjz", "jz", "rho")},
-                               GEOM, tcfg, PC, 2, True, flip_charge=True)
+                               TGEOM, tcfg, TPC, 2, True, flip_charge=True)
     for c in ("rhomjz", "jz", "rho"):
         _close(tf[c], jf[c])
 
 
 # ---------------------------------------------------------------- beam
 def _beam_cfgs(bc="Absorbing"):
-    inputs = Inputs(DECK.format(bc=bc))
-    return (jbm.BeamConfig.from_inputs(inputs, "beam", PC, GEOM, True),
-            tbm.BeamConfig.from_inputs(inputs, "beam", PC, GEOM, True))
+    deck = DECK.format(bc=bc)
+    return (jbm.BeamConfig.from_inputs(Inputs(deck), "beam", PC, GEOM, True),
+            tbm.BeamConfig.from_inputs(TInputs(deck), "beam", TPC, TGEOM,
+                                       True))
 
 
 def _beam_lanes(seed, n=600):
@@ -314,9 +327,9 @@ def test_init_beam_symmetrize_and_can():
     deck = DECK.format(bc="Absorbing") + (
         "beam.do_symmetrize = 1\nbeam.profile = can\nbeam.zmin = -2.\n"
         "beam.zmax = -1.\nbeam.u_std = 0.5 0.5 1.\nbeam.total_charge = -3.\n")
-    cfg = tbm.BeamConfig.from_inputs(Inputs(deck), "beam", PC, GEOM, True)
-    b = tbm.init_beam(cfg, GEOM, torch.Generator().manual_seed(0), "cpu",
-                      torch.float64, PC)
+    cfg = tbm.BeamConfig.from_inputs(TInputs(deck), "beam", TPC, TGEOM, True)
+    b = tbm.init_beam(cfg, TGEOM, torch.Generator().manual_seed(0), "cpu",
+                      torch.float64, TPC)
     assert b["x"].shape == (1000,)
     q = {k: b[k].reshape(-1, 4) for k in ("x", "y", "z", "ux", "uy")}
     torch.testing.assert_close(q["x"][:, 0], -q["x"][:, 1])
@@ -337,8 +350,8 @@ def test_advance_beam_slice(bc):
                                  {k: jnp.asarray(v) for k, v in f.items()},
                                  GEOM, jcfg, PC, 0.5, min_z, order=2)
     got = tbm.advance_all_beams({k: _t(v) for k, v in b.items()},
-                                {k: _t(v) for k, v in f.items()}, GEOM,
-                                (tcfg,), PC, 0.5, min_z, order=2)
+                                {k: _t(v) for k, v in f.items()}, TGEOM,
+                                (tcfg,), TPC, 0.5, min_z, order=2)
     np.testing.assert_array_equal(got["valid"].numpy(),
                                   np.asarray(ref["valid"]))
     v = np.asarray(ref["valid"])
@@ -357,8 +370,8 @@ def test_beam_deposit():
                                  cmap, {c: jnp.asarray(zero) for c in cmap},
                                  GEOM, (jcfg,), PC, 2, True)
     got = tbm.deposit_beam_slice({k: _t(v) for k, v in b.items()}, cmap,
-                                 {c: _t(zero) for c in cmap}, GEOM, (tcfg,),
-                                 PC, 2, True)
+                                 {c: _t(zero) for c in cmap}, TGEOM, (tcfg,),
+                                 TPC, 2, True)
     for c in ("jx", "jy", "jz"):
         _close(got[c], ref[c])
     # rho - jz/c carries 1 - v_z ~ 1/(2 gamma^2) ~ 1e-7 at uz = 2000, so a
@@ -371,10 +384,10 @@ def test_bin_unbin_beam():
     b = _beam_lanes(17, n=3000)
     b["z"] = np.random.default_rng(18).uniform(-6.5, 2.5, 3000)
     ref = jbm.bin_beam({k: jnp.asarray(v) for k, v in b.items()}, GEOM, 150)
-    got = tbm.bin_beam({k: _t(v) for k, v in b.items()}, GEOM, 150)
+    got = tbm.bin_beam({k: _t(v) for k, v in b.items()}, TGEOM, 150)
     assert got["n_dropped"] == int(ref["n_dropped"]) > 0
     for k in tbm.ALL_ATTRS:
         np.testing.assert_array_equal(got[k].numpy(), np.asarray(ref[k]))
     flat = tbm.unbin_beam(got)
     assert flat["x"].shape == (GEOM.nz * 150,)
-    assert tbm.plan_capacity({k: _t(v) for k, v in b.items()}, GEOM) > 0
+    assert tbm.plan_capacity({k: _t(v) for k, v in b.items()}, TGEOM) > 0

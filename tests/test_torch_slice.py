@@ -24,6 +24,7 @@ import hipace_tpu.fields.multigrid as jmg
 from hipace_tpu.parser import Inputs
 from hipace_tpu.pipeline.simulation import Simulation as JSimulation
 from hipace_tpu_torch.convert import carry_state
+from hipace_tpu_torch.parser import Inputs as TInputs
 from hipace_tpu_torch.pipeline.simulation import Simulation
 from hipace_tpu_torch.pipeline.step import DIAG_COMPS
 
@@ -72,7 +73,7 @@ def step_pair():
         jsim = JSimulation(Inputs(DECK), verbose=0)
         jres = jsim.run_step(0)
         jax.effects_barrier()
-    tsim = Simulation(Inputs(DECK), verbose=0)
+    tsim = Simulation(TInputs(DECK), device="cpu", verbose=0)
     carry_state(tsim, {k: np.array(v) for k, v in jsim.binned.items()},
                 jsim.dt, jsim.time, jsim.beam_cfgs[0].total_charge)
     tres = tsim.run_step(0)
@@ -172,7 +173,7 @@ def test_si_units_step_matches():
     momentum scaling take the non-normalized branches."""
     jsim = JSimulation(Inputs(SI_DECK), verbose=0)
     jres = jsim.run_step(0)
-    tsim = Simulation(Inputs(SI_DECK), verbose=0)
+    tsim = Simulation(TInputs(SI_DECK), device="cpu", verbose=0)
     carry_state(tsim, {k: np.array(v) for k, v in jsim.binned.items()},
                 jsim.dt, jsim.time, jsim.beam_cfgs[0].total_charge)
     tres = tsim.run_step(0)
@@ -191,8 +192,8 @@ def test_si_units_step_matches():
 
 
 def _small(extra=""):
-    return Inputs(__graft_entry__._DECK.format(nxy=31, nz=8, npart=1000)
-                  + extra)
+    return TInputs(__graft_entry__._DECK.format(nxy=31, nz=8, npart=1000)
+                   + extra)
 
 
 def test_tpu_tuning_keys_are_noops():
@@ -204,8 +205,8 @@ def test_tpu_tuning_keys_are_noops():
             "hipace.pallas_precision = bf16\nhipace.beam_pallas_W = 32\n"
             "hipace.beam_pallas_h = 8\nhipace.beam_chunk = 128\n"
             "hipace.beam_buckets = 2\n")
-    ref = Simulation(_small(), verbose=0).run_step(0)
-    got = Simulation(_small(keys), verbose=0).run_step(0)
+    ref = Simulation(_small(), device="cpu", verbose=0).run_step(0)
+    got = Simulation(_small(keys), device="cpu", verbose=0).run_step(0)
     assert torch.equal(ref["diag"], got["diag"])
     for k in ("x", "uz", "valid"):
         assert torch.equal(ref["binned"][k], got["binned"][k])
@@ -227,7 +228,7 @@ def test_tpu_tuning_keys_are_noops():
 ])
 def test_unsupported_keys_raise(extra, item):
     with pytest.raises(NotImplementedError, match=item):
-        Simulation(_small(extra + "\n"), verbose=0)
+        Simulation(_small(extra + "\n"), device="cpu", verbose=0)
 
 
 def test_port_never_imports_jax(tmp_path):
@@ -237,7 +238,8 @@ def test_port_never_imports_jax(tmp_path):
     code = (
         "import sys\n"
         "from hipace_tpu_torch.__main__ import main\n"
-        f"assert main([{str(deck)!r}, 'hipace.verbose=0']) == 0\n"
+        f"assert main([{str(deck)!r}, 'hipace.verbose=0', '--device', "
+        "'cpu']) == 0\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith('jax.') or m.startswith('jaxlib'))\n"
         "assert not bad, bad\n"

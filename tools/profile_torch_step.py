@@ -7,8 +7,9 @@ on ``cuda``: one warm-up step, ``--steps`` timed steps on the host clock,
 then one step under ``torch.profiler``. It prints the device time and
 launch count per slice of each group of device activities (the port's
 kernels K1-K3, PyTorch elementwise kernels, copies, FFT, the rest), the
-busiest kernels, and the busy share: profiled device time per slice over
-the unprofiled wall time per slice. Imports nothing of JAX.
+device-to-host copies per slice (each one a wait of the host for the
+device), the busiest kernels, and the busy share: profiled device time per
+slice over the unprofiled wall time per slice. Imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -26,7 +27,7 @@ ROOT = Path(__file__).resolve().parents[1]
 GROUPS = [
     ("K1 deposit", ("hipace::deposit_kernel",)),
     ("K2 gather", ("hipace::gather_main_kernel",)),
-    ("K3 multigrid", ("hipace::mg_",)),
+    ("K3 multigrid", ("hipace::mg_solve_kernel",)),
     ("FFT (DST)", ("fft", "FFT")),
     ("cat / copy / memcpy / memset", ("Cat", "copy", "Memcpy", "Memset")),
     ("elementwise", ("elementwise_kernel",)),
@@ -83,11 +84,13 @@ def main() -> int:
     ms = defaultdict(float)
     count = defaultdict(int)
     per_kernel = defaultdict(lambda: [0.0, 0])
+    readbacks = 0
     for e in prof.events():
         if e.device_type != DeviceType.CUDA:
             continue
         dur = e.time_range.elapsed_us() / 1e3
         g = group_of(e.name)
+        readbacks += "DtoH" in e.name
         ms[g] += dur
         count[g] += 1
         per_kernel[e.name][0] += dur
@@ -103,6 +106,8 @@ def main() -> int:
     print(f"{'group':<30} {'device ms/slice':>16} {'launches/slice':>15}")
     for g in sorted(ms, key=ms.get, reverse=True):
         print(f"{g:<30} {ms[g] / nz:16.3f} {count[g] / nz:15.2f}")
+    print(f"device-to-host copies: {readbacks / nz:.2f} per slice "
+          f"({readbacks} in the step)")
     print("busiest device activities over the profiled step:")
     top = sorted(per_kernel.items(), key=lambda kv: kv[1][0], reverse=True)
     for name, (t, n) in top[:15]:
