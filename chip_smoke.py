@@ -3,22 +3,26 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels (K1 deposit, K2 gather, K3 multigrid) from
-``hipace_tpu_torch/csrc`` with nvcc, holds each kernel against its plain
-PyTorch version at the main path's shapes (1023^2 grid, ~1.05M plasma
-particles) in float32 and float64, checks a small time step on the kernels
-against the same step on the CPU plain path, then drives the port's main
-path -- a ``Simulation`` of the flagship blowout-wake deck
-(``hipace_tpu_torch.decks.BLOWOUT_WAKE``) at 1023^2 x 64 slices in float32
--- for one warm-up and two timed steps, and checks that every kernel ran as
-often as the slice structure predicts, that a multigrid solve is at most
-three device launches, and prints the share of deposit blocks that took the
-kernel's direct path. Two more timed steps follow the counted ones. It
-imports nothing but the port.
+``hipace_tpu_torch/csrc`` with nvcc, prints each kernel's registers, stack
+frame and spills (K2's order-2 kernels must use no local memory), holds each
+kernel against its plain PyTorch version at the main path's shapes (1023^2
+grid, ~1.05M plasma particles; K1 and K2 also on the same lanes shuffled,
+moved by up to 40 cells, and on a 30k-lane beam slice) in float32 and
+float64, checks a small time step on the kernels against the same step on
+the CPU plain path, then drives the port's main path -- a ``Simulation`` of
+the flagship blowout-wake deck (``hipace_tpu_torch.decks.BLOWOUT_WAKE``) at
+1023^2 x 64 slices in float32 -- for one warm-up and two timed steps, and
+checks that every kernel ran as often as the slice structure predicts, that
+a multigrid solve is at most three device launches, and prints the share of
+deposit blocks that took the kernel's direct path. Two more timed steps
+follow the counted ones. It imports nothing but the port.
 
-Beside each kernel's time it prints the kernel's bound: the least time the
-card could take, the larger of the bytes the function must move (each input
-read once, each output written once) over the HBM rate and its operations
-over the peak rate of their type (NVIDIA's H100 SXM data sheet).
+Beside each kernel's time (CUDA events around calls queued behind a device
+sleep) it prints the kernel's bound: the least time the card could take, the
+larger of the bytes the function must move (each input read once, each
+output written once; for K2 the plane cells under the live lanes' stencils)
+over the HBM rate and its operations over the peak rate of their type
+(NVIDIA's H100 SXM data sheet).
 
 The second-to-last line is a JSON summary of the kernels; the last line is
 ``{"ok": true, "device": {...}}``. Any failed phase exits non-zero before
@@ -29,6 +33,7 @@ script, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -56,6 +61,10 @@ KERNELS = {
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {4: 67e12, 8: 34e12}
 
+# ~25 ms of device clock cycles: longer than the host takes to enqueue the
+# calls that cuda_ms times
+SLEEP_CYCLES = 50_000_000
+
 failures: list = []
 
 
@@ -74,11 +83,15 @@ def phase(name):
 
 
 def cuda_ms(fn, reps=5):
-    """Mean device time of fn() over reps calls after one warm-up call."""
+    """Mean device time of fn() over reps calls after one warm-up call. The
+    calls queue behind a sleep on the device, so a call shorter than the
+    host's time to enqueue it is timed on the device, not on the host."""
     import torch
     fn()
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(SLEEP_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -126,6 +139,53 @@ def compare(kernel, dtype_name, got, ref):
     return ok, err, rel, tol
 
 
+def ptxas_kernels(log, demanglers=("c++filt",)):
+    """Per entry function of an `nvcc -Xptxas -v` log: [name, registers,
+    stack frame bytes, spill store bytes, spill load bytes]; the names
+    demangled by the first of `demanglers` that runs."""
+    rows, props = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            rows.setdefault(line.split("'")[1], [0, 0, 0, 0])
+        elif "Function properties for" in line:
+            props = line.split("Function properties for")[1].strip()
+        elif "bytes stack frame" in line and props in rows:
+            rows[props][1:] = [int(w) for w in re.findall(r"(\d+) bytes",
+                                                          line)[:3]]
+        elif "Used" in line and "registers" in line and props in rows:
+            rows[props][0] = int(line.split("Used")[1].split()[0])
+    names = list(rows)
+    for tool in demanglers:
+        try:
+            res = subprocess.run([tool], input="\n".join(names),
+                                 capture_output=True, text=True, timeout=60)
+        except OSError:
+            continue
+        if res.returncode == 0 and len(res.stdout.splitlines()) == len(names):
+            # "void ns::kernel<(int)2, float>(float*, ...)" -> "ns::kernel<2, float>"
+            names = [re.sub(r"\([^()]*\)\s*$", "", n).replace("(int)", "")
+                     .replace("void ", "", 1) for n in res.stdout.splitlines()]
+            break
+    return [[n] + r for n, r in zip(names, rows.values())]
+
+
+@phase("ptxas")
+def ptxas_phase(log, nvcc):
+    """One line per kernel; K2's order-2 kernels keep no stack frame and
+    spill nothing."""
+    kernels = ptxas_kernels(log, (str(Path(nvcc).parent / "cu++filt"),
+                                  "c++filt"))
+    if not kernels:
+        raise AssertionError("no ptxas lines in the build log")
+    for name, regs, stack, stores, loads in kernels:
+        print(f"ptxas {name}: {regs} registers, {stack} bytes stack frame, "
+              f"{stores} bytes spill stores, {loads} bytes spill loads")
+    k2 = [k for k in kernels if "gather_main" in k[0]
+          and ("<2," in k[0] or "ILi2E" in k[0])]
+    if len(k2) != 2 or any(sum(k[2:]) for k in k2):
+        raise AssertionError(f"K2's order-2 kernels use local memory: {k2}")
+
+
 def plasma_lanes(torch, g, dtype):
     """Main-path plasma lanes, shared by the K1 and K2 phases: 1 ppc at cell
     centres moved by up to half a cell, as guard-offset cell positions,
@@ -142,30 +202,43 @@ def plasma_lanes(torch, g, dtype):
     return ym, xm
 
 
-@phase("K1")
-def k1_phase(torch, g, dtype, lanes, results):
-    from hipace_tpu_torch.ops import deposit as dep
-    name = str(dtype).split(".")[1]
+def lane_cases(torch, g, dtype, lanes):
+    """The lanes of the K1 and K2 phases, from one generator: the main
+    path's plasma lanes in lattice order, the same shuffled (perm), moved by
+    up to 40 cells (fym, fxm), and a gaussian beam slice (bym, bxm), with
+    13 plasma and 2 beam channel values for K1."""
     gen = torch.Generator(device="cuda").manual_seed(2)
-    NY, NX = g.slice_shape
+    NY, _ = g.slice_shape
     ym, xm = lanes
     N = ym.numel()
-    vals = torch.randn((13, N), generator=gen, device="cuda", dtype=dtype)
-    perm = torch.randperm(N, generator=gen, device="cuda")
+    c = {"ym": ym, "xm": xm}
+    c["vals"] = torch.randn((13, N), generator=gen, device="cuda", dtype=dtype)
+    c["perm"] = torch.randperm(N, generator=gen, device="cuda")
     # every lane moved by up to +-40 cells: patches no longer fit a tile
     far = (torch.rand((2, N), generator=gen, device="cuda",
                       dtype=torch.float64) - 0.5) * 80.0
     live = ym < 1.5 * NY
-    fym = torch.where(live, ym + far[0].to(dtype), ym)
-    fxm = xm + far[1].to(dtype)
+    c["fym"] = torch.where(live, ym + far[0].to(dtype), ym)
+    c["fxm"] = xm + far[1].to(dtype)
     # gaussian beam slice: sigma 0.3 of a 16-wide box, ~30k lanes, 15% dead
     nb = 30000
     pos = torch.randn((2, nb), generator=gen, device="cuda",
                       dtype=torch.float64) * (0.3 / g.dx)
-    bym = (pos[0] + g.nguards + g.ny / 2).to(dtype)
-    bxm = (pos[1] + g.nguards + g.nx / 2).to(dtype)
-    bym[torch.rand(nb, generator=gen, device="cuda") < 0.15] = 2.0 * NY
-    bvals = torch.randn((2, nb), generator=gen, device="cuda", dtype=dtype)
+    c["bym"] = (pos[0] + g.nguards + g.ny / 2).to(dtype)
+    c["bxm"] = (pos[1] + g.nguards + g.nx / 2).to(dtype)
+    c["bym"][torch.rand(nb, generator=gen, device="cuda") < 0.15] = 2.0 * NY
+    c["bvals"] = torch.randn((2, nb), generator=gen, device="cuda",
+                             dtype=dtype)
+    return c
+
+
+@phase("K1")
+def k1_phase(torch, g, dtype, lc, results):
+    from hipace_tpu_torch.ops import deposit as dep
+    name = str(dtype).split(".")[1]
+    NY, NX = g.slice_shape
+    ym, xm, vals, perm = lc["ym"], lc["xm"], lc["vals"], lc["perm"]
+    N = ym.numel()
     # label, ym, xm, values, deriv_type, lattice width
     cases = [
         ("plasma C=13 deriv_type 2, lattice order with the hint", ym, xm,
@@ -174,9 +247,9 @@ def k1_phase(torch, g, dtype, lanes, results):
          None),
         ("the same lanes shuffled, no hint", ym[perm], xm[perm],
          vals[:, perm].contiguous(), 2, None),
-        ("lanes moved by up to 40 cells, with the hint", fym, fxm, vals, 2,
-         g.nx),
-        ("gaussian beam C=2", bym, bxm, bvals, -1, None),
+        ("lanes moved by up to 40 cells, with the hint", lc["fym"],
+         lc["fxm"], vals, 2, g.nx),
+        ("gaussian beam C=2", lc["bym"], lc["bxm"], lc["bvals"], -1, None),
     ]
     for i, (label, y, x, v, dtyp, width) in enumerate(cases):
         C = v.shape[0]
@@ -196,7 +269,7 @@ def k1_phase(torch, g, dtype, lanes, results):
         print(f"K1 {name} {label} N={y.numel()} on {NY}x{NX}: max abs err "
               f"{err:.3e}, / max {rel:.3e} (tol {tol:g}) "
               f"{'ok' if ok else 'FAIL'}; direct-path blocks {direct} of "
-              f"{blocks}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms",
+              f"{blocks}; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms",
               flush=True)
         if not ok:
             raise AssertionError(f"K1 {name} {label} outside tolerance")
@@ -210,32 +283,70 @@ def k1_phase(torch, g, dtype, lanes, results):
             results[("K1", name)] = (err, ms, plain_ms, b_ms, by)
 
 
+def stencil_cells(torch, ym, xm, NY, NX, order):
+    """Cells of the grid under the live lanes' nodal stencils: what a gather
+    of these lanes must read."""
+    from hipace_tpu_torch.ops.shape import stencil_i0
+    live = ym < 1.5 * NY
+    iy0 = stencil_i0(ym[live], order, 1)
+    ix0 = stencil_i0(xm[live], order, 1)
+    hit = torch.zeros(NY * NX, dtype=torch.bool, device=ym.device)
+    for a in range(order + 2):
+        for b in range(order + 2):
+            r, c = iy0 + a, ix0 + b
+            inside = (r >= 0) & (r < NY) & (c >= 0) & (c < NX)
+            hit[(r * NX + c)[inside]] = True
+    return int(hit.sum())
+
+
 @phase("K2")
-def k2_phase(torch, g, dtype, lanes, results):
+def k2_phase(torch, g, dtype, lc, results):
     from hipace_tpu_torch.ops import gather as gat
     name = str(dtype).split(".")[1]
     gen = torch.Generator(device="cuda").manual_seed(3)
     NY, NX = g.slice_shape
-    ym, xm = lanes
+    ym, xm, perm = lc["ym"], lc["xm"], lc["perm"]
     stack = torch.randn((5, NY, NX), generator=gen, device="cuda",
                         dtype=dtype)
-    got = gat.gather_main_cuda(stack, ym, xm, 2)
-    ref = gat.gather_main_plain(stack, ym, xm, 2)
-    torch.cuda.synchronize()
-    ok, err, rel, tol = compare("K2", name, got, ref)
-    ms = cuda_ms(lambda: gat.gather_main_cuda(stack, ym, xm, 2))
-    plain_ms = cuda_ms(lambda: gat.gather_main_plain(stack, ym, xm, 2))
-    print(f"K2 {name} N={ym.numel()} on {NY}x{NX}: max abs err {err:.3e}, "
-          f"/ max {rel:.3e} (tol {tol:g}) {'ok' if ok else 'FAIL'}; kernel "
-          f"{ms:.3f} ms, plain {plain_ms:.3f} ms", flush=True)
-    if not ok:
-        raise AssertionError(f"K2 {name} outside tolerance")
-    # the stack and the lanes in, six values per lane out; per live lane
-    # 6 outputs x 4 x 4 taps of a multiply and an add
-    size, N = stack.element_size(), ym.numel()
-    b_ms, by = bound_line("K2", name, ms, size * (5 * NY * NX + 8 * N),
-                          2 * 6 * 16 * int((ym < 1.5 * NY).sum()), size)
-    results[("K2", name)] = (err, ms, plain_ms, b_ms, by)
+    # the five planes as separate tensors, as the pushers pass them
+    planes = [p.clone() for p in stack]
+    # label, ym, xm, planes: the K1 phase's lanes
+    cases = [
+        ("plasma, lattice order, five planes", ym, xm, planes),
+        ("the same lanes, stack", ym, xm, stack),
+        ("the same lanes shuffled, five planes", ym[perm], xm[perm], planes),
+        ("lanes moved by up to 40 cells, stack", lc["fym"], lc["fxm"],
+         stack),
+        ("gaussian beam, five planes", lc["bym"], lc["bxm"], planes),
+    ]
+    for i, (label, y, x, pl) in enumerate(cases):
+        got = gat.gather_main_cuda(pl, y, x, 2)
+        ref = gat.gather_main_plain(pl, y, x, 2)
+        torch.cuda.synchronize()
+        ok, err, rel, tol = compare("K2", name, got, ref)
+        dead = y >= 1.5 * NY
+        dead_zero = bool((got[:, dead] == 0).all())
+        ms = cuda_ms(lambda: gat.gather_main_cuda(pl, y, x, 2))
+        plain_ms = cuda_ms(lambda: gat.gather_main_plain(pl, y, x, 2))
+        print(f"K2 {name} {label} N={y.numel()} on {NY}x{NX}: max abs err "
+              f"{err:.3e}, / max {rel:.3e} (tol {tol:g}) "
+              f"{'ok' if ok else 'FAIL'}; {int(dead.sum())} dead lanes read "
+              f"0: {dead_zero}; kernel {ms:.4f} ms, plain {plain_ms:.3f} ms",
+              flush=True)
+        if not ok or not dead_zero:
+            raise AssertionError(f"K2 {name} {label} outside tolerance or a "
+                                 "dead lane read nonzero")
+        if i in (0, 4):
+            # the five planes' cells under the live lanes' stencils and the
+            # lanes in, six values per lane out; per live lane 6 outputs x
+            # 4 x 4 taps of a multiply and an add
+            size, N = stack.element_size(), y.numel()
+            b_ms, by = bound_line(
+                "K2", f"{name} {'plasma' if i == 0 else 'beam'}", ms,
+                size * (5 * stencil_cells(torch, y, x, NY, NX, 2) + 8 * N),
+                2 * 6 * 16 * int((~dead).sum()), size)
+            if i == 0:
+                results[("K2", name)] = (err, ms, plain_ms, b_ms, by)
 
 
 def k3_case(torch, dtype, ny, nx, dx, dy, C, acf_kind, max_iters, seed):
@@ -435,17 +546,7 @@ def main() -> int:
     print(f"build: {'compiled' if lib.built else 'cached'} in "
           f"{lib.build_seconds:.1f} s ({time.perf_counter() - t0:.1f} s "
           "with loading)", flush=True)
-    if lib.built:
-        (lib.path.parent / "nvcc.log").write_text(lib.compiler_output)
-        regs = [int(w) for line in lib.compiler_output.splitlines()
-                if "Used" in line and "registers" in line
-                for w in [line.split("Used")[1].split()[0]]]
-        spills = [line.strip() for line in lib.compiler_output.splitlines()
-                  if "spill" in line and "0 bytes spill stores, 0 bytes "
-                  "spill loads" not in line]
-        print(f"ptxas: {len(regs)} kernels, max {max(regs, default=0)} "
-              f"registers, {len(spills)} with spills {spills[:4]} (full "
-              f"log {lib.path.parent / 'nvcc.log'})")
+    ptxas_phase(lib.compiler_output, cuda_lib.nvcc_path())
 
     # the main path's simulation; its geometry sets the kernel phases' shapes
     sim = Simulation(blowout_wake(NXY, NZ, NPART), device="cuda",
@@ -453,9 +554,9 @@ def main() -> int:
     g = sim.geom
     results: dict = {}
     for dtype in (torch.float32, torch.float64):
-        lanes = plasma_lanes(torch, g, dtype)
-        k1_phase(torch, g, dtype, lanes, results)
-        k2_phase(torch, g, dtype, lanes, results)
+        lc = lane_cases(torch, g, dtype, plasma_lanes(torch, g, dtype))
+        k1_phase(torch, g, dtype, lc, results)
+        k2_phase(torch, g, dtype, lc, results)
         k3_phase(torch, g, dtype, results)
     reference_phase(torch)
     counts: dict = {}

@@ -12,20 +12,34 @@ __host__ __device__ __forceinline__ int ntaps(int order, int deriv_type) {
     return deriv_type < 0 ? order + 1 : order + deriv_type + 1;
 }
 
-template <typename T>
-__device__ __forceinline__ T bspline(T u, int p) {
+// B_P(u) for an order P known at compile time: no branch on the order
+template <int P, typename T>
+__device__ __forceinline__ T bspline_p(T u) {
     T au = u < T(0) ? -u : u;
-    if (p == 0) return (u >= T(-0.5) && u < T(0.5)) ? T(1) : T(0);
-    if (p == 1) return au < T(1) ? T(1) - au : T(0);
-    if (p == 2) {
+    if constexpr (P == 0) {
+        return (u >= T(-0.5) && u < T(0.5)) ? T(1) : T(0);
+    } else if constexpr (P == 1) {
+        return au < T(1) ? T(1) - au : T(0);
+    } else if constexpr (P == 2) {
         if (au <= T(0.5)) return T(0.75) - au * au;
         T t = T(1.5) - au;
         return au < T(1.5) ? T(0.5) * (t * t) : T(0);
+    } else {
+        static_assert(P == 3, "B-spline orders 0-3");
+        if (au <= T(1)) return (T(4) - T(6) * au * au + T(3) * (au * au * au)) / T(6);
+        T t = T(2) - au;
+        return au < T(2) ? t * t * t / T(6) : T(0);
     }
-    // p == 3
-    if (au <= T(1)) return (T(4) - T(6) * au * au + T(3) * (au * au * au)) / T(6);
-    T t = T(2) - au;
-    return au < T(2) ? t * t * t / T(6) : T(0);
+}
+
+template <typename T>
+__device__ __forceinline__ T bspline(T u, int p) {
+    switch (p) {
+        case 0: return bspline_p<0>(u);
+        case 1: return bspline_p<1>(u);
+        case 2: return bspline_p<2>(u);
+        default: return bspline_p<3>(u);
+    }
 }
 
 template <typename T>

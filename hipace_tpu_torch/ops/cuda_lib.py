@@ -5,8 +5,10 @@ and all at once, and linked into one shared library with a plain C
 interface, loaded through ctypes. The build happens at the first kernel
 launch, into ``build/hipace_tpu_torch/<hash>/`` at the root of the checkout,
 keyed by a hash of the sources and flags, so a changed source is rebuilt and
-an unchanged one reused. Importing this module builds nothing; a machine
-without nvcc fails at the first launch.
+an unchanged one reused; the compiler's output (``-Xptxas -v``: registers,
+stack frame and spills per kernel) is kept beside the library. Importing
+this module builds nothing; a machine without nvcc fails at the first
+launch.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "hipace_tpu_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 LIB_NAME = "libhipace_tpu_torch.so"
+LOG_NAME = "nvcc.log"   # the build's compiler output, kept beside the library
 
 _P, _I, _LL, _U, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                        ctypes.c_uint, ctypes.c_double)
@@ -33,7 +36,8 @@ _P, _I, _LL, _U, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 SIGNATURES = {
     "hipace_deposit": [_P, _P, _P, _P, _I, _LL, _I, _I, _I, _I, _U, _U, _I,
                        _U, _P, _P],
-    "hipace_gather_main": [_P, _P, _P, _P, _LL, _I, _I, _I, _P],
+    "hipace_gather_main": [_P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I,
+                           _P],
     "hipace_mg_solve": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                         _I, _D, _D, _I, _D, _P, _P, _P, _I, _P],
 }
@@ -80,7 +84,10 @@ class KernelLibrary:
         self.build_seconds = 0.0
         self.compiler_output = ""
         self.built = False
-        if not self.path.exists():
+        log = out_dir / LOG_NAME
+        if self.path.exists():
+            self.compiler_output = log.read_text() if log.exists() else ""
+        else:
             out_dir.mkdir(parents=True, exist_ok=True)
             t0 = time.perf_counter()
             procs, outputs = [], []
@@ -108,6 +115,7 @@ class KernelLibrary:
             self.compiler_output = "".join(outputs)
             if failed:
                 raise RuntimeError("nvcc failed:\n" + self.compiler_output)
+            log.write_text(self.compiler_output)
             os.replace(tmp, self.path)
             self.built = True
         self.lib = ctypes.CDLL(str(self.path))
@@ -155,13 +163,13 @@ def stream_ptr(tensor) -> int:
 
 def require(tensor, name: str, dtype=None, shape=None, device=None) -> None:
     """Check a kernel argument: CUDA, dtype, shape, contiguous."""
-    if tensor.device.type != "cuda":
+    if not tensor.is_cuda:
         raise ValueError(f"{name} must be a CUDA tensor, got {tensor.device}")
     if device is not None and tensor.device != device:
         raise ValueError(f"{name} is on {tensor.device}, expected {device}")
     if dtype is not None and tensor.dtype != dtype:
         raise ValueError(f"{name} has dtype {tensor.dtype}, expected {dtype}")
-    if shape is not None and tuple(tensor.shape) != tuple(shape):
+    if shape is not None and tensor.shape != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(tensor.shape)}, "
                          f"expected {tuple(shape)}")
     if not tensor.is_contiguous():

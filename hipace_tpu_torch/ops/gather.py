@@ -3,7 +3,7 @@
 Port of the gather contract of the Pallas kernel ``_gather_main_kernel``
 (``hipace_tpu/ops/pallas_banded.py:546-748``, entry ``pallas_gather_main``),
 whose exact XLA counterpart is ``hipace_tpu/ops/gather.py``
-``gather_main_fields`` (ref FieldGather.H:45-97). From a (5, NY, NX) stack
+``gather_main_fields`` (ref FieldGather.H:45-97). From the five field planes
 [Psi, Ez, Bx, By, Bz] and nodal (deriv_type 1) order-p weights, per
 particle: the raw Psi derivatives sum(Wy dWx Psi) and sum(dWy Wx Psi),
 which the caller scales by 1/dx and 1/dy into ExmBy and EypBx, and Ez, Bx,
@@ -11,7 +11,9 @@ By, Bz interpolated with Wy Wx. Positions and dead lanes follow the
 deposit's convention (``ops/deposit.py``); dead lanes read 0 and taps
 outside the grid are dropped.
 
-``gather_main`` returns a (6, N) tensor: CPU tensors take
+The planes come either as a (5, NY, NX) tensor, the JAX package's layout,
+or as a sequence of five (NY, NX) tensors, which the kernel reads where
+they lie. ``gather_main`` returns a (6, N) tensor: CPU tensors take
 ``gather_main_plain``, CUDA tensors launch ``csrc/gather.cu``.
 """
 
@@ -23,10 +25,36 @@ from . import cuda_lib
 from .deposit import LIVE_FRACTION
 from .shape import shape_weights_derivative
 
+PLANE_NAMES = ("Psi", "Ez", "Bx", "By", "Bz")
 
-def gather_main_plain(stack, ym, xm, order):
+
+def as_planes(planes) -> tuple:
+    """The five (NY, NX) planes of a (5, NY, NX) tensor or of a sequence of
+    five tensors of one shape, dtype and device."""
+    if torch.is_tensor(planes):
+        if planes.dim() != 3 or planes.shape[0] != 5:
+            raise ValueError(f"a plane stack must be (5, NY, NX), got "
+                             f"{tuple(planes.shape)}")
+        return tuple(planes.unbind(0))
+    planes = tuple(planes)
+    if len(planes) != 5:
+        raise ValueError(f"expected five planes, got {len(planes)}")
+    first = planes[0]
+    for name, plane in zip(PLANE_NAMES, planes):
+        if (plane.dim() != 2 or plane.shape != first.shape
+                or plane.dtype != first.dtype
+                or plane.device != first.device):
+            raise ValueError(f"plane {name} is {tuple(plane.shape)} "
+                             f"{plane.dtype} on {plane.device}; Psi is "
+                             f"{tuple(first.shape)} {first.dtype} on "
+                             f"{first.device}")
+    return planes
+
+
+def gather_main_plain(planes, ym, xm, order):
     """Plain PyTorch gather (any device), exact elementwise reads."""
-    _, NY, NX = stack.shape
+    planes = as_planes(planes)
+    NY, NX = planes[0].shape
     live = ym < LIVE_FRACTION * NY
     iy0, wy, dwy = shape_weights_derivative(ym, order, 1)
     ix0, wx, dwx = shape_weights_derivative(xm, order, 1)
@@ -40,7 +68,7 @@ def gather_main_plain(stack, ym, xm, order):
     wx, dwx = wx * okx, dwx * okx
     lin = (iy.clamp(0, NY - 1)[:, :, None] * NX
            + ix.clamp(0, NX - 1)[:, None, :])                      # (N, m, m)
-    vals = stack.reshape(5, NY * NX)[:, lin]                        # (5, N, m, m)
+    vals = [plane.reshape(NY * NX)[lin] for plane in planes]       # (N, m, m)
     w = wy[:, :, None] * wx[:, None, :]
     out = torch.stack([
         ((wy[:, :, None] * dwx[:, None, :]) * vals[0]).sum(dim=(1, 2)),
@@ -49,32 +77,58 @@ def gather_main_plain(stack, ym, xm, order):
     return torch.where(live, out, torch.zeros_like(out))
 
 
-def gather_main_cuda(stack, ym, xm, order):
+def _plane_pointers(planes):
+    """(data pointers of the five planes, NY, NX, dtype, device) of a
+    (5, NY, NX) CUDA stack or of five CUDA planes, each checked once."""
+    if torch.is_tensor(planes):
+        if planes.dim() != 3:
+            raise ValueError(f"a plane stack must be (5, NY, NX), got "
+                             f"{tuple(planes.shape)}")
+        _, NY, NX = planes.shape
+        cuda_lib.require(planes, "planes", shape=(5, NY, NX))
+        step = NY * NX * planes.element_size()
+        base = planes.data_ptr()
+        return ([base + c * step for c in range(5)], NY, NX, planes.dtype,
+                planes.device)
+    planes = tuple(planes)
+    if len(planes) != 5:
+        raise ValueError(f"expected five planes, got {len(planes)}")
+    first = planes[0]
+    if first.dim() != 2:
+        raise ValueError(f"plane Psi must be (NY, NX), got "
+                         f"{tuple(first.shape)}")
+    NY, NX = first.shape
+    dt, device = first.dtype, first.device
+    for name, plane in zip(PLANE_NAMES, planes):
+        cuda_lib.require(plane, name, dtype=dt, shape=(NY, NX), device=device)
+    return [p.data_ptr() for p in planes], NY, NX, dt, device
+
+
+def gather_main_cuda(planes, ym, xm, order):
     """Launch the K2 kernel on CUDA tensors."""
-    _, NY, NX = stack.shape
     if not 0 <= order <= 3:
         raise ValueError(f"unsupported order {order}")
+    ptrs, NY, NX, dt, device = _plane_pointers(planes)
     N = ym.shape[0]
-    dt = stack.dtype
-    cuda_lib.require(stack, "stack", dtype=dt, shape=(5, NY, NX))
-    cuda_lib.require(ym, "ym", dtype=dt, shape=(N,), device=stack.device)
-    cuda_lib.require(xm, "xm", dtype=dt, shape=(N,), device=stack.device)
-    out = torch.empty((6, N), dtype=dt, device=stack.device)
+    cuda_lib.require(ym, "ym", dtype=dt, shape=(N,), device=device)
+    cuda_lib.require(xm, "xm", dtype=dt, shape=(N,), device=device)
+    out = torch.empty((6, N), dtype=dt, device=device)
     if N == 0:
         return out
     fn = cuda_lib.library().fn("hipace_gather_main", dt)
-    cuda_lib.check(fn(out.data_ptr(), stack.data_ptr(), ym.data_ptr(),
-                      xm.data_ptr(), N, NY, NX, order,
-                      cuda_lib.stream_ptr(stack)), "gather_main")
+    cuda_lib.check(fn(out.data_ptr(), *ptrs, ym.data_ptr(), xm.data_ptr(), N,
+                      NY, NX, order, cuda_lib.stream_ptr(ym)), "gather_main")
     gather_main.launches += 1
     return out
 
 
-def gather_main(stack, ym, xm, order):
-    """(exmby_raw, eypbx_raw, ez, bx, by, bz) as a (6, N) tensor."""
-    if cuda_lib.use_kernel(stack):
-        return gather_main_cuda(stack, ym, xm, order)
-    return gather_main_plain(stack, ym, xm, order)
+def gather_main(planes, ym, xm, order):
+    """(exmby_raw, eypbx_raw, ez, bx, by, bz) as a (6, N) tensor, from a
+    (5, NY, NX) plane stack or a sequence of five (NY, NX) planes."""
+    first = planes if torch.is_tensor(planes) else planes[0]
+    if cuda_lib.use_kernel(first):
+        return gather_main_cuda(planes, ym, xm, order)
+    return gather_main_plain(planes, ym, xm, order)
 
 
 gather_main.launches = 0

@@ -24,8 +24,8 @@ from ..constants import PhysConst
 from ..geometry import Geometry
 from ..ops.deposit import deposit
 from ..parser import Inputs, TorchFunction
-from .plasma import (cell_positions, enforce_particle_bc, gather_fields,
-                     gather_stack)
+from .plasma import (cell_positions, enforce_particle_bc, field_planes,
+                     gather_fields)
 
 # spin components are carried (zero) so the per-slice layout matches the
 # JAX package's
@@ -279,7 +279,7 @@ def advance_beam_slice(bp: dict, fields: dict, geom: Geometry,
     nsub0 = bp["nsub"]
     stopped = torch.zeros_like(valid)
     nsub_out = nsub0
-    stack = gather_stack(fields)
+    planes = field_planes(fields)
     for i in range(n_sub):
         slipped = z < min_z
         active = valid & (nsub0 <= i) & ~stopped & ~slipped
@@ -292,7 +292,7 @@ def advance_beam_slice(bp: dict, fields: dict, geom: Geometry,
         xh, yh, ux_b, uy_b, w_b, val_b = enforce_particle_bc(
             xh, yh, ux, uy, w, valid, geom, cfg.particle_boundary,
             bounds=cfg.particle_bounds)
-        exmby, eypbx, ez, bx, by, bz = gather_fields(stack, xh, yh, val_b,
+        exmby, eypbx, ez, bx, by, bz = gather_fields(planes, xh, yh, val_b,
                                                      geom, order)
         ux_next = ux_b + dt * q_m * (exmby + (clight - uz * gam_inv) * by
                                      + uy_b * gam_inv * bz)

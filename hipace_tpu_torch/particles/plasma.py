@@ -24,7 +24,7 @@ from .. import unsupported
 from ..constants import SI_c, PhysConst
 from ..geometry import Geometry
 from ..ops.deposit import deposit
-from ..ops.gather import gather_main
+from ..ops.gather import PLANE_NAMES, gather_main
 from ..parser import Inputs, TorchFunction, deck_function
 from ..utils.atomic_data import ATOMIC_WEIGHTS_DA
 
@@ -254,17 +254,16 @@ def cell_positions(x, y, mask, geom: Geometry):
             torch.where(mask, xm, torch.full_like(xm, 2.0 * NX)))
 
 
-def gather_stack(fields: dict) -> torch.Tensor:
-    """The (5, NY, NX) stack [Psi, Ez, Bx, By, Bz] that K2 reads; built
-    once per push, not once per subcycle."""
-    return torch.stack([fields[c] for c in ("Psi", "Ez", "Bx", "By", "Bz")])
+def field_planes(fields: dict) -> list:
+    """The slice's five planes [Psi, Ez, Bx, By, Bz] as they lie, for K2."""
+    return [fields[c] for c in PLANE_NAMES]
 
 
-def gather_fields(stack, x, y, mask, geom: Geometry, order: int):
-    """K2 at (x, y) from a gather_stack: (ExmBy, EypBx, Ez, Bx, By, Bz),
-    zero on masked-out lanes."""
+def gather_fields(planes, x, y, mask, geom: Geometry, order: int):
+    """K2 at (x, y) from field_planes: (ExmBy, EypBx, Ez, Bx, By, Bz), zero
+    on masked-out lanes."""
     ym, xm = cell_positions(x, y, mask, geom)
-    out = gather_main(stack, ym, xm, order)
+    out = gather_main(planes, ym, xm, order)
     return (out[0] * (1.0 / geom.dx), out[1] * (1.0 / geom.dy),
             out[2], out[3], out[4], out[5])
 
@@ -281,9 +280,9 @@ def advance_plasma(p: dict, fields: dict, geom: Geometry, cfg: PlasmaConfig,
     xprev, yprev = p["x_prev"], p["y_prev"]
     ux_h, uy_h, psi_h = p["ux_half"], p["uy_half"], p["psi_half"]
     valid, w = p["valid"], p["w"]
-    stack = gather_stack(fields)
+    planes = field_planes(fields)
     for _ in range(cfg.n_subcycles):
-        exmby, eypbx, ez, bx, by, bz = gather_fields(stack, xprev, yprev,
+        exmby, eypbx, ez, bx, by, bz = gather_fields(planes, xprev, yprev,
                                                      valid, geom, order)
         fvals = (exmby, eypbx, ez, bx * pc.c, by * pc.c, bz)
         # full momentum push t-1/2 -> t+1/2 in 4 substeps

@@ -60,7 +60,10 @@ def test_deposit_kernel(cuda, dtype, order, deriv_type, blocks):
 
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("order", [0, 1, 2, 3])
-def test_gather_kernel(cuda, dtype, order):
+@pytest.mark.parametrize("form", ["stack", "planes"])
+def test_gather_kernel(cuda, dtype, order, form):
+    """Orders 0-3 with lanes past every grid edge, from a (5, NY, NX) stack
+    or from five separate planes."""
     from hipace_tpu_torch.ops.gather import gather_main_cuda, gather_main_plain
     rng = np.random.default_rng(order)
     NY, NX, N = 70, 66, 20000
@@ -69,8 +72,9 @@ def test_gather_kernel(cuda, dtype, order):
     ym[::7] = 2.0 * NY
     stack = torch.tensor(rng.standard_normal((5, NY, NX)), dtype=dtype,
                          device=cuda)
-    got = gather_main_cuda(stack, ym, xm, order)
-    ref = gather_main_plain(stack, ym, xm, order)
+    planes = stack if form == "stack" else [p.clone() for p in stack]
+    got = gather_main_cuda(planes, ym, xm, order)
+    ref = gather_main_plain(planes, ym, xm, order)
     torch.cuda.synchronize()
     assert _rel(got, ref) < _tol(dtype, 1e-12, 1e-5)
     assert bool((got[:, ::7] == 0).all())
@@ -115,6 +119,68 @@ def test_deposit_kernel_tile_and_direct_paths(cuda, dtype, case):
         assert direct == 0
     if case in ("shuffled", "far with hint"):
         assert direct > blocks // 2
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", ["lattice order", "shuffled", "far",
+                                  "beam"])
+def test_gather_kernel_lane_orders(cuda, dtype, case):
+    """The plasma's lanes in lattice order, the same shuffled, moved by up
+    to 40 cells, and a beam-like gaussian: the same sums in any order, and
+    dead lanes read 0."""
+    from hipace_tpu_torch.ops import gather as gat
+    rng = np.random.default_rng(6)
+    ny = nx = 100
+    G = 2
+    NY, NX = ny + 2 * G, nx + 2 * G
+    if case == "beam":
+        N = 3000
+        ym = rng.normal(NY / 2, 5.0, N)
+        xm = rng.normal(NX / 2, 5.0, N)
+    else:
+        N = ny * nx
+        iy, ix = np.divmod(np.arange(N), nx)
+        spread = 40.0 if case == "far" else 0.5
+        ym = iy + G + rng.uniform(-spread, spread, N)
+        xm = ix + G + rng.uniform(-spread, spread, N)
+    ym[::97] = 2.0 * NY
+    if case == "shuffled":
+        perm = rng.permutation(N)
+        ym, xm = ym[perm], xm[perm]
+    ym, xm = (torch.tensor(a, dtype=dtype, device=cuda) for a in (ym, xm))
+    planes = [torch.tensor(rng.standard_normal((NY, NX)), dtype=dtype,
+                           device=cuda) for _ in range(5)]
+    got = gat.gather_main_cuda(planes, ym, xm, 2)
+    ref = gat.gather_main_plain(planes, ym, xm, 2)
+    torch.cuda.synchronize()
+    assert _rel(got, ref) < _tol(dtype, 1e-12, 1e-5)
+    assert bool((got[:, ym >= 1.5 * NY] == 0).all())
+
+
+def test_gather_kernel_rejects_what_it_does_not_take(cuda):
+    """Planes of another dtype, device or shape, a plane that is not
+    contiguous, four planes, a stack that is not (5, NY, NX) or not
+    contiguous, an order past 3: the wrapper raises."""
+    from hipace_tpu_torch.ops.gather import gather_main_cuda
+    pos = torch.full((4,), 5.0, device=cuda)
+    planes = [torch.zeros((12, 12), device=cuda) for _ in range(5)]
+    bad = [
+        planes[:4] + [planes[4].double()],
+        planes[:4] + [planes[4].cpu()],
+        planes[:4] + [torch.zeros((12, 13), device=cuda)],
+        planes[:4] + [torch.zeros((12, 24), device=cuda)[:, ::2]],
+        planes[:4],
+        torch.zeros((4, 12, 12), device=cuda),
+        torch.zeros((12, 12), device=cuda),
+        torch.zeros((5, 12, 24), device=cuda)[:, :, ::2],
+    ]
+    for pl in bad:
+        with pytest.raises(ValueError):
+            gather_main_cuda(pl, pos, pos, 2)
+    with pytest.raises(ValueError):
+        gather_main_cuda(planes, pos, pos, 4)
+    with pytest.raises(ValueError):
+        gather_main_cuda(planes, pos.double(), pos.double(), 2)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -182,10 +248,11 @@ def test_kernels_count_launches(cuda):
     deposit(torch.zeros((1, 12, 12), device=cuda), pos, pos,
             torch.ones((1, 4), device=cuda), 2)
     gather_main(torch.zeros((5, 12, 12), device=cuda), pos, pos, 2)
+    gather_main([torch.zeros((12, 12), device=cuda)] * 5, pos, pos, 2)
     # no lanes, no launch, no count
     empty = pos[:0]
     deposit(torch.zeros((1, 12, 12), device=cuda), empty, empty,
             torch.ones((1, 0), device=cuda), 2)
     gather_main(torch.zeros((5, 12, 12), device=cuda), empty, empty, 2)
     assert (deposit.launches, gather_main.launches) == (before[0] + 1,
-                                                        before[1] + 1)
+                                                        before[1] + 2)
