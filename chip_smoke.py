@@ -15,7 +15,17 @@ the flagship blowout-wake deck (``hipace_tpu_torch.decks.BLOWOUT_WAKE``) at
 checks that every kernel ran as often as the slice structure predicts, that
 a multigrid solve is at most three device launches, and prints the share of
 deposit blocks that took the kernel's direct path. Two more timed steps
-follow the counted ones. It imports nothing but the port.
+follow the counted ones.
+
+Output: a 63^2 x 16 float64 run of the fixed_weight_pdf deck
+(``hipace_tpu_torch.decks.PDF_BEAM``) with named field diagnostics of every
+kind, beam output and in-situ records, json backend, on the card and on the
+CPU from the same beam, whose files must agree; then the pdf path, the same
+deck at 1023^2 x 64 in float32 with an xz diagnostic of every comp and rho
+(K1 at 14 channels), in-situ records every step and the beam at the last,
+checked for its files, finite fields, a conserved beam, the in-situ beam
+weight and the launch counts, and timed with and without output. Files go
+under ``build/chip_smoke``. It imports nothing but the port.
 
 Beside each kernel's time (CUDA events around calls queued behind a device
 sleep) it prints the kernel's bound: the least time the card could take, the
@@ -44,6 +54,51 @@ ROOT = Path(__file__).resolve().parent
 NXY, NZ = 1023, 64
 NPART = NXY * NXY * 10 * NZ // 1000   # the bench's beam scaling
 SMALL_NXY, SMALL_NZ = 63, 16
+OUT = ROOT / "build" / "chip_smoke"
+# named field diagnostics of every kind, beam output and the three in-situ
+# records (the CPU tests' set, tests/test_torch_diagnostics.py)
+NAMED_DIAGS = """
+max_step = 1
+hipace.openpmd_backend = json
+diagnostic.output_period = 1
+diagnostic.names = lev0 side top integ coarse2 coarse3 patch
+diagnostic.field_data = all remove_Sx rho
+side.diag_type = xz
+top.diag_type = yz
+top.field_data = Ez rho_plasma jz_beam
+top.output_period = 2
+integ.diag_type = xy_integrated
+integ.field_data = Ez Psi rho
+coarse2.coarsening = 2 2 2
+coarse2.field_data = Ez Bx jx
+coarse3.diag_type = xz
+coarse3.coarsening = 3 3 3
+coarse3.include_ghost_cells = 1
+coarse3.field_data = Psi By rho_plasma
+patch.patch_lo = -2. -1. -4.
+patch.patch_hi = 2. 3. 0.
+patch.field_data = Ez ExmBy chi
+diagnostic.beam_data = beam
+beams.insitu_period = 1
+plasmas.insitu_period = 1
+fields.insitu_period = 1
+"""
+# the pdf path's output: an xz diagnostic of every comp and rho, in-situ
+# records every step, the beam at the last step
+PDF_OUTPUT = """
+max_step = 2
+hipace.openpmd_backend = json
+diagnostic.output_period = 1
+diagnostic.diag_type = xz
+diagnostic.field_data = all rho
+diagnostic.beam_output_period = -1
+beams.insitu_period = 1
+plasmas.insitu_period = 1
+fields.insitu_period = 1
+"""
+# in-situ records: (folder, deck key of its prefix, record name)
+INSITU = (("insitu", "beam", "beam"), ("plasma_insitu", "plasma", "plasma"),
+          ("field_insitu", "fields", "field"))
 # tolerance on max|kernel - plain| / max|plain|, per dtype
 TOL = {"K1": {"float32": 1e-5, "float64": 1e-12},
        "K2": {"float32": 1e-5, "float64": 1e-12},
@@ -206,13 +261,13 @@ def lane_cases(torch, g, dtype, lanes):
     """The lanes of the K1 and K2 phases, from one generator: the main
     path's plasma lanes in lattice order, the same shuffled (perm), moved by
     up to 40 cells (fym, fxm), and a gaussian beam slice (bym, bxm), with
-    13 plasma and 2 beam channel values for K1."""
+    14 plasma and 2 beam channel values for K1."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     NY, _ = g.slice_shape
     ym, xm = lanes
     N = ym.numel()
     c = {"ym": ym, "xm": xm}
-    c["vals"] = torch.randn((13, N), generator=gen, device="cuda", dtype=dtype)
+    c["vals"] = torch.randn((14, N), generator=gen, device="cuda", dtype=dtype)
     c["perm"] = torch.randperm(N, generator=gen, device="cuda")
     # every lane moved by up to +-40 cells: patches no longer fit a tile
     far = (torch.rand((2, N), generator=gen, device="cuda",
@@ -240,16 +295,19 @@ def k1_phase(torch, g, dtype, lc, results):
     ym, xm, vals, perm = lc["ym"], lc["xm"], lc["vals"], lc["perm"]
     N = ym.numel()
     # label, ym, xm, values, deriv_type, lattice width
+    v13 = vals[:13].contiguous()
     cases = [
         ("plasma C=13 deriv_type 2, lattice order with the hint", ym, xm,
-         vals, 2, g.nx),
-        ("the same lanes, lattice order without the hint", ym, xm, vals, 2,
+         v13, 2, g.nx),
+        ("the same lanes, lattice order without the hint", ym, xm, v13, 2,
          None),
         ("the same lanes shuffled, no hint", ym[perm], xm[perm],
-         vals[:, perm].contiguous(), 2, None),
+         v13[:, perm].contiguous(), 2, None),
         ("lanes moved by up to 40 cells, with the hint", lc["fym"],
-         lc["fxm"], vals, 2, g.nx),
+         lc["fxm"], v13, 2, g.nx),
         ("gaussian beam C=2", lc["bym"], lc["bxm"], lc["bvals"], -1, None),
+        ("plasma C=14 with rho (the pdf path), lattice order with the hint",
+         ym, xm, vals, 2, g.nx),
     ]
     for i, (label, y, x, v, dtyp, width) in enumerate(cases):
         C = v.shape[0]
@@ -506,6 +564,199 @@ def main_path(torch, sim, counts):
             raise AssertionError(f"{k} launch count {counts[k]} != {want}")
 
 
+def read_insitu(path):
+    """An in-situ file's records: a JSON dtype header, then the records."""
+    import numpy as np
+    raw = Path(path).read_bytes()
+    head, offset = json.JSONDecoder().raw_decode(raw.decode("latin-1"))
+    return np.frombuffer(raw, dtype=np.dtype(head), offset=offset)
+
+
+def worst_rel(got, ref, where, worst):
+    """Record max|got - ref| / max|ref| of one dataset in worst[0], and raise
+    where the shapes or the integer and string values differ."""
+    import numpy as np
+    got, ref = np.asarray(got), np.asarray(ref)
+    if got.shape != ref.shape:
+        raise AssertionError(f"{where}: shape {got.shape} != {ref.shape}")
+    if ref.dtype.kind not in "fc":
+        if not np.array_equal(got, ref):
+            raise AssertionError(f"{where}: {got} != {ref}")
+        return
+    scale = float(np.abs(ref).max()) if ref.size else 0.0
+    err = float(np.abs(got - ref).max()) if ref.size else 0.0
+    rel = err / scale if scale > 0 else err
+    if rel > worst[0]:
+        worst[:] = [rel, where]
+
+
+def compare_tree(got, ref, where, worst):
+    """Walk two openPMD json documents or in-situ records together."""
+    if isinstance(ref, dict):
+        if sorted(got) != sorted(ref):
+            raise AssertionError(f"{where}: keys {sorted(got)} != "
+                                 f"{sorted(ref)}")
+        for k in ref:
+            compare_tree(got[k], ref[k], f"{where}/{k}", worst)
+    elif getattr(getattr(ref, "dtype", None), "names", None):
+        for k in ref.dtype.names:
+            compare_tree(got[k], ref[k], f"{where}[{k}]", worst)
+    elif isinstance(ref, (list, float, int)) or hasattr(ref, "dtype"):
+        worst_rel(got, ref, where, worst)
+    elif got != ref:
+        raise AssertionError(f"{where}: {got!r} != {ref!r}")
+
+
+def output_files(folder):
+    """The openPMD files and in-situ files a run wrote under folder."""
+    files = sorted((folder / "openpmd").glob("openpmd_*.json"))
+    files += [folder / sub / f"reduced_{name}.0000.txt"
+              for sub, _, name in INSITU]
+    return files
+
+
+def output_deck(deck_fn, nxy, nz, npart, extra, folder):
+    return deck_fn(nxy, nz, npart, extra
+                   + f"hipace.file_prefix = {folder}/openpmd\n"
+                   + "".join(f"{key}.insitu_file_prefix = {folder}/{sub}\n"
+                             for sub, key, _ in INSITU))
+
+
+@phase("output, small")
+def output_small_phase(torch):
+    """The 63^2 x 16 float64 pdf deck with named diagnostics of every kind,
+    beam output and in-situ records on the card and on the CPU from the same
+    beam: every dataset and record within 1e-8, equal V-cycle counts."""
+    import shutil
+    from hipace_tpu_torch.convert import carry_state
+    from hipace_tpu_torch.decks import pdf_beam
+    from hipace_tpu_torch.pipeline.simulation import Simulation
+    sims, cycles = {}, {}
+    for dev in ("cpu", "cuda"):
+        folder = OUT / f"small_{dev}"
+        shutil.rmtree(folder, ignore_errors=True)
+        sims[dev] = Simulation(
+            output_deck(pdf_beam, SMALL_NXY, SMALL_NZ, 4000, NAMED_DIAGS,
+                        folder), device=dev, dtype=torch.float64, verbose=0)
+    cpu, gpu = sims["cpu"], sims["cuda"]
+    carry_state(gpu, {k: v.numpy() for k, v in cpu.binned.items()
+                      if torch.is_tensor(v)}, cpu.dt, cpu.time)
+    for dev, sim in sims.items():
+        cycles[dev] = [sim.advance(step)["mg_cycles"]
+                       for step in range(sim.max_step + 1)]
+    files = {dev: output_files(OUT / f"small_{dev}") for dev in sims}
+    names = [f.relative_to(OUT / "small_cpu") for f in files["cpu"]]
+    if [f.relative_to(OUT / "small_cuda") for f in files["cuda"]] != names \
+            or len(names) != 5 or not all(f.exists() for f in files["cuda"]):
+        raise AssertionError(f"the runs wrote different files: {files}")
+    worst = [0.0, ""]
+    for got, ref in zip(files["cuda"], files["cpu"]):
+        if got.suffix == ".json":
+            compare_tree(json.loads(got.read_text()),
+                         json.loads(ref.read_text()), got.name, worst)
+        else:
+            compare_tree(read_insitu(got), read_insitu(ref), got.name, worst)
+    ok = worst[0] < 1e-8 and cycles["cuda"] == cycles["cpu"]
+    print(f"output, small: {SMALL_NXY}^2 x {SMALL_NZ} float64 pdf deck, "
+          f"{len(names)} files ({', '.join(map(str, names))}), kernels vs "
+          f"CPU plain path: worst dataset max rel err {worst[0]:.3e} "
+          f"({worst[1]}; tol 1e-8), MG cycles equal "
+          f"{cycles['cuda'] == cycles['cpu']} {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        raise AssertionError("small output run mismatch")
+
+
+def timed_steps(torch, sim, steps, write):
+    """Run `steps` steps from step 0; per step (step seconds, write
+    seconds), the step on the host clock around a synchronize."""
+    times = []
+    for step in range(steps):
+        pre = sim.binned
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = sim.run_step(step)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        if write:
+            sim.write_output(step, res, pre)
+        times.append((t1 - t0, time.perf_counter() - t1))
+        sim.binned = res["binned"]
+        sim.time += sim.dt
+    return res, times
+
+
+@phase("pdf path")
+def pdf_path(torch):
+    """PDF_BEAM at 1023^2 x 64 float32 with its output: files, finite
+    fields, the beam count, the in-situ beam weight and the launch counts;
+    slices/s with and without output."""
+    import shutil
+    from hipace_tpu_torch.decks import pdf_beam
+    from hipace_tpu_torch.ops.deposit import deposit
+    from hipace_tpu_torch.ops.gather import gather_main
+    from hipace_tpu_torch.ops.mg_kernel import mg_solve
+    from hipace_tpu_torch.pipeline.simulation import Simulation
+    folder = OUT / "pdf"
+    shutil.rmtree(folder, ignore_errors=True)
+    sim = Simulation(output_deck(pdf_beam, NXY, NZ, NPART, PDF_OUTPUT,
+                                 folder), device="cuda",
+                     dtype=torch.float32, verbose=0)
+    g = sim.geom
+    steps = sim.max_step + 1
+    channels = 4 + len(sim.cfg.rho_comps()) + 9
+    n0 = int(sim.binned["valid"].sum())
+    w0 = float(sim.binned["w"][sim.binned["valid"]].double().sum())
+    for fn in (deposit, gather_main, mg_solve):
+        fn.launches = 0
+    res, times = timed_steps(torch, sim, steps, write=True)
+    counts = {"K1": deposit.launches, "K2": gather_main.launches,
+              "K3": mg_solve.launches}
+    n = int(sim.binned["valid"].sum())
+    finite = bool(torch.isfinite(res["diagf_lev0"]).all())
+    files = output_files(folder)
+    missing = [str(f) for f in files if not f.exists()]
+    if len(files) != steps + 3:
+        missing.append(f"{steps} openPMD files expected")
+    beam_rec = read_insitu(folder / "insitu" / "reduced_beam.0000.txt")
+    sw = beam_rec["sum(w)"].sum(axis=1)
+    w_rel = float(abs(sw - w0).max() / w0)
+    print(f"pdf path {NXY}^2 x {NZ} float32, {NPART} beam particles, plasma "
+          f"deposit C={channels}: xz fields {tuple(res['diagf_lev0'].shape)}"
+          f" finite {finite}, beam particles {n} (start {n0}), files "
+          f"{len(files)} missing {missing}, in-situ beam sum(w) per step "
+          f"{', '.join(f'{v:.9g}' for v in sw)} vs the beam's {w0:.9g} (max "
+          f"rel {w_rel:.3e}, tol 1e-5)", flush=True)
+    pcfg, bcfg = sim.plasma_cfgs[0], sim.beam_cfgs[0]
+    per_step = {"K1": int(pcfg.neutralize_background) + 3 * g.nz,
+                "K2": g.nz * (pcfg.n_subcycles + bcfg.n_subcycles),
+                "K3": g.nz}
+    for k, count in counts.items():
+        print(f"pdf path launches {k}: {count} (slice structure predicts "
+              f"{per_step[k] * steps})", flush=True)
+    slices = g.nz * (steps - 1)
+    t_step = sum(t for t, _ in times[1:])
+    t_write = sum(w for _, w in times[1:])
+    print(f"pdf path with output: {slices / (t_step + t_write):.3f} slices/s"
+          f" with the writes, {slices / t_step:.3f} slices/s for the steps "
+          f"alone over {steps - 1} timed steps after 1 warm-up; seconds "
+          f"writing per step: "
+          + ", ".join(f"{w:.3f}" for _, w in times), flush=True)
+    del res, sim
+    quiet = Simulation(pdf_beam(NXY, NZ, NPART), device="cuda",
+                       dtype=torch.float32, verbose=0)
+    _, qtimes = timed_steps(torch, quiet, steps, write=False)
+    q_step = sum(t for t, _ in qtimes[1:])
+    print(f"pdf path without output (output periods 0): "
+          f"{slices / q_step:.3f} slices/s over {steps - 1} timed steps",
+          flush=True)
+    if (not finite or n != n0 or missing or w_rel > 1e-5
+            or channels != 14
+            or any(c != per_step[k] * steps for k, c in counts.items())):
+        raise AssertionError("pdf path: files, fields, beam, in-situ weight "
+                             "or launch counts wrong")
+
+
 def main() -> int:
     if not (ROOT / "hipace_tpu_torch" / "csrc").is_dir():
         print("chip_smoke.py must run from a checkout of the repository",
@@ -561,6 +812,10 @@ def main() -> int:
     reference_phase(torch)
     counts: dict = {}
     main_path(torch, sim, counts)
+    del sim
+    torch.cuda.empty_cache()
+    output_small_phase(torch)
+    pdf_path(torch)
 
     if failures:
         print(f"chip_smoke FAILED phases: {failures}", file=sys.stderr)

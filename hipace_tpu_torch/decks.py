@@ -5,6 +5,12 @@
 beam through a 1 ppc electron plasma, with the explicit Bx/By solver. It is
 kept here so that a run of the port needs nothing of the JAX package's
 entry points; a test holds the two equal.
+
+``PDF_BEAM`` is the flagship deck with a fixed_weight_pdf beam: a gaussian
+pdf(z) of sigma 1.41 about z = -1, transverse sigma 0.3, uz = 2000 and peak
+density 3. It is shaped like the reference's transverse benchmark deck
+(``examples/benchmarks/inputs_transverse_benchmark``: a pdf beam, a 1 ppc
+plasma, the explicit solver) and is not that file.
 """
 
 from __future__ import annotations
@@ -43,3 +49,36 @@ def blowout_wake(nxy: int, nz: int, npart: int, extra: str = "") -> Inputs:
     """The flagship deck on an nxy^2 x nz grid with an npart-particle beam,
     followed by the deck lines in `extra`."""
     return Inputs(BLOWOUT_WAKE.format(nxy=nxy, nz=nz, npart=npart) + extra)
+
+
+PDF_BEAM = """
+amr.n_cell = {nxy} {nxy} {nz}
+hipace.normalized_units = 1
+max_step = 0
+hipace.dt = 1.0
+boundary.field = Dirichlet
+boundary.particle = Periodic
+geometry.prob_lo = -8. -8. -6.
+geometry.prob_hi =  8.  8.  2.
+beams.names = beam
+beam.injection_type = fixed_weight_pdf
+beam.num_particles = {npart}
+beam.pdf(z) = exp(-0.5*((z+1.)/1.41)^2)
+beam.position_mean = "0." "0."
+beam.position_std = "0.3" "0.3"
+beam.u_mean = "0." "0." "2000."
+beam.u_std = "0." "0." "0."
+beam.density = 3.
+plasmas.names = plasma
+plasma.density(x,y,z) = 1.
+plasma.ppc = 1 1
+plasma.element = electron
+diagnostic.output_period = 0
+"""
+
+
+def pdf_beam(nxy: int, nz: int, npart: int, extra: str = "") -> Inputs:
+    """PDF_BEAM on an nxy^2 x nz grid with an npart-particle beam, followed
+    by the deck lines in `extra`; full width is nxy = 1023 with the
+    bench's npart = nxy^2 * 10 * nz / 1000."""
+    return Inputs(PDF_BEAM.format(nxy=nxy, nz=nz, npart=npart) + extra)

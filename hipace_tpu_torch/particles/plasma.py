@@ -367,7 +367,9 @@ def fused_plasma_deposits(p: dict, stack_comps, fields: dict, geom: Geometry,
     """Main currents and the explicit Sx/Sy coefficient channels in ONE K1
     deposit (the deriv_type 2 branch of the JAX function): the centered
     derivative channels deposit with plain weights and become grid
-    differences in combine_explicit_sxsy. Returns (fields, p, dgrids)."""
+    differences in combine_explicit_sxsy. stack_comps: jx, jy, chi, rhomjz
+    and, where the deck asks, rho and rho_<species>. Returns (fields, p,
+    dgrids)."""
     charge = cfg.charge
     cin = 1.0 / pc.c
     invvol = 1.0 if normalized_units else 1.0 / (geom.dx * geom.dy * geom.dz)
@@ -402,7 +404,9 @@ def fused_plasma_deposits(p: dict, stack_comps, fields: dict, geom: Geometry,
           cdc * dx_inv * (gamma_psi - vx * vx - 1.0)]
     v3 = [-cdc * dy_inv * (gamma_psi - vy * vy - 1.0),
           -cdc * dy_inv * vx * vy]
-    vall = [values[c] for c in stack_comps] + chans + v2 + v3
+    # rho_<species> deposits the same charge density as rho
+    vall = [values["rho" if c.startswith("rho_") else c]
+            for c in stack_comps] + chans + v2 + v3
     Cm, C1 = len(stack_comps), len(chans)
     acc = torch.cat([torch.stack([fields[c] for c in stack_comps]),
                      torch.zeros((C1 + 4,) + geom.slice_shape,

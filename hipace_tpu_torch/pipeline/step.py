@@ -5,10 +5,17 @@ Port of the explicit, non-MR, non-laser branch of
 Hipace::SolveOneSlice, Hipace.cpp:557-728). The JAX package scans a jitted
 slice function; here ``SliceStep`` is called once per slice, head to tail,
 by an eager Python loop. Per slice: the fused 13-channel plasma deposit
-(K1), the beam jz deposit (K1), the batched Psi/Ez/Bz DST solve, the beam
-Next jx/jy deposit (K1), the Sx/Sy assembly, the Bx/By multigrid (K3), the
-plasma push (K2) and the beam push (K2 per subcycle), the slip of beam
-particles that left the slice, and the slice shift.
+(K1; 14-15 channels with hipace.deposit_rho and deposit_rho_individual), the
+beam jz deposit (K1), the batched Psi/Ez/Bz DST solve, the beam Next jx/jy
+deposit (K1), the Sx/Sy assembly, the Bx/By multigrid (K3), the slice's
+field diagnostics and in-situ moments, the plasma push (K2) and the beam
+push (K2 per subcycle), the slip of beam particles that left the slice, and
+the slice shift.
+
+The diagnostics stay on the device: the identity diagnostics' comps are one
+(C, ny, nx) stack, every other diagnostic a cropped and coarsened payload,
+xy_integrated ones a running sum in the carry, and the in-situ moments one
+raw vector per species (``diagnostics/insitu.py``).
 
 The slipped-beam buffer has no fixed capacity: every particle that stopped
 mid-subcycles moves on, in the order the JAX package's stable sort gives,
@@ -22,12 +29,116 @@ import dataclasses
 import torch
 
 from ..constants import PhysConst
+from ..diagnostics import insitu as ins
 from ..fields import slices as sl
 from ..fields.multigrid import MultiGrid
 from ..fields.poisson import VARIANTS, DirichletPoissonSolver
 from ..geometry import Geometry
 from ..particles import beam as bm
 from ..particles import plasma as pl
+
+
+@dataclasses.dataclass(frozen=True)
+class DiagConfig:
+    """One named field diagnostic (ref diagnostics/Diagnostic.{H,cpp};
+    parameter surface docs/source/run/parameters.rst:932-1110). Crops and
+    coarsening are inclusive cell-index ranges and ratios of the base
+    geometry, applied on the device slice by slice."""
+    name: str = "lev0"
+    base: str = "level_0"
+    diag_type: str = "xyz"         # xyz | xz | yz | xy_integrated
+    comps: tuple = ()
+    coarsening: tuple = (1, 1, 1)  # (cx, cy, cz)
+    include_ghosts: bool = False
+    # inclusive cell index ranges (lo, hi) in x, y, z
+    patch_x: tuple = (0, -1)
+    patch_y: tuple = (0, -1)
+    patch_z: tuple = (0, -1)
+    period: int = -1
+
+
+def _coarsen_axis(a, axis, r):
+    """First-order-interpolated coarsening by the integer ratio r (ref
+    Fields::Copy coarsening, Fields.cpp:413-533)."""
+    if r == 1:
+        return a
+    a = a.narrow(axis, 0, (a.shape[axis] // r) * r)
+
+    def every(start):
+        idx = [slice(None)] * a.ndim
+        idx[axis] = slice(start, None, r)
+        return a[tuple(idx)]
+
+    if r % 2 == 1:
+        return every(r // 2)
+    return 0.5 * (every(r // 2 - 1) + every(r // 2))
+
+
+def _process_diag_slice(arrs, dg: DiagConfig, geom: Geometry):
+    """The slice's payload (C, ...) of a diagnostic from its comps' padded
+    (NY, NX) planes: the xz/yz mid line or the xyz/xy_integrated plane,
+    cropped to the patch (without ghosts) and coarsened."""
+    G = geom.nguards
+    NY, NX = geom.slice_shape
+    if dg.diag_type == "xz":
+        mid = G + geom.ny // 2
+        row = torch.stack([a[mid, :] for a in arrs])
+        if geom.ny % 2 == 0:
+            row = 0.5 * (torch.stack([a[mid - 1, :] for a in arrs]) + row)
+        if not dg.include_ghosts:
+            row = row[:, G:NX - G][:, dg.patch_x[0]:dg.patch_x[1] + 1]
+        return _coarsen_axis(row, 1, dg.coarsening[0])
+    if dg.diag_type == "yz":
+        mid = G + geom.nx // 2
+        col = torch.stack([a[:, mid] for a in arrs])
+        if geom.nx % 2 == 0:
+            col = 0.5 * (torch.stack([a[:, mid - 1] for a in arrs]) + col)
+        if not dg.include_ghosts:
+            col = col[:, G:NY - G][:, dg.patch_y[0]:dg.patch_y[1] + 1]
+        return _coarsen_axis(col, 1, dg.coarsening[1])
+    if not dg.include_ghosts:
+        arrs = [a[G:NY - G, G:NX - G][dg.patch_y[0]:dg.patch_y[1] + 1,
+                                       dg.patch_x[0]:dg.patch_x[1] + 1]
+                for a in arrs]
+    a = _coarsen_axis(torch.stack(arrs), 1, dg.coarsening[1])
+    return _coarsen_axis(a, 2, dg.coarsening[0])
+
+
+def is_full_interior(dg: DiagConfig, geom: Geometry) -> bool:
+    """True when the diag is the whole interior of every slice: its comps
+    come from the full-interior stack of SimConfig.diag_comps (the union of
+    such diagnostics' comps), with no per-slice processing."""
+    return (dg.base == "level_0" and dg.diag_type == "xyz"
+            and dg.coarsening[:2] == (1, 1) and not dg.include_ghosts
+            and dg.patch_x == (0, geom.nx - 1)
+            and dg.patch_y == (0, geom.ny - 1))
+
+
+def diag_slice_shape(dg: DiagConfig, geom: Geometry):
+    """The per-slice payload shape of a processed diagnostic."""
+    if dg.diag_type == "xz":
+        n = (geom.slice_shape[1] if dg.include_ghosts
+             else dg.patch_x[1] - dg.patch_x[0] + 1)
+        return (len(dg.comps), n // dg.coarsening[0])
+    if dg.diag_type == "yz":
+        n = (geom.slice_shape[0] if dg.include_ghosts
+             else dg.patch_y[1] - dg.patch_y[0] + 1)
+        return (len(dg.comps), n // dg.coarsening[1])
+    if dg.include_ghosts:
+        ny, nx = geom.slice_shape
+    else:
+        ny = dg.patch_y[1] - dg.patch_y[0] + 1
+        nx = dg.patch_x[1] - dg.patch_x[0] + 1
+    return (len(dg.comps), ny // dg.coarsening[1], nx // dg.coarsening[0])
+
+
+THIS_COMPS = ("chi", "Sy", "Sx", "ExmBy", "EypBx", "Ez", "Bx", "By", "Bz",
+              "Psi", "jx_beam", "jy_beam", "jz_beam", "jx", "jy", "rhomjz")
+# every comp a field diagnostic's field_data=all writes, in the JAX
+# package's order
+DIAG_COMPS = ("ExmBy", "EypBx", "Ez", "Bx", "By", "Bz", "Psi", "jx_beam",
+              "jy_beam", "jz_beam", "jx", "jy", "rhomjz", "chi", "Sx", "Sy")
+ZERO_COMPS = ("chi", "Sy", "Sx", "ExmBy", "EypBx", "jz_beam", "rhomjz")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,21 +154,32 @@ class SimConfig:
     poisson_solver: str = "FFTDirichletFast"
     plasmas: tuple = ()
     beams: tuple = ()
+    # the full-interior stack: union of the identity diagnostics' comps
+    diag_comps: tuple = DIAG_COMPS
+    # named field diagnostics (ref diagnostic.names)
+    diags: tuple = ()
+    deposit_rho: bool = False
+    deposit_rho_individual: bool = False
+    # in-situ diagnostics periods (0 = off) and radius
+    insitu_beam_period: int = 0
+    insitu_field_period: int = 0
+    insitu_plasma_period: int = 0
+    insitu_radius: float = float("inf")
 
-
-THIS_COMPS = ("chi", "Sy", "Sx", "ExmBy", "EypBx", "Ez", "Bx", "By", "Bz",
-              "Psi", "jx_beam", "jy_beam", "jz_beam", "jx", "jy", "rhomjz")
-# the per-slice field record, in the JAX package's field_data=all order
-DIAG_COMPS = ("ExmBy", "EypBx", "Ez", "Bx", "By", "Bz", "Psi", "jx_beam",
-              "jy_beam", "jz_beam", "jx", "jy", "rhomjz", "chi", "Sx", "Sy")
-ZERO_COMPS = ("chi", "Sy", "Sx", "ExmBy", "EypBx", "jz_beam", "rhomjz")
+    def rho_comps(self) -> tuple:
+        """The charge densities the plasma deposits besides the currents:
+        rho, then rho_<species> for each plasma."""
+        return ((("rho",) if self.deposit_rho else ())
+                + (tuple(f"rho_{p.name}" for p in self.plasmas)
+                   if self.deposit_rho_individual else ()))
 
 
 def init_field_state(cfg: SimConfig, device, dtype) -> dict:
     """The zeroed slice field sets (ref Fields::AllocData)."""
     g = cfg.geom
     return {
-        "This": sl.make_field_set(THIS_COMPS, g, device, dtype),
+        "This": sl.make_field_set(THIS_COMPS + cfg.rho_comps(), g, device,
+                                  dtype),
         "Next": sl.make_field_set(("jx_beam", "jy_beam"), g, device, dtype),
         "Previous": sl.make_field_set(("jx_beam", "jy_beam"), g, device,
                                       dtype),
@@ -130,10 +252,15 @@ class SliceStep:
 
     def __call__(self, carry: dict, islice: int, beam_this: dict,
                  beam_next: dict):
-        """One slice. carry: fields, plasma (list), slip, dt. Returns
-        (carry, out) with out = {beam_out: emitted lanes, diag: (16, ny,
-        nx) field record, mg_cycles: the solve's V-cycle count, an int on
-        the CPU and an unread 0-d device tensor on the card}."""
+        """One slice. carry: fields, plasma (list), slip, dt and, with
+        xy_integrated diagnostics, diag_int (name -> running sum). Returns
+        (carry, out) with out = {beam_out: emitted lanes, diag: the
+        (len(cfg.diag_comps), ny, nx) stack or None, diagf_<name>: the
+        payload of each other written diagnostic, insitu_beam /
+        insitu_plasma / insitu_field: the raw in-situ sums where their
+        period is on, mg_cycles: the solve's V-cycle
+        count, an int on the CPU and an unread 0-d device tensor on the
+        card}."""
         cfg = self.cfg
         g, pc, order = cfg.geom, cfg.pc, cfg.depos_order_xy
         f = carry["fields"]
@@ -142,17 +269,20 @@ class SliceStep:
 
         # ---- InitializeSlices (ref Fields.cpp:536-586)
         this = dict(f["This"])
-        for c in ZERO_COMPS:
+        for c in ZERO_COMPS + cfg.rho_comps():
             this[c] = torch.zeros_like(this[c])
         f = dict(f, Next={c: torch.zeros_like(v)
                           for c, v in f["Next"].items()})
 
         # ---- plasma deposits on This: currents + Sx/Sy channels (K1)
         plasmas, dgrids_list = [], []
+        base_comps = ["jx", "jy", "chi", "rhomjz"] + (
+            ["rho"] if cfg.deposit_rho else [])
         for p, pcfg in zip(carry["plasma"], cfg.plasmas):
+            comps = base_comps + ([f"rho_{pcfg.name}"]
+                                  if cfg.deposit_rho_individual else [])
             this, p, dg = pl.fused_plasma_deposits(
-                p, ["jx", "jy", "chi", "rhomjz"], this, g, pcfg, pc, order,
-                cfg.normalized_units)
+                p, comps, this, g, pcfg, pc, order, cfg.normalized_units)
             plasmas.append(p)
             dgrids_list.append(dg)
 
@@ -163,6 +293,8 @@ class SliceStep:
                                          cfg.normalized_units)
         # ---- AddRhoIons (ref Fields.cpp:606-615)
         this["rhomjz"] = this["rhomjz"] + f["RhomJzIons"]["rhomjz"]
+        if cfg.deposit_rho:
+            this["rho"] = this["rho"] + f["RhomJzIons"]["rhomjz"]
 
         # ---- Psi/ExmBy/EypBx/Ez/Bz
         this = solve_psi_ez_bz(this, cfg, self.solver)
@@ -178,7 +310,28 @@ class SliceStep:
         for dg in dgrids_list:
             this = pl.combine_explicit_sxsy(this, dg, pc)
         this = explicit_bxby_solve(this, cfg, self.mg)
-        diag = torch.stack([sl.interior(this[c], g) for c in DIAG_COMPS])
+
+        # ---- per-slice diagnostics (ref Diagnostic.cpp, Fields::Copy)
+        out = {"diag": (torch.stack([sl.interior(this[c], g)
+                                     for c in cfg.diag_comps])
+                        if cfg.diag_comps else None)}
+        for dg in cfg.diags:
+            if is_full_interior(dg, g):
+                continue
+            payload = _process_diag_slice([this[c] for c in dg.comps], dg, g)
+            if dg.diag_type == "xy_integrated":
+                di = dict(carry["diag_int"])
+                di[dg.name] = di[dg.name] + payload
+                carry = dict(carry, diag_int=di)
+            else:
+                out["diagf_" + dg.name] = payload
+        # ---- in-situ moments (ref Hipace.cpp:681-688)
+        if cfg.insitu_field_period:
+            out["insitu_field"] = ins.field_slice_sums(this, g, pc)
+        if cfg.insitu_plasma_period:
+            out["insitu_plasma"] = torch.stack([
+                ins.plasma_slice_raw(p, pc, cfg.insitu_radius)
+                for p in plasmas])
 
         # ---- push plasma (K2)
         plasmas = [pl.advance_plasma(p, this, g, pcfg, pc, order=order)
@@ -188,6 +341,10 @@ class SliceStep:
         slip = carry["slip"]
         combined = {k: torch.cat([slip[k], beam_this[k]])
                     for k in bm.ALL_ATTRS}
+        if cfg.insitu_beam_period and cfg.beams:
+            # the one beam's moments before its push (ref Hipace.cpp:681)
+            out["insitu_beam"] = ins.beam_slice_raw(combined, pc,
+                                                    cfg.insitu_radius)
         if cfg.beams:
             combined = bm.advance_all_beams(combined, this, g, cfg.beams, pc,
                                             dt, min_z, order=order)
@@ -210,8 +367,8 @@ class SliceStep:
         f = dict(f, This=new_this, Previous={"jx_beam": this["jx_beam"],
                                              "jy_beam": this["jy_beam"]})
         carry = dict(carry, fields=f, plasma=plasmas, slip=slip)
-        return carry, {"beam_out": emit, "diag": diag,
-                       "mg_cycles": self.mg.cycles}
+        out.update(beam_out=emit, mg_cycles=self.mg.cycles)
+        return carry, out
 
 
 def empty_slip(device, dtype) -> dict:

@@ -11,9 +11,7 @@ from __future__ import annotations
 
 from .parser import Inputs
 
-PDF_BEAM = "fixed_weight_pdf beam and the transverse-benchmark deck"
 PC_AND_OPEN = "predictor-corrector Bx/By solver and open boundaries"
-DIAGNOSTICS = "diagnostics and openPMD output"
 OTHER_PATHS = "other beam and plasma paths"
 LASER = "laser"
 IONIZATION = "ionization"
@@ -58,6 +56,11 @@ def check_deck(inputs: Inputs) -> None:
         fail("hipace.dt", OTHER_PATHS)
     if inputs.contains("hipace.max_time"):
         fail("hipace.max_time", OTHER_PATHS)
+    # the explicit solver's Bx/By multigrid is node-centered: odd sizes
+    nx, ny = inputs.query_list("amr.n_cell", [1, 1, 1], int)[:2]
+    if nx % 2 == 0 or ny % 2 == 0:
+        fail(f"amr.n_cell = {nx} {ny}: an even transverse size",
+             OTHER_PATHS)
     if q("hipace.depos_derivative_type", 2, int) != 2:
         fail("hipace.depos_derivative_type", OTHER_PATHS)
     for key in ("fields.do_symmetrize", "hipace.do_beam_jz_minus_rho",
@@ -66,19 +69,3 @@ def check_deck(inputs: Inputs) -> None:
             fail(key, OTHER_PATHS)
     if q("hipace.plasma_pusher", "leapfrog", str) != "leapfrog":
         fail("hipace.plasma_pusher", OTHER_PATHS)
-    period = q("diagnostic.output_period", -1, int)
-    for key, default in (("diagnostic.output_period", -1),
-                         ("diagnostic.beam_output_period", period)):
-        if q(key, default, int) != 0:
-            fail(key, DIAGNOSTICS)
-    for key in ("hipace.deposit_rho", "hipace.deposit_rho_individual"):
-        if q(key, False, bool):
-            fail(key, DIAGNOSTICS)
-    insitu = ["beams.insitu_period", "plasmas.insitu_period",
-              "fields.insitu_period"]
-    insitu += [f"{n}.insitu_period" for n in
-               _names(inputs, "beams.names", "no_beam")
-               + _names(inputs, "plasmas.names", "no_plasma")]
-    for key in insitu:
-        if q(key, 0, int):
-            fail(key, DIAGNOSTICS)

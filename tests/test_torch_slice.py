@@ -220,11 +220,12 @@ def test_tpu_tuning_keys_are_noops():
     ("beam.do_salame = 1", "SALAME"),
     ("plasma.initial_ion_level = 1", "ionization"),
     ("hipace.collisions = c1", "collisions"),
-    ("diagnostic.output_period = 1", "diagnostics"),
-    ("beams.insitu_period = 1", "diagnostics"),
+    ("beam.do_spin_tracking = 1", "other beam and plasma paths"),
+    ("hipace.dt = adaptive", "other beam and plasma paths"),
     ("plasmas.names = plasma ions", "other beam and plasma paths"),
-    ("beam.injection_type = fixed_weight_pdf", "fixed_weight_pdf"),
+    ("fields.poisson_solver = MGDirichlet", "other beam and plasma paths"),
     ("hipace.depos_derivative_type = 1", "other beam and plasma paths"),
+    ("amr.n_cell = 32 32 8", "other beam and plasma paths"),
 ])
 def test_unsupported_keys_raise(extra, item):
     with pytest.raises(NotImplementedError, match=item):

@@ -1,20 +1,30 @@
 """Where the time of one time step of the PyTorch/CUDA port goes, on a GPU.
 
-    python3 tools/profile_torch_step.py [--nxy 1023] [--nz 64] [--steps 2]
+    python3 tools/profile_torch_step.py [--deck flagship|pdf] [--insitu]
+        [--xz] [--nxy 1023] [--nz 64] [--steps 2]
 
-Runs the flagship blowout-wake deck (``hipace_tpu_torch.decks``) in float32
-on ``cuda``: one warm-up step, ``--steps`` timed steps on the host clock,
-then one step under ``torch.profiler``. It prints the device time and
-launch count per slice of each group of device activities (the port's
-kernels K1-K3, PyTorch elementwise kernels, copies, FFT, the rest), the
-device-to-host copies per slice (each one a wait of the host for the
-device), the busiest kernels, and the busy share: profiled device time per
-slice over the unprofiled wall time per slice. Imports nothing of JAX.
+Runs a deck of ``hipace_tpu_torch.decks`` (the flagship blowout wake or its
+fixed_weight_pdf variant) in float32 on ``cuda``: one warm-up step,
+``--steps`` timed steps on the host clock, then one step under
+``torch.profiler``. It prints the device time and launch count per slice of
+each group of device activities (the port's kernels K1-K3, PyTorch
+elementwise kernels, copies, FFT, the rest), the device-to-host copies per
+slice (each one a wait of the host for the device), the busiest kernels, and
+the busy share: profiled device time per slice over the unprofiled wall time
+per slice.
+
+Output: ``--insitu`` turns on the in-situ beam, plasma and field records
+every step, ``--xz`` an xz field diagnostic of every comp and rho every step
+(json, under ``build/profile_output``; it takes the place of the full 3D
+record the deck keeps otherwise). Each step's output is written after the
+step, outside the profiled and timed sweep, and its seconds are printed per
+step. Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import subprocess
 import sys
 import time
@@ -43,6 +53,12 @@ def group_of(name: str) -> str:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--deck", choices=("flagship", "pdf"),
+                    default="flagship")
+    ap.add_argument("--insitu", action="store_true",
+                    help="in-situ beam, plasma and field records every step")
+    ap.add_argument("--xz", action="store_true",
+                    help="an xz diagnostic of all comps and rho every step")
     ap.add_argument("--nxy", type=int, default=1023)
     ap.add_argument("--nz", type=int, default=64)
     ap.add_argument("--steps", type=int, default=2)
@@ -54,7 +70,7 @@ def main() -> int:
         print("no CUDA device", file=sys.stderr)
         return 3
 
-    from hipace_tpu_torch.decks import blowout_wake
+    from hipace_tpu_torch.decks import blowout_wake, pdf_beam
     from hipace_tpu_torch.pipeline.simulation import Simulation
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -62,25 +78,48 @@ def main() -> int:
                          text=True, check=False, timeout=60)
     print(smi.stdout.strip() or smi.stderr.strip())
     npart = args.nxy * args.nxy * 10 * args.nz // 1000
-    sim = Simulation(blowout_wake(args.nxy, args.nz, npart), device="cuda",
+    out = ROOT / "build" / "profile_output"
+    extra = (f"hipace.file_prefix = {out}/openpmd\n"
+             "hipace.openpmd_backend = json\n")
+    if args.insitu:
+        extra += "".join(
+            f"{key}.insitu_period = 1\n{name}.insitu_file_prefix = "
+            f"{out}/{name}_insitu\n"
+            for key, name in (("beams", "beam"), ("plasmas", "plasma"),
+                              ("fields", "fields")))
+    if args.xz:
+        extra += ("diagnostic.output_period = 1\ndiagnostic.diag_type = xz\n"
+                  "diagnostic.field_data = all rho\n"
+                  "diagnostic.beam_output_period = 0\n")
+    deck = {"flagship": blowout_wake, "pdf": pdf_beam}[args.deck]
+    sim = Simulation(deck(args.nxy, args.nz, npart, extra), device="cuda",
                      dtype=torch.float32, verbose=0)
+    write_s = []
 
-    def step():
-        res = sim.run_step(0)
+    def step(profiled=False):
+        pre = sim.binned
+        acts = [torch.profiler.ProfilerActivity.CPU,
+                torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=acts) if profiled \
+                else contextlib.nullcontext() as prof:
+            res = sim.run_step(0)
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sim.write_output(len(write_s), res, pre)
+        write_s.append(time.perf_counter() - t0)
         sim.binned = res["binned"]
         sim.time += sim.dt
-        torch.cuda.synchronize()
+        return prof
 
     step()                                          # warm-up
     t0 = time.perf_counter()
     for _ in range(args.steps):
         step()
-    wall_ms = 1e3 * (time.perf_counter() - t0) / (args.steps * args.nz)
+    # the sweeps alone: the writes after them are timed apart
+    sweep_s = time.perf_counter() - t0 - sum(write_s[1:])
+    wall_ms = 1e3 * sweep_s / (args.steps * args.nz)
 
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        step()
+    prof = step(profiled=True)
     ms = defaultdict(float)
     count = defaultdict(int)
     per_kernel = defaultdict(lambda: [0.0, 0])
@@ -97,9 +136,11 @@ def main() -> int:
         per_kernel[e.name][1] += 1
     total = sum(ms.values())
     nz = args.nz
-    print(f"deck {args.nxy}^2 x {nz}, {npart} beam particles, float32; "
-          f"unprofiled {wall_ms:.3f} ms/slice ({1e3 / wall_ms:.3f} slices/s) "
-          f"over {args.steps} steps after 1 warm-up")
+    print(f"deck {args.deck} {args.nxy}^2 x {nz}, {npart} beam particles, "
+          f"float32, in-situ {'on' if args.insitu else 'off'}, xz diagnostic "
+          f"{'on' if args.xz else 'off'}; unprofiled {wall_ms:.3f} ms/slice "
+          f"({1e3 / wall_ms:.3f} slices/s) over {args.steps} steps after 1 "
+          "warm-up")
     print(f"profiled step: {sum(count.values())} device activities, device "
           f"time {total / nz:.3f} ms/slice, busy share "
           f"{total / nz / wall_ms:.3f} of the unprofiled slice")
@@ -108,6 +149,8 @@ def main() -> int:
         print(f"{g:<30} {ms[g] / nz:16.3f} {count[g] / nz:15.2f}")
     print(f"device-to-host copies: {readbacks / nz:.2f} per slice "
           f"({readbacks} in the step)")
+    print("seconds writing output after each step: "
+          + ", ".join(f"{s:.3f}" for s in write_s))
     print("busiest device activities over the profiled step:")
     top = sorted(per_kernel.items(), key=lambda kv: kv[1][0], reverse=True)
     for name, (t, n) in top[:15]:
