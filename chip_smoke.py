@@ -25,7 +25,22 @@ deck at 1023^2 x 64 in float32 with an xz diagnostic of every comp and rho
 (K1 at 14 channels), in-situ records every step and the beam at the last,
 checked for its files, finite fields, a conserved beam, the in-situ beam
 weight and the launch counts, and timed with and without output. Files go
-under ``build/chip_smoke``. It imports nothing but the port.
+under ``build/chip_smoke``.
+
+The predictor-corrector: a 63^2 x 16 float64 step of the
+predictor-corrector deck with open boundaries
+(``hipace_tpu_torch.decks.PC_OPEN``) on the card against the CPU, with equal
+iterations on every slice, and the open boundary and the MGDirichlet and
+FFTPeriodic Poisson solvers on the card against the CPU; then the PC path,
+that deck at 1023^2 x 64 in float32 for one warm-up and two timed steps,
+whose K1 and K2 launches must equal what its slice structure and its own
+iteration counts predict (no K3 launch), and whose host reads of the device
+per slice (counted in the warm-up step) must be the beam's two plus one per
+iteration, within 0.15; then MGDirichlet through K3 at 1023^2 with three
+channels and a scalar zero acf against its plain version in float32 and
+float64, and the open boundary's time per call. K1 is also checked and
+timed at the PC path's channel counts (plasma 4 and 2, beam 3 and 2). It
+imports nothing but the port.
 
 Beside each kernel's time (CUDA events around calls queued behind a device
 sleep) it prints the kernel's bound: the least time the card could take, the
@@ -48,6 +63,7 @@ import subprocess
 import sys
 import time
 import traceback
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -261,7 +277,7 @@ def lane_cases(torch, g, dtype, lanes):
     """The lanes of the K1 and K2 phases, from one generator: the main
     path's plasma lanes in lattice order, the same shuffled (perm), moved by
     up to 40 cells (fym, fxm), and a gaussian beam slice (bym, bxm), with
-    14 plasma and 2 beam channel values for K1."""
+    14 plasma and 3 beam channel values for K1."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     NY, _ = g.slice_shape
     ym, xm = lanes
@@ -293,23 +309,33 @@ def k1_phase(torch, g, dtype, lc, results):
     name = str(dtype).split(".")[1]
     NY, NX = g.slice_shape
     ym, xm, vals, perm = lc["ym"], lc["xm"], lc["vals"], lc["perm"]
-    N = ym.numel()
-    # label, ym, xm, values, deriv_type, lattice width
+    # label, ym, xm, values, deriv_type, lattice width, results key (the
+    # calls whose bound is printed and kept)
     v13 = vals[:13].contiguous()
+    b2 = lc["bvals"][:2].contiguous()
     cases = [
         ("plasma C=13 deriv_type 2, lattice order with the hint", ym, xm,
-         v13, 2, g.nx),
+         v13, 2, g.nx, "K1"),
         ("the same lanes, lattice order without the hint", ym, xm, v13, 2,
-         None),
+         None, None),
         ("the same lanes shuffled, no hint", ym[perm], xm[perm],
-         v13[:, perm].contiguous(), 2, None),
+         v13[:, perm].contiguous(), 2, None, None),
         ("lanes moved by up to 40 cells, with the hint", lc["fym"],
-         lc["fxm"], v13, 2, g.nx),
-        ("gaussian beam C=2", lc["bym"], lc["bxm"], lc["bvals"], -1, None),
+         lc["fxm"], v13, 2, g.nx, None),
+        ("gaussian beam C=2 (the PC path's beam Next jx/jy)", lc["bym"],
+         lc["bxm"], b2, -1, None, "K1 PC beam C=2"),
         ("plasma C=14 with rho (the pdf path), lattice order with the hint",
-         ym, xm, vals, 2, g.nx),
+         ym, xm, vals, 2, g.nx, None),
+        ("plasma C=4 (the PC path's jx/jy/jz/rhomjz), lattice order with "
+         "the hint", ym, xm, vals[:4].contiguous(), -1, g.nx,
+         "K1 PC plasma C=4"),
+        ("plasma C=2 (the PC path's trial jx/jy), lattice order with the "
+         "hint", ym, xm, vals[:2].contiguous(), -1, g.nx,
+         "K1 PC plasma C=2"),
+        ("gaussian beam C=3 (the PC path's beam jx/jy/jz)", lc["bym"],
+         lc["bxm"], lc["bvals"], -1, None, "K1 PC beam C=3"),
     ]
-    for i, (label, y, x, v, dtyp, width) in enumerate(cases):
+    for label, y, x, v, dtyp, width, key in cases:
         C = v.shape[0]
         zero = torch.zeros((C, NY, NX), dtype=dtype, device="cuda")
         dep.reset_block_counts()
@@ -331,14 +357,14 @@ def k1_phase(torch, g, dtype, lc, results):
               flush=True)
         if not ok:
             raise AssertionError(f"K1 {name} {label} outside tolerance")
-        if i == 0:
+        if key:
             # lanes and values in, the field stack in and out; per live lane
             # and channel 3 x 3 nonzero taps of a multiply and an add
             size = zero.element_size()
-            nbytes = size * ((2 + C) * N + 2 * C * NY * NX)
+            nbytes = size * ((2 + C) * y.numel() + 2 * C * NY * NX)
             flops = 2 * 9 * C * int((y < 1.5 * NY).sum())
-            b_ms, by = bound_line("K1", name, ms, nbytes, flops, size)
-            results[("K1", name)] = (err, ms, plain_ms, b_ms, by)
+            b_ms, by = bound_line(key, name, ms, nbytes, flops, size)
+            results[(key, name)] = (err, ms, plain_ms, b_ms, by)
 
 
 def stencil_cells(torch, ym, xm, NY, NX, order):
@@ -562,6 +588,203 @@ def main_path(torch, sim, counts):
               f"predicts {want})", flush=True)
         if counts[k] != want or counts[k] == 0:
             raise AssertionError(f"{k} launch count {counts[k]} != {want}")
+
+
+@phase("PC, small")
+def pc_small_phase(torch):
+    """A 63^2 x 16 float64 step of PC_OPEN on the kernels against the same
+    step on the CPU plain path: fields within 1e-8, equal iterations on
+    every slice; then the open boundary and the MGDirichlet and FFTPeriodic
+    solvers on the card against the CPU."""
+    from hipace_tpu_torch.convert import carry_state
+    from hipace_tpu_torch.decks import pc_open
+    from hipace_tpu_torch.fields.open_boundary import OpenBoundary
+    from hipace_tpu_torch.fields.poisson import make_poisson_solver
+    from hipace_tpu_torch.pipeline.simulation import Simulation
+    cpu = Simulation(pc_open(SMALL_NXY, SMALL_NZ, 4000), device="cpu",
+                     verbose=0)
+    gpu = Simulation(pc_open(SMALL_NXY, SMALL_NZ, 4000), device="cuda",
+                     dtype=torch.float64, verbose=0)
+    carry_state(gpu, {k: v.numpy() for k, v in cpu.binned.items()
+                      if torch.is_tensor(v)}, cpu.dt, cpu.time)
+    ref, got = cpu.run_step(0), gpu.run_step(0)
+    d_ref, d_got = ref["diag"], got["diag"].cpu()
+    rel = float((d_got - d_ref).abs().max() / d_ref.abs().max())
+    same_iters = got["pc_iters"] == ref["pc_iters"]
+    ok = rel < 1e-8 and same_iters
+    print(f"PC, small: {SMALL_NXY}^2 x {SMALL_NZ} float64 PC_OPEN step, "
+          f"kernels vs CPU plain path: fields max rel err {rel:.3e} (tol "
+          f"1e-8), iterations per slice equal {same_iters} "
+          f"({sum(ref['pc_iters'])} in all, {min(ref['pc_iters'])}-"
+          f"{max(ref['pc_iters'])} per slice) {'ok' if ok else 'FAIL'}",
+          flush=True)
+    g = cpu.geom
+    rhs = torch.randn((3, g.ny, g.nx), dtype=torch.float64,
+                      generator=torch.Generator().manual_seed(5))
+    worst = {}
+    for name, on_card, on_cpu in (
+            ("OpenBoundary.apply monopole",
+             OpenBoundary(g, device="cuda").apply(rhs.cuda(), True),
+             OpenBoundary(g, device="cpu").apply(rhs, True)),
+            ("OpenBoundary.apply no monopole",
+             OpenBoundary(g, device="cuda").apply(rhs.cuda(), False),
+             OpenBoundary(g, device="cpu").apply(rhs, False))):
+        worst[name] = float((on_card.cpu() - on_cpu).abs().max()
+                            / on_cpu.abs().max())
+    for name in ("MGDirichlet", "FFTPeriodic"):
+        card = make_poisson_solver(name, g, "cuda", torch.float64)
+        host = make_poisson_solver(name, g, "cpu", torch.float64)
+        on_card, on_cpu = card.solve(rhs.cuda()).cpu(), host.solve(rhs)
+        worst[name] = float((on_card - on_cpu).abs().max()
+                            / on_cpu.abs().max())
+        if name == "MGDirichlet" and card.mg.last_cycles != \
+                host.mg.last_cycles:
+            worst[name + " V-cycles"] = float("inf")
+    print("PC, small: card vs CPU, float64, C=3: " + ", ".join(
+        f"{k} {v:.3e}" for k, v in worst.items()) + " (tol 1e-9)",
+        flush=True)
+    if not ok or max(worst.values()) > 1e-9:
+        raise AssertionError("PC small step or solver mismatch")
+
+
+@phase("PC path")
+def pc_path(torch, counts):
+    """PC_OPEN at 1023^2 x 64 in float32: one warm-up step, in which the
+    host's synchronizing reads of the device are counted, two timed steps;
+    finite fields, the beam conserved, the launch counts against the run's
+    own iterations."""
+    from hipace_tpu_torch.decks import pc_open
+    from hipace_tpu_torch.ops.deposit import deposit
+    from hipace_tpu_torch.ops.gather import gather_main
+    from hipace_tpu_torch.ops.mg_kernel import mg_solve
+    from hipace_tpu_torch.pipeline.simulation import Simulation
+    sim = Simulation(pc_open(NXY, NZ, NPART), device="cuda",
+                     dtype=torch.float32, verbose=0)
+    g = sim.geom
+    pcfg, bcfg = sim.plasma_cfgs[0], sim.beam_cfgs[0]
+    n0 = int(sim.binned["valid"].sum())
+    steps = 3
+    for fn in (deposit, gather_main, mg_solve):
+        fn.launches = 0
+    iters, step_seconds, copies = [], [], None
+    for step in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if step == 0:
+            # every read of a device value by the host synchronizes: count
+            # them through the sync debug mode's warnings
+            with warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                torch.cuda.set_sync_debug_mode("warn")
+                try:
+                    res = sim.run_step(step)
+                finally:
+                    torch.cuda.set_sync_debug_mode("default")
+            copies = sum("synchroniz" in str(w.message) for w in caught)
+        else:
+            res = sim.run_step(step)
+        torch.cuda.synchronize()
+        step_seconds.append(time.perf_counter() - t0)
+        sim.binned = res["binned"]
+        sim.time += sim.dt
+        iters.append(res["pc_iters"])
+        finite = bool(torch.isfinite(res["diag"]).all())
+        n = int(sim.binned["valid"].sum())
+        print(f"PC path step {step}: fields {tuple(res['diag'].shape)} "
+              f"finite {finite}, beam particles {n} (start {n0}), "
+              f"iterations {sum(res['pc_iters'])} ({min(res['pc_iters'])}-"
+              f"{max(res['pc_iters'])} per slice), last error per slice "
+              f"{min(res['pc_err']):.3e}-{max(res['pc_err']):.3e}",
+              flush=True)
+        if not finite or n != n0:
+            raise AssertionError("non-finite fields or beam particles lost")
+    counts.update({"K1": deposit.launches, "K2": gather_main.launches,
+                   "K3": mg_solve.launches})
+    total = sum(map(sum, iters))
+    flat = sorted(i for it in iters for i in it)
+    median = flat[len(flat) // 2]
+    print(f"PC path iterations per slice over {steps} steps: min {flat[0]}, "
+          f"median {median}, max {flat[-1]}, total {total}, mean "
+          f"{total / len(flat):.3f}", flush=True)
+    t_timed = sum(step_seconds[1:])
+    slices = g.nz * (steps - 1)
+    print(f"PC path {NXY}^2 x {NZ} float32, {NPART} beam particles: "
+          f"{slices / t_timed:.3f} slices/s, {1e3 * t_timed / slices:.3f} "
+          f"ms/slice, {1e3 * t_timed / sum(map(sum, iters[1:])):.3f} ms per "
+          f"iteration over {steps - 1} timed steps after 1 warm-up",
+          flush=True)
+    mean0 = sum(iters[0]) / g.nz
+    print(f"PC path device-to-host copies per slice (synchronizing reads, "
+          f"warm-up step): {copies / g.nz:.3f}, with {mean0:.3f} iterations "
+          f"per slice (at least the beam's 2 + iterations = "
+          f"{2 + mean0:.3f}; limit 2.05 + iterations + 0.1 = "
+          f"{2.15 + mean0:.3f})", flush=True)
+    want = {"K1": steps * (g.nz * 2 + int(pcfg.neutralize_background))
+            + 2 * total,
+            "K2": steps * g.nz * (pcfg.n_subcycles + bcfg.n_subcycles)
+            + pcfg.n_subcycles * total,
+            "K3": 0}
+    for k, count in counts.items():
+        print(f"PC path launches {k}: {count} (slice structure and the run's "
+              f"iterations predict {want[k]})", flush=True)
+    if counts != want or not 2 + mean0 <= copies / g.nz <= 2.15 + mean0:
+        raise AssertionError("PC path launch counts or device-to-host "
+                             "copies wrong")
+
+
+@phase("Poisson solvers")
+def poisson_phase(torch, g, results):
+    """MGDirichlet through K3 at 1023^2, C=3, scalar acf 0, in float32 and
+    float64 against solve_plain on the card, equal V-cycle counts; the open
+    boundary's apply at C=2 and 3 timed."""
+    from hipace_tpu_torch.fields.open_boundary import OpenBoundary
+    from hipace_tpu_torch.fields.poisson import MGDirichletPoissonSolver
+    from hipace_tpu_torch.ops.mg_kernel import mg_solve
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).split(".")[1]
+        gen = torch.Generator(device="cuda").manual_seed(6)
+        solver = MGDirichletPoissonSolver(g.nx, g.ny, g.dx, g.dy,
+                                          device="cuda", dtype=dtype)
+        mg = solver.mg
+        rhs = torch.randn((3, g.ny, g.nx), generator=gen, device="cuda",
+                          dtype=dtype)
+        before = mg_solve.launches
+        got = solver.solve(rhs)
+        cycles = mg.last_cycles
+        launched = mg_solve.launches - before
+        ref = mg.solve_plain(torch.zeros_like(rhs), rhs, 0.0,
+                             tol_rel=solver.tol_rel)
+        plain_cycles = mg.last_cycles
+        ok, err, rel, tol = compare("K3", name, got, ref)
+        ms = cuda_ms(lambda: solver.solve(rhs), reps=3)
+        plain_ms = cuda_ms(lambda: mg.solve_plain(
+            torch.zeros_like(rhs), rhs, 0.0, tol_rel=solver.tol_rel), reps=1)
+        print(f"K3 {name} MGDirichlet C=3 on {g.ny}x{g.nx}, scalar acf 0, "
+              f"tol_rel {solver.tol_rel:g}: V-cycles {cycles} (plain "
+              f"{plain_cycles}), K3 solves {launched}; max abs err "
+              f"{err:.3e}, / max {rel:.3e} (tol {tol:g}) "
+              f"{'ok' if ok else 'FAIL'}; kernel {ms:.3f} ms, plain "
+              f"{plain_ms:.3f} ms", flush=True)
+        if not ok or cycles != plain_cycles or launched != 1:
+            raise AssertionError(f"K3 {name} MGDirichlet mismatch")
+        size = got.element_size()
+        cells = sum(h * w for h, w in mg.shapes)
+        # rhs in, u out; per V-cycle and cell of every level as K3's bound
+        b_ms, by = bound_line("K3 PC MGDirichlet C=3", name, ms,
+                              size * 2 * 3 * g.ny * g.nx,
+                              cycles * 3 * cells * (7 * 4 + 9 + 5), size)
+        results[("K3 PC MGDirichlet C=3", name)] = (err, ms, plain_ms, b_ms,
+                                                    by)
+    ob = OpenBoundary(g, device="cuda", dtype=torch.float32)
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    for C in (2, 3):
+        rhs = torch.randn((C, g.ny, g.nx), generator=gen, device="cuda")
+        ms = cuda_ms(lambda: ob.apply(rhs, True), reps=10)
+        print(f"OpenBoundary.apply float32 C={C} on {g.ny}x{g.nx}: {ms:.4f} "
+              f"ms per call (source table {ob.src_table.numel() * 4 / 1e6:.1f}"
+              f" MB; matmul TF32 {torch.backends.cuda.matmul.allow_tf32}, "
+              f"float32 matmul precision "
+              f"{torch.get_float32_matmul_precision()})", flush=True)
 
 
 def read_insitu(path):
@@ -814,6 +1037,11 @@ def main() -> int:
     main_path(torch, sim, counts)
     del sim
     torch.cuda.empty_cache()
+    pc_small_phase(torch)
+    pc_counts: dict = {}
+    pc_path(torch, pc_counts)
+    torch.cuda.empty_cache()
+    poisson_phase(torch, g, results)
     output_small_phase(torch)
     pdf_path(torch)
 
@@ -821,12 +1049,22 @@ def main() -> int:
         print(f"chip_smoke FAILED phases: {failures}", file=sys.stderr)
         return 1
     kernels = []
-    for k, (fn_name, source, replaces) in KERNELS.items():
-        err, ms, plain_ms, bound_ms, bound_by = results[(k, "float32")]
+    # the flagship's calls with its counts, then the PC path's kernels at
+    # its dominant shapes with the PC path's counts
+    entries = [(k, k, f"{k} {fn}", counts[k])
+               for k, (fn, _, _) in KERNELS.items()]
+    entries += [("K1", "K1 PC plasma C=2",
+                 "K1 deposit, PC path (trial plasma jx/jy, C=2)",
+                 pc_counts["K1"]),
+                ("K2", "K2", "K2 gather_main, PC path (plasma pushes)",
+                 pc_counts["K2"])]
+    for k, key, label, launches in entries:
+        _, source, replaces = KERNELS[k]
+        err, ms, plain_ms, bound_ms, bound_by = results[(key, "float32")]
         # no single PyTorch call computes any of the three functions
-        kernels.append({"name": f"{k} {fn_name}", "route": "cuda",
+        kernels.append({"name": label, "route": "cuda",
                         "source": source, "replaces": replaces,
-                        "launches": counts[k], "max_abs_err": err,
+                        "launches": launches, "max_abs_err": err,
                         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
                         "bound_by": bound_by, "library_ms": None})
     print(json.dumps({"kernels": kernels}))

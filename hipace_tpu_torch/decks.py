@@ -11,6 +11,12 @@ pdf(z) of sigma 1.41 about z = -1, transverse sigma 0.3, uz = 2000 and peak
 density 3. It is shaped like the reference's transverse benchmark deck
 (``examples/benchmarks/inputs_transverse_benchmark``: a pdf beam, a 1 ppc
 plasma, the explicit solver) and is not that file.
+
+``PC_OPEN`` is the flagship deck on the predictor-corrector Bx/By solver
+with open field boundaries and absorbing particle boundaries, at the
+reference's default predictor-corrector parameters (tolerance 4e-2, at
+most 30 iterations, mixing factor 0.05; ref Hipace.H:210-222). Its domain,
+(-8..8)^2, holds x = y = 0, the open boundary's expansion point.
 """
 
 from __future__ import annotations
@@ -82,3 +88,19 @@ def pdf_beam(nxy: int, nz: int, npart: int, extra: str = "") -> Inputs:
     by the deck lines in `extra`; full width is nxy = 1023 with the
     bench's npart = nxy^2 * 10 * nz / 1000."""
     return Inputs(PDF_BEAM.format(nxy=nxy, nz=nz, npart=npart) + extra)
+
+
+PC_OPEN = BLOWOUT_WAKE.replace(
+    "boundary.field = Dirichlet\nboundary.particle = Periodic\n",
+    "boundary.field = Open\nboundary.particle = Absorbing\n") + """\
+hipace.bxby_solver = predictor-corrector
+hipace.predcorr_B_error_tolerance = 4e-2
+hipace.predcorr_max_iterations = 30
+hipace.predcorr_B_mixing_factor = 0.05
+"""
+
+
+def pc_open(nxy: int, nz: int, npart: int, extra: str = "") -> Inputs:
+    """PC_OPEN on an nxy^2 x nz grid with an npart-particle beam, followed
+    by the deck lines in `extra`."""
+    return Inputs(PC_OPEN.format(nxy=nxy, nz=nz, npart=npart) + extra)

@@ -52,6 +52,15 @@ def grad_neg_full(psi: torch.Tensor, geom: Geometry):
     return exmby, eypbx
 
 
+def symmetrize(f: torch.Tensor, symm_x: int, symm_y: int) -> torch.Tensor:
+    """4-fold transverse symmetrization of the last two axes, with parity
+    symm_x in x and symm_y in y (ref Fields.cpp:1080-1114)."""
+    fx = torch.flip(f, (-1,)) * symm_x
+    fy = torch.flip(f, (-2,)) * symm_y
+    fxy = torch.flip(f, (-2, -1)) * (symm_x * symm_y)
+    return 0.25 * (f + fx + fy + fxy)
+
+
 def make_field_set(names, geom: Geometry, device, dtype) -> dict:
     return {name: torch.zeros(geom.slice_shape, dtype=dtype, device=device)
             for name in names}

@@ -11,7 +11,6 @@ from __future__ import annotations
 
 from .parser import Inputs
 
-PC_AND_OPEN = "predictor-corrector Bx/By solver and open boundaries"
 OTHER_PATHS = "other beam and plasma paths"
 LASER = "laser"
 IONIZATION = "ionization"
@@ -35,13 +34,8 @@ def check_deck(inputs: Inputs) -> None:
     """Raise for the first deck key that leaves the ported main path. The
     per-species keys are checked by the plasma and beam configs."""
     q = inputs.query
-    if q("hipace.bxby_solver", "explicit", str) != "explicit":
-        fail("hipace.bxby_solver", PC_AND_OPEN)
-    if q("boundary.field", "Dirichlet", str).lower() != "dirichlet":
-        fail("boundary.field", PC_AND_OPEN)
-    if q("fields.poisson_solver", "FFTDirichletFast", str) not in (
-            "FFTDirichletFast", "FFTDirichletExpanded", "FFTDirichletDirect"):
-        fail("fields.poisson_solver", OTHER_PATHS)
+    explicit = q("hipace.bxby_solver", "explicit", str) == "explicit"
+    poisson = q("fields.poisson_solver", "FFTDirichletFast", str)
     if _names(inputs, "lasers.names", "no_laser"):
         fail("lasers.names", LASER)
     if q("amr.max_level", 0, int) > 0:
@@ -56,16 +50,15 @@ def check_deck(inputs: Inputs) -> None:
         fail("hipace.dt", OTHER_PATHS)
     if inputs.contains("hipace.max_time"):
         fail("hipace.max_time", OTHER_PATHS)
-    # the explicit solver's Bx/By multigrid is node-centered: odd sizes
+    # the multigrid (the explicit solver's Bx/By, MGDirichlet) is
+    # node-centered: odd sizes
     nx, ny = inputs.query_list("amr.n_cell", [1, 1, 1], int)[:2]
-    if nx % 2 == 0 or ny % 2 == 0:
-        fail(f"amr.n_cell = {nx} {ny}: an even transverse size",
-             OTHER_PATHS)
+    if (nx % 2 == 0 or ny % 2 == 0) and (explicit or poisson == "MGDirichlet"):
+        fail(f"amr.n_cell = {nx} {ny}: an even transverse size with a "
+             "multigrid", OTHER_PATHS)
     if q("hipace.depos_derivative_type", 2, int) != 2:
         fail("hipace.depos_derivative_type", OTHER_PATHS)
-    for key in ("fields.do_symmetrize", "hipace.do_beam_jz_minus_rho",
-                "grid_current.use_grid_current"):
-        if q(key, False, bool):
-            fail(key, OTHER_PATHS)
+    if q("grid_current.use_grid_current", False, bool):
+        fail("grid_current.use_grid_current", OTHER_PATHS)
     if q("hipace.plasma_pusher", "leapfrog", str) != "leapfrog":
         fail("hipace.plasma_pusher", OTHER_PATHS)

@@ -256,3 +256,61 @@ def test_kernels_count_launches(cuda):
     gather_main(torch.zeros((5, 12, 12), device=cuda), empty, empty, 2)
     assert (deposit.launches, gather_main.launches) == (before[0] + 1,
                                                         before[1] + 2)
+
+
+def test_pc_open_step_on_the_card_matches_the_cpu(cuda):
+    """A 63^2 x 16 float64 predictor-corrector step with open boundaries
+    on the kernels against the CPU plain path from the same beam: fields
+    within 1e-8 and equal iterations on every slice."""
+    from hipace_tpu_torch.convert import carry_state
+    from hipace_tpu_torch.decks import pc_open
+    from hipace_tpu_torch.pipeline.simulation import Simulation
+    cpu = Simulation(pc_open(63, 16, 4000), device="cpu", verbose=0)
+    gpu = Simulation(pc_open(63, 16, 4000), device=cuda,
+                     dtype=torch.float64, verbose=0)
+    carry_state(gpu, {k: v.numpy() for k, v in cpu.binned.items()
+                      if torch.is_tensor(v)}, cpu.dt, cpu.time)
+    ref, got = cpu.run_step(0), gpu.run_step(0)
+    assert got["pc_iters"] == ref["pc_iters"]
+    assert _rel(got["diag"].cpu(), ref["diag"]) < 1e-8
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("monopole", [True, False])
+def test_open_boundary_on_the_card_matches_the_cpu(cuda, dtype, monopole):
+    from hipace_tpu_torch.fields.open_boundary import OpenBoundary
+    from hipace_tpu_torch.geometry import Geometry
+    g = Geometry(n_cell=(63, 47, 4), prob_lo=(-3.0, -5.0, -2.0),
+                 prob_hi=(6.0, 4.0, 2.0))
+    rng = np.random.default_rng(11)
+    rhs = torch.tensor(rng.standard_normal((3, 47, 63)) + 0.5)
+    ref = OpenBoundary(g, device="cpu").apply(rhs, monopole)
+    got = OpenBoundary(g, device=cuda, dtype=dtype).apply(
+        rhs.to(device=cuda, dtype=dtype), monopole)
+    assert _rel(got.cpu().double(), ref) < _tol(dtype, 1e-12, 1e-5)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("name", ["MGDirichlet", "FFTPeriodic"])
+def test_poisson_solvers_on_the_card_match_the_cpu(cuda, dtype, name):
+    """MGDirichlet runs K3 on the card (V-cycles to a 1e-11 relative
+    residual: all 40 in float32), FFTPeriodic cuFFT."""
+    from hipace_tpu_torch.fields.poisson import make_poisson_solver
+    from hipace_tpu_torch.geometry import Geometry
+    from hipace_tpu_torch.ops.mg_kernel import mg_solve
+    g = Geometry(n_cell=(127, 63, 4), prob_lo=(-4.0, -2.0, -2.0),
+                 prob_hi=(4.0, 2.0, 2.0))
+    rng = np.random.default_rng(12)
+    rhs = torch.tensor(rng.standard_normal((3, 63, 127)))
+    host = make_poisson_solver(name, g, "cpu", torch.float64)
+    card = make_poisson_solver(name, g, cuda, dtype)
+    before = mg_solve.launches
+    got = card.solve(rhs.to(device=cuda, dtype=dtype))
+    ref = host.solve(rhs)
+    if name == "MGDirichlet":
+        assert mg_solve.launches == before + 1
+        if dtype == torch.float64:
+            assert card.mg.last_cycles == host.mg.last_cycles
+        else:
+            assert card.mg.last_cycles == 40
+    assert _rel(got.cpu().double(), ref) < _tol(dtype, 1e-9, 1e-4)

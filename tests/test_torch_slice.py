@@ -213,8 +213,10 @@ def test_tpu_tuning_keys_are_noops():
 
 
 @pytest.mark.parametrize("extra,item", [
-    ("hipace.bxby_solver = predictor-corrector", "predictor-corrector"),
-    ("boundary.field = Open", "open boundaries"),
+    ("hipace.bxby_solver = predictor-corrector\n"
+     "fields.poisson_solver = MGDirichlet\namr.n_cell = 32 32 8",
+     "other beam and plasma paths"),
+    ("hipace.plasma_pusher = ab5", "other beam and plasma paths"),
     ("lasers.names = laser", "laser"),
     ("amr.max_level = 1", "mesh refinement"),
     ("beam.do_salame = 1", "SALAME"),
@@ -223,7 +225,7 @@ def test_tpu_tuning_keys_are_noops():
     ("beam.do_spin_tracking = 1", "other beam and plasma paths"),
     ("hipace.dt = adaptive", "other beam and plasma paths"),
     ("plasmas.names = plasma ions", "other beam and plasma paths"),
-    ("fields.poisson_solver = MGDirichlet", "other beam and plasma paths"),
+    ("grid_current.use_grid_current = 1", "other beam and plasma paths"),
     ("hipace.depos_derivative_type = 1", "other beam and plasma paths"),
     ("amr.n_cell = 32 32 8", "other beam and plasma paths"),
 ])

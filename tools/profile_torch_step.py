@@ -1,17 +1,22 @@
 """Where the time of one time step of the PyTorch/CUDA port goes, on a GPU.
 
-    python3 tools/profile_torch_step.py [--deck flagship|pdf] [--insitu]
+    python3 tools/profile_torch_step.py [--deck flagship|pdf|pc] [--insitu]
         [--xz] [--nxy 1023] [--nz 64] [--steps 2]
 
-Runs a deck of ``hipace_tpu_torch.decks`` (the flagship blowout wake or its
-fixed_weight_pdf variant) in float32 on ``cuda``: one warm-up step,
+Runs a deck of ``hipace_tpu_torch.decks`` (the flagship blowout wake, its
+fixed_weight_pdf variant, or its predictor-corrector variant with open
+boundaries) in float32 on ``cuda``: one warm-up step,
 ``--steps`` timed steps on the host clock, then one step under
 ``torch.profiler``. It prints the device time and launch count per slice of
 each group of device activities (the port's kernels K1-K3, PyTorch
 elementwise kernels, copies, FFT, the rest), the device-to-host copies per
 slice (each one a wait of the host for the device), the busiest kernels, and
 the busy share: profiled device time per slice over the unprofiled wall time
-per slice.
+per slice. With ``--deck pc`` it prints the predictor-corrector's
+iterations per slice and, per iteration, the launches and device ms of each
+group: the difference between the profiled step and a profiled step of the
+same deck capped at one iteration per slice, over the difference in
+iterations.
 
 Output: ``--insitu`` turns on the in-situ beam, plasma and field records
 every step, ``--xz`` an xz field diagnostic of every comp and rho every step
@@ -39,6 +44,7 @@ GROUPS = [
     ("K2 gather", ("hipace::gather_main_kernel",)),
     ("K3 multigrid", ("hipace::mg_solve_kernel",)),
     ("FFT (DST)", ("fft", "FFT")),
+    ("GEMM (open-boundary moments)", ("gemm", "Gemm", "cutlass")),
     ("cat / copy / memcpy / memset", ("Cat", "copy", "Memcpy", "Memset")),
     ("elementwise", ("elementwise_kernel",)),
 ]
@@ -51,9 +57,30 @@ def group_of(name: str) -> str:
     return "other"
 
 
+def device_activities(prof):
+    """Per group of the profiled step's device activities: (ms, launches),
+    per activity name [ms, count], and the device-to-host copies."""
+    from torch.autograd import DeviceType
+    ms = defaultdict(float)
+    count = defaultdict(int)
+    per_kernel = defaultdict(lambda: [0.0, 0])
+    readbacks = 0
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        dur = e.time_range.elapsed_us() / 1e3
+        g = group_of(e.name)
+        readbacks += "DtoH" in e.name
+        ms[g] += dur
+        count[g] += 1
+        per_kernel[e.name][0] += dur
+        per_kernel[e.name][1] += 1
+    return ms, count, per_kernel, readbacks
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--deck", choices=("flagship", "pdf"),
+    ap.add_argument("--deck", choices=("flagship", "pdf", "pc"),
                     default="flagship")
     ap.add_argument("--insitu", action="store_true",
                     help="in-situ beam, plasma and field records every step")
@@ -65,12 +92,11 @@ def main() -> int:
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT))
     import torch
-    from torch.autograd import DeviceType
     if not torch.cuda.is_available():
         print("no CUDA device", file=sys.stderr)
         return 3
 
-    from hipace_tpu_torch.decks import blowout_wake, pdf_beam
+    from hipace_tpu_torch.decks import blowout_wake, pc_open, pdf_beam
     from hipace_tpu_torch.pipeline.simulation import Simulation
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -91,12 +117,13 @@ def main() -> int:
         extra += ("diagnostic.output_period = 1\ndiagnostic.diag_type = xz\n"
                   "diagnostic.field_data = all rho\n"
                   "diagnostic.beam_output_period = 0\n")
-    deck = {"flagship": blowout_wake, "pdf": pdf_beam}[args.deck]
+    deck = {"flagship": blowout_wake, "pdf": pdf_beam,
+            "pc": pc_open}[args.deck]
     sim = Simulation(deck(args.nxy, args.nz, npart, extra), device="cuda",
                      dtype=torch.float32, verbose=0)
     write_s = []
 
-    def step(profiled=False):
+    def step(sim, profiled=False):
         pre = sim.binned
         acts = [torch.profiler.ProfilerActivity.CPU,
                 torch.profiler.ProfilerActivity.CUDA]
@@ -109,31 +136,20 @@ def main() -> int:
         write_s.append(time.perf_counter() - t0)
         sim.binned = res["binned"]
         sim.time += sim.dt
-        return prof
+        return prof, res
 
-    step()                                          # warm-up
+    step(sim)                                       # warm-up
     t0 = time.perf_counter()
+    iters = []
     for _ in range(args.steps):
-        step()
+        iters.append(sum(step(sim)[1]["pc_iters"]))
     # the sweeps alone: the writes after them are timed apart
     sweep_s = time.perf_counter() - t0 - sum(write_s[1:])
     wall_ms = 1e3 * sweep_s / (args.steps * args.nz)
 
-    prof = step(profiled=True)
-    ms = defaultdict(float)
-    count = defaultdict(int)
-    per_kernel = defaultdict(lambda: [0.0, 0])
-    readbacks = 0
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        dur = e.time_range.elapsed_us() / 1e3
-        g = group_of(e.name)
-        readbacks += "DtoH" in e.name
-        ms[g] += dur
-        count[g] += 1
-        per_kernel[e.name][0] += dur
-        per_kernel[e.name][1] += 1
+    pre = sim.binned
+    prof, res = step(sim, profiled=True)
+    ms, count, per_kernel, readbacks = device_activities(prof)
     total = sum(ms.values())
     nz = args.nz
     print(f"deck {args.deck} {args.nxy}^2 x {nz}, {npart} beam particles, "
@@ -151,6 +167,30 @@ def main() -> int:
           f"({readbacks} in the step)")
     print("seconds writing output after each step: "
           + ", ".join(f"{s:.3f}" for s in write_s))
+    if args.deck == "pc":
+        it = res["pc_iters"]
+        print(f"predictor-corrector iterations: {sum(it)} in the profiled "
+              f"step, {min(it)}-{max(it)} per slice, {sum(it) / nz:.3f} per "
+              "slice; in the timed steps " + ", ".join(map(str, iters)))
+        # the same deck capped at one iteration per slice: the difference
+        # is what the extra iterations cost
+        one = Simulation(deck(args.nxy, args.nz, npart, extra
+                              + "hipace.predcorr_max_iterations = 1\n"),
+                         device="cuda", dtype=torch.float32, verbose=0)
+        # from the profiled step's beam: the work outside the loop is the
+        # same
+        one.binned = pre
+        prof1, res1 = step(one, profiled=True)
+        ms1, count1, _, _ = device_activities(prof1)
+        d_it = sum(it) - sum(res1["pc_iters"])
+        print(f"per iteration (the profiled step against one capped at 1 "
+              f"iteration per slice, {d_it} iterations apart):")
+        print(f"{'group':<30} {'device ms/iter':>16} {'launches/iter':>15}")
+        for g in sorted(ms, key=ms.get, reverse=True):
+            print(f"{g:<30} {(ms[g] - ms1[g]) / d_it:16.4f} "
+                  f"{(count[g] - count1[g]) / d_it:15.2f}")
+        print(f"{'total':<30} {(total - sum(ms1.values())) / d_it:16.4f} "
+              f"{(sum(count.values()) - sum(count1.values())) / d_it:15.2f}")
     print("busiest device activities over the profiled step:")
     top = sorted(per_kernel.items(), key=lambda kv: kv[1][0], reverse=True)
     for name, (t, n) in top[:15]:
