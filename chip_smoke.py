@@ -39,8 +39,19 @@ per slice (counted in the warm-up step) must be the beam's two plus one per
 iteration, within 0.15; then MGDirichlet through K3 at 1023^2 with three
 channels and a scalar zero acf against its plain version in float32 and
 float64, and the open boundary's time per call. K1 is also checked and
-timed at the PC path's channel counts (plasma 4 and 2, beam 3 and 2). It
-imports nothing but the port.
+timed at the PC path's channel counts (plasma 4 and 2, beam 3 and 2).
+
+Even sizes and the plasma paths: K3's cell-centered levels against their
+plain version in float32 and float64 (1024^2, 1024 x 512, 96 x 64 whose
+ladder ends at 3 cells, 64 x 32 and 32^2; C = 2 with a 2-D acf, C = 3 with
+MGDirichlet's scalar zero acf; equal V-cycle counts; the full-width solves
+timed); a 64^2 x 16 float64 step of the two-species
+``hipace_tpu_torch.decks.ION_MOTION_EVEN`` on the card against the CPU, from
+the same beam and temperature draws, with the leapfrog, AB5 and derivative
+types 0 and 1; then the even path, that deck at 1024^2 x 64 in float32 for
+one warm-up and two timed steps, its launches against the slice structure
+with two species, and one 1024^2 x 16 step of it on MGDirichlet. It imports
+nothing but the port.
 
 Beside each kernel's time (CUDA events around calls queued behind a device
 sleep) it prints the kernel's bound: the least time the card could take, the
@@ -496,6 +507,80 @@ def k3_phase(torch, g, dtype, results):
         results[("K3", name)] = (err, ms, plain_ms, b_ms, by)
 
 
+# the cell-centered K3 phase's grids (ny, nx): full width (the even path's
+# Bx/By solve), a 2:1 grid, a ladder ending at 3 cells, two small ones
+CC_GRIDS = ((1024, 1024), (512, 1024), (64, 96), (32, 64), (32, 32))
+CC_TOL = {"float32": 1e-5, "float64": 1e-12}
+
+
+@phase("K3 cell-centered")
+def k3_cc_phase(torch, results):
+    """K3's cell-centered levels (even sizes) against solve_plain on the
+    card, float32 and float64: every grid of CC_GRIDS with C = 2 and a 2-D
+    acf (the Bx/By solve) and C = 3 with a scalar acf 0 at MGDirichlet's
+    tol_rel 1e-11; equal V-cycle counts; the full-width shapes timed."""
+    from hipace_tpu_torch.fields.multigrid import MultiGrid
+    from hipace_tpu_torch.ops.mg_kernel import mg_solve
+    dx = dy = 16.0 / 1024
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).split(".")[1]
+        for i, (ny, nx) in enumerate(CC_GRIDS):
+            mg = MultiGrid(nx, ny, dx, dy, device="cuda", dtype=dtype)
+            gen = torch.Generator(device="cuda").manual_seed(8 + i)
+            for C, acf_kind, tol_rel, key in (
+                    (2, "2-D", 1e-4, "K3 CC Bx/By"),
+                    (3, "scalar", 1e-11, "K3 CC MGDirichlet")):
+                rhs = torch.randn((C, ny, nx), generator=gen, device="cuda",
+                                  dtype=dtype)
+                acf = (1.0 + 0.1 * torch.rand((ny, nx), generator=gen,
+                                              device="cuda", dtype=dtype)
+                       if acf_kind == "2-D" else 0.0)
+                u0 = torch.zeros_like(rhs)
+                kw = {"tol_rel": tol_rel, "max_iters": 40}
+                before = mg_solve.kernel_launches
+                got, cycles, _ = mg_solve(mg, u0, rhs, acf, **kw)
+                launches = mg_solve.kernel_launches - before
+                cycles = int(cycles)
+                ref = mg.solve_plain(u0, rhs, acf, **kw)
+                plain_cycles = mg.last_cycles
+                torch.cuda.synchronize()
+                err = float((got - ref).abs().max())
+                rel = err / float(ref.abs().max())
+                ok = (rel <= CC_TOL[name] and cycles == plain_cycles
+                      and launches <= 3)
+                print(f"K3 {name} cell-centered C={C} on {ny}x{nx}, "
+                      f"{mg.nlevels} levels down to {mg.shapes[-1]}, "
+                      f"{acf_kind} acf, tol_rel {tol_rel:g}: V-cycles "
+                      f"{cycles} (plain {plain_cycles}), device launches "
+                      f"{launches}; max abs err {err:.3e}, / max {rel:.3e} "
+                      f"(tol {CC_TOL[name]:g}) {'ok' if ok else 'FAIL'}",
+                      flush=True)
+                if not ok:
+                    raise AssertionError(f"K3 {name} cell-centered C={C} on "
+                                         f"{ny}x{nx}: outside tolerance, "
+                                         "V-cycle counts differ or too many "
+                                         "launches")
+                if i:
+                    continue
+                args = (mg, u0, rhs, acf)
+                ms = cuda_ms(lambda: mg_solve(*args, **kw), reps=5)
+                plain_ms = cuda_ms(lambda: mg.solve_plain(*args[1:], **kw),
+                                   reps=1)
+                print(f"K3 {name} cell-centered {key[6:]} solve: kernel "
+                      f"{ms:.3f} ms ({ms / max(cycles, 1):.4f} per V-cycle),"
+                      f" plain {plain_ms:.3f} ms", flush=True)
+                # as k3_phase: u0 (C = 2), rhs and acf in, u out; per
+                # V-cycle and cell of every level ~42 operations
+                size = got.element_size()
+                cells = sum(h * w for h, w in mg.shapes)
+                planes = 3 * C + 1 if acf_kind == "2-D" else 2 * C
+                b_ms, by = bound_line(f"{key}", name, ms,
+                                      size * planes * ny * nx,
+                                      cycles * C * cells * (7 * 4 + 9 + 5),
+                                      size)
+                results[(key, name)] = (err, ms, plain_ms, b_ms, by)
+
+
 @phase("reference")
 def reference_phase(torch):
     """A 63^2 x 16 float64 step on the kernels against the same step on the
@@ -787,6 +872,155 @@ def poisson_phase(torch, g, results):
               f"{torch.get_float32_matmul_precision()})", flush=True)
 
 
+EVEN_NXY = 1024          # ION_MOTION_EVEN's full width
+EVEN_SMALL = 64
+# the "even, small" variants: deck lines added to ION_MOTION_EVEN
+EVEN_VARIANTS = (("leapfrog, deriv_type 2", ""),
+                 ("AB5", "hipace.plasma_pusher = ab5\n"),
+                 ("deriv_type 0", "hipace.depos_derivative_type = 0\n"),
+                 ("deriv_type 1", "hipace.depos_derivative_type = 1\n"))
+
+
+def same_draws(torch, cpu):
+    """Make the next two steps -- the CPU simulation's, then the card's --
+    draw the same temperature normals: the CPU generator's, moved to the
+    card for the second. Returns the function that undoes it."""
+    from hipace_tpu_torch.particles import plasma as pl
+    orig = pl.plasma_draws
+    draws = [orig(p, cpu.geom, cpu.generator, "cpu", torch.float64)
+             for p in cpu.plasma_cfgs]
+    queue = draws + draws
+
+    def fake(cfg, geom, generator, device, dtype):
+        d = queue.pop(0)
+        return None if d is None else d.to(device=device, dtype=dtype)
+
+    pl.plasma_draws = fake
+
+    def undo():
+        pl.plasma_draws = orig
+    return undo
+
+
+@phase("even, small")
+def even_small_phase(torch):
+    """A 64^2 x 16 float64 step of ION_MOTION_EVEN (two species, electron
+    temperature, cell-centered Bx/By) on the kernels against the same step
+    on the CPU plain path, from the same beam and temperature draws, for
+    the leapfrog, AB5 and derivative types 0 and 1: fields within 1e-8,
+    equal V-cycles on every slice."""
+    from hipace_tpu_torch.convert import carry_state
+    from hipace_tpu_torch.decks import ion_motion_even
+    from hipace_tpu_torch.pipeline.simulation import Simulation
+    bad = []
+    for label, extra in EVEN_VARIANTS:
+        deck = ion_motion_even(EVEN_SMALL, SMALL_NZ, 4000, extra)
+        cpu = Simulation(deck, device="cpu", verbose=0)
+        gpu = Simulation(ion_motion_even(EVEN_SMALL, SMALL_NZ, 4000, extra),
+                         device="cuda", dtype=torch.float64, verbose=0)
+        carry_state(gpu, {k: v.numpy() for k, v in cpu.binned.items()
+                          if torch.is_tensor(v)}, cpu.dt, cpu.time)
+        undo = same_draws(torch, cpu)
+        try:
+            ref, got = cpu.run_step(0), gpu.run_step(0)
+        finally:
+            undo()
+        d_ref, d_got = ref["diag"], got["diag"].cpu()
+        rel = float((d_got - d_ref).abs().max() / d_ref.abs().max())
+        same = got["mg_cycles"] == ref["mg_cycles"]
+        ok = rel < 1e-8 and same and gpu.slice_step.mg.cell_centered
+        print(f"even, small: {EVEN_SMALL}^2 x {SMALL_NZ} float64 "
+              f"ION_MOTION_EVEN, {label}, kernels vs CPU plain path: fields "
+              f"max rel err {rel:.3e} (tol 1e-8), V-cycles per slice equal "
+              f"{same} ({min(ref['mg_cycles'])}-{max(ref['mg_cycles'])}) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            bad.append(label)
+    if bad:
+        raise AssertionError(f"even small step mismatch: {bad}")
+
+
+@phase("even path")
+def even_path(torch, counts):
+    """ION_MOTION_EVEN at 1024^2 x 64 in float32: one warm-up and two timed
+    steps; finite fields, the beam conserved, V-cycles per slice, the K1/K2/
+    K3 launches against the slice structure with two species. Then one
+    1024^2 x 16 step of the deck on MGDirichlet (cell-centered K3 at C = 3
+    for the Poisson solve), its K3 solves counted."""
+    from hipace_tpu_torch.decks import ion_motion_even
+    from hipace_tpu_torch.ops.deposit import (deposit, direct_block_count,
+                                              reset_block_counts)
+    from hipace_tpu_torch.ops.gather import gather_main
+    from hipace_tpu_torch.ops.mg_kernel import mg_solve
+    from hipace_tpu_torch.pipeline.simulation import Simulation
+    sim = Simulation(ion_motion_even(EVEN_NXY, NZ, NPART), device="cuda",
+                     dtype=torch.float32, verbose=0)
+    g = sim.geom
+    n0 = int(sim.binned["valid"].sum())
+    steps = 3
+    for fn in (deposit, gather_main, mg_solve):
+        fn.launches = 0
+    reset_block_counts()
+    res, times = timed_steps(torch, sim, steps, write=False)
+    counts.update({"K1": deposit.launches, "K2": gather_main.launches,
+                   "K3": mg_solve.launches})
+    direct, blocks = direct_block_count("cuda"), deposit.blocks
+    print(f"even path K1 blocks on the direct path: {direct} of {blocks} "
+          f"({100 * direct / blocks:.2f}%)", flush=True)
+    n = int(sim.binned["valid"].sum())
+    finite = bool(torch.isfinite(res["diag"]).all())
+    cyc = res["mg_cycles"]
+    lanes = [int(p.ppc[0] * p.ppc[1] * g.nx * g.ny) for p in sim.plasma_cfgs]
+    print(f"even path {EVEN_NXY}^2 x {NZ} float32, {NPART} beam particles, "
+          f"species {[p.name for p in sim.plasma_cfgs]} with {lanes} lanes, "
+          f"cell-centered {sim.slice_step.mg.cell_centered} ("
+          f"{sim.slice_step.mg.nlevels} levels): fields "
+          f"{tuple(res['diag'].shape)} finite {finite}, beam particles {n} "
+          f"(start {n0}), V-cycles per slice {min(cyc)}-{max(cyc)} (mean "
+          f"{sum(cyc) / len(cyc):.3f}, last step)", flush=True)
+    slices = g.nz * (steps - 1)
+    t_step = sum(t for t, _ in times[1:])
+    print(f"even path: {slices / t_step:.3f} slices/s, "
+          f"{1e3 * t_step / slices:.3f} ms/slice over {steps - 1} timed "
+          f"steps after 1 warm-up; per timed step "
+          + ", ".join(f"{g.nz / t:.3f}" for t, _ in times[1:]), flush=True)
+    cfgs = sim.plasma_cfgs
+    per_step = {
+        "K1": sum(int(p.neutralize_background) for p in cfgs)
+        + g.nz * (len(cfgs) + 2),
+        "K2": g.nz * (sum(p.n_subcycles for p in cfgs)
+                      + sim.beam_cfgs[0].n_subcycles),
+        "K3": g.nz}
+    for k, count in counts.items():
+        print(f"even path launches {k}: {count} (slice structure with "
+              f"{len(cfgs)} species predicts {per_step[k] * steps})",
+              flush=True)
+    del res, sim
+    torch.cuda.empty_cache()
+    mgd = Simulation(ion_motion_even(
+        EVEN_NXY, SMALL_NZ, NPART // 4, "fields.poisson_solver = "
+        "MGDirichlet\n"), device="cuda", dtype=torch.float32, verbose=0)
+    mg_solve.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mres = mgd.run_step(0)
+    torch.cuda.synchronize()
+    t_mgd = time.perf_counter() - t0
+    mg_finite = bool(torch.isfinite(mres["diag"]).all())
+    counts["K3 MGDirichlet"] = mg_solve.launches - SMALL_NZ
+    print(f"even path on MGDirichlet, {EVEN_NXY}^2 x {SMALL_NZ} float32: "
+          f"K3 solves {mg_solve.launches} (Bx/By and Poisson per slice: "
+          f"{2 * SMALL_NZ} predicted), fields finite {mg_finite}, "
+          f"{1e3 * t_mgd / SMALL_NZ:.3f} ms/slice (one step, compiled)",
+          flush=True)
+    if (not finite or n != n0 or not mg_finite
+            or mg_solve.launches != 2 * SMALL_NZ
+            or any(c != per_step[k] * steps for k, c in counts.items()
+                   if k in per_step)):
+        raise AssertionError("even path: fields, beam or launch counts "
+                             "wrong")
+
+
 def read_insitu(path):
     """An in-situ file's records: a JSON dtype header, then the records."""
     import numpy as np
@@ -1044,6 +1278,11 @@ def main() -> int:
     poisson_phase(torch, g, results)
     output_small_phase(torch)
     pdf_path(torch)
+    torch.cuda.empty_cache()
+    k3_cc_phase(torch, results)
+    even_small_phase(torch)
+    even_counts: dict = {}
+    even_path(torch, even_counts)
 
     if failures:
         print(f"chip_smoke FAILED phases: {failures}", file=sys.stderr)
@@ -1057,7 +1296,13 @@ def main() -> int:
                  "K1 deposit, PC path (trial plasma jx/jy, C=2)",
                  pc_counts["K1"]),
                 ("K2", "K2", "K2 gather_main, PC path (plasma pushes)",
-                 pc_counts["K2"])]
+                 pc_counts["K2"]),
+                ("K3", "K3 CC Bx/By",
+                 "K3 mg_solve, even path (cell-centered Bx/By, C=2)",
+                 even_counts["K3"]),
+                ("K3", "K3 CC MGDirichlet",
+                 "K3 mg_solve, even path on MGDirichlet (cell-centered "
+                 "Poisson, C=3)", even_counts["K3 MGDirichlet"])]
     for k, key, label, launches in entries:
         _, source, replaces = KERNELS[k]
         err, ms, plain_ms, bound_ms, bound_by = results[(key, "float32")]

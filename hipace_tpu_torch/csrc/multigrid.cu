@@ -1,13 +1,20 @@
-// K3: node-centered geometric multigrid for Laplacian(u) - acf*u = rhs with
-// Dirichlet ghost nodes, C channels sharing one acf (Bx, By).
+// K3: geometric multigrid for Laplacian(u) - acf*u = rhs with Dirichlet
+// boundaries, C channels sharing one acf (Bx, By).
 //
 // Replaces the TPU kernel _mg_kernel driven by FusedMG.solve
 // (hipace_tpu/ops/pallas_mg.py:62-249), held to the XLA path of
-// MultiGrid.solve (hipace_tpu/fields/multigrid.py:182-296): red-black
+// MultiGrid.solve (hipace_tpu/fields/multigrid.py:80-296): red-black
 // Gauss-Seidel (red = (ix+iy) even first, nu1/nu2 sweeps, nu1 + 8 on the
-// coarsest level), full-weighting restriction [1,2,1]/4 x [1,2,1]/4,
-// bilinear prolongation 2R^T per dimension, exact stencils throughout (no
-// reduced-precision transfers).
+// coarsest level), prolongation 2R^T per dimension, exact stencils
+// throughout (no reduced-precision transfers). Both grid conventions, a
+// template parameter CC:
+//   node-centered (odd sizes, the TPU kernel's only one): zero ghost nodes,
+//     a scalar diagonal, full-weighting restriction [1,2,1]/4 x [1,2,1]/4,
+//     bilinear prolongation;
+//   cell-centered (even sizes, XLA-only in the JAX package): zero at the
+//     cell faces, so an edge cell's boundary-facing neighbour weighs 4/3 and
+//     its diagonal is -4 fac in that dimension (a per-cell diagonal), the
+//     2x2 average as restriction, injection as prolongation.
 //
 // What bounds it on the H100: bytes, by the roofline (u0, rhs and acf read
 // once and u written once take microseconds), but what it really pays is
@@ -45,7 +52,10 @@
 //
 // The smoother and the residual use round-to-nearest intrinsics that nvcc
 // never contracts into FMAs, so the tile stages, the single-block stage and
-// the plain PyTorch version round alike.
+// the plain PyTorch version round alike. The transfers' products are by
+// powers of two, exact, so a contraction there rounds as the plain version
+// does. The cell-centered levels need a restriction reach of 0 cells, not 1;
+// they keep the same even halo, so tile origins stay even.
 
 #include "common.cuh"
 
@@ -121,8 +131,49 @@ __device__ __forceinline__ T residual_at(T rhs, T off, T dma, T u) {
     return add_rn(rhs, -add_rn(off, mul_rn(dma, u)));
 }
 
-// the off-diagonal part on a bare (ny, nx) plane with zero Dirichlet ghosts
+// the cell-centered weight of a neighbour: 4/3 where the cell's other side
+// is the boundary
 template <typename T>
+__device__ __forceinline__ T cc_coef(bool edge) { return edge ? T(4.0 / 3.0) : T(1); }
+
+// the off-diagonal part at grid cell (iy, ix) of an (ny, nx) level from its
+// four neighbours (zero outside the grid): facx (uW + uE) + facy (uN + uS),
+// cell-centered facx (uW cW + uE cE) + facy (uS cS + uN cN)
+template <typename T, bool CC>
+__device__ __forceinline__ T stencil_at(T uW, T uE, T uS, T uN, int iy, int ix,
+                                        int ny, int nx, T facx, T facy) {
+    if constexpr (CC) {
+        const T w = mul_rn(uW, cc_coef<T>(ix == nx - 1));
+        const T e = mul_rn(uE, cc_coef<T>(ix == 0));
+        const T so = mul_rn(uS, cc_coef<T>(iy == ny - 1));
+        const T no = mul_rn(uN, cc_coef<T>(iy == 0));
+        return add_rn(mul_rn(facx, add_rn(w, e)), mul_rn(facy, add_rn(so, no)));
+    } else {
+        return stencil_off(uW, uE, uS, uN, facx, facy);
+    }
+}
+
+// the cell-centered diagonal at (iy, ix), summed in double and rounded once,
+// as the plain version's float64 plane is
+template <typename T>
+__device__ __forceinline__ T cc_diag(int iy, int ix, int ny, int nx, double facx,
+                                     double facy) {
+    const double dx_ = (ix == 0 || ix == nx - 1 ? -4.0 : -2.0) * facx;
+    const double dy_ = (iy == 0 || iy == ny - 1 ? -4.0 : -2.0) * facy;
+    return T(dx_ + dy_);
+}
+
+// the diagonal of the Laplacian at (iy, ix) of level l
+template <typename T, bool CC>
+__device__ __forceinline__ T diag_at(const MgParams<T>& p, int l, int iy, int ix) {
+    if constexpr (CC)
+        return cc_diag<T>(iy, ix, p.ny[l], p.nx[l], p.facx[l], p.facy[l]);
+    else
+        return T(-2.0 * (p.facx[l] + p.facy[l]));
+}
+
+// the off-diagonal part on a bare (ny, nx) plane with zero Dirichlet ghosts
+template <typename T, bool CC>
 __device__ __forceinline__ T offdiag(const T* uc, int iy, int ix, int ny, int nx,
                                      T facx, T facy) {
     const int i = iy * nx + ix;
@@ -130,7 +181,7 @@ __device__ __forceinline__ T offdiag(const T* uc, int iy, int ix, int ny, int nx
     T uE = ix < nx - 1 ? uc[i + 1] : T(0);
     T uS = iy > 0 ? uc[i - nx] : T(0);
     T uN = iy < ny - 1 ? uc[i + nx] : T(0);
-    return stencil_off(uW, uE, uS, uN, facx, facy);
+    return stencil_at<T, CC>(uW, uE, uS, uN, iy, ix, ny, nx, facx, facy);
 }
 
 // restriction of one coarse node (icy, icx) from a fine plane of row stride
@@ -145,6 +196,24 @@ __device__ __forceinline__ T restrict_node(const T* fc, int icy, int icx, int ld
                T(0.25) * fc[(jy + 1) * ldf + col];
     }
     return T(0.25) * t[0] + T(0.5) * t[1] + T(0.25) * t[2];
+}
+
+// the cell-centered restriction, the 2x2 average, rows first as in Ry r Rx^T
+template <typename T>
+__device__ __forceinline__ T restrict_cc(const T* fc, int icy, int icx, int ldf) {
+    const T* r0 = fc + (2 * icy) * ldf + 2 * icx;
+    const T* r1 = r0 + ldf;
+    const T t0 = T(0.5) * r0[0] + T(0.5) * r1[0];
+    const T t1 = T(0.5) * r0[1] + T(0.5) * r1[1];
+    return T(0.5) * t0 + T(0.5) * t1;
+}
+
+template <typename T, bool CC>
+__device__ __forceinline__ T restrict_at(const T* fc, int icy, int icx, int ldf) {
+    if constexpr (CC)
+        return restrict_cc(fc, icy, icx, ldf);
+    else
+        return restrict_node(fc, icy, icx, ldf);
 }
 
 // bilinear prolongation of a coarse plane at fine node (jy, jx)
@@ -222,6 +291,8 @@ __device__ __forceinline__ double pymax(double a, double b) { return b > a ? b :
 // ------------------------------------------------------------- tile stages
 // One fine level's down-leg (sweeps, residual, restriction) or up-leg
 // (prolong-add, sweeps, on level 0 the residual max-norm into *slot).
+// Cell-centered, the diagonal and the neighbour weights are worked out per
+// cell from its grid position.
 //
 // A thread owns one column of R = 64 * 64 / THREADS consecutive rows of the
 // tile array and keeps their u, rhs, dma and invd in registers; a warp is 32
@@ -230,7 +301,7 @@ __device__ __forceinline__ double pymax(double a, double b) { return b > a ? b :
 // array for the residual that the restriction reads, or for the coarse tile
 // that the prolongation reads. A half-sweep costs a thread two shared loads
 // per updated cell, not seven.
-template <typename T, int THREADS>
+template <typename T, bool CC, int THREADS>
 __device__ void tile_stage(const MgParams<T>& p, T* sm, int l, bool down, bool first,
                            typename Bits<T>::type* slot) {
     constexpr int AD = kTileDim, LD = kTileLd;
@@ -290,9 +361,12 @@ __device__ void tile_stage(const MgParams<T>& p, T* sm, int l, bool down, bool f
         for (int j = 0; j < R; ++j) {
             const int gy = gy0 + a0 + j;
             const bool in = col_in && gy >= 0 && gy < ny;
-            const long long g = (long long)min(max(gy, 0), ny - 1) * nx + gxc;
+            const int gyc = min(max(gy, 0), ny - 1);
+            const long long g = (long long)gyc * nx + gxc;
             const T rv = rhs_c[g];
-            const T dv = diag - acf[g];
+            T dg = diag;
+            if constexpr (CC) dg = cc_diag<T>(gyc, gxc, ny, nx, p.facx[l], p.facy[l]);
+            const T dv = dg - acf[g];
             const T uv = src_u ? src_u[c * plane + g] : T(0);
             inmask |= (in ? 1u : 0u) << j;
             r[j] = in ? rv : T(0);
@@ -303,8 +377,12 @@ __device__ void tile_stage(const MgParams<T>& p, T* sm, int l, bool down, bool f
         if (!down) {
 #pragma unroll
             for (int j = 0; j < R; ++j)
-                if ((inmask >> j) & 1u)
-                    u[j] += prolong_tile(sr, a0 + j + 2, b + 2, LDC);
+                if ((inmask >> j) & 1u) {
+                    if constexpr (CC)   // injection: coarse cell gy / 2
+                        u[j] += sr[((a0 + j) / 2 + 1) * LDC + b / 2 + 1];
+                    else
+                        u[j] += prolong_tile(sr, a0 + j + 2, b + 2, LDC);
+                }
         }
 #pragma unroll
         for (int j = 0; j < R; ++j) su[(a0 + j + 1) * LD + b + 1] = u[j];
@@ -322,7 +400,8 @@ __device__ void tile_stage(const MgParams<T>& p, T* sm, int l, bool down, bool f
                     const T uS = par ? u[2 * k] : (k > 0 ? u[2 * k - 1] : su[i - LD]);
                     const T uN = par ? (k < R / 2 - 1 ? u[2 * k + 2] : su[i + LD])
                                      : u[2 * k + 1];
-                    const T off = stencil_off(su[i - 1], su[i + 1], uS, uN, fx, fy);
+                    const T off = stencil_at<T, CC>(su[i - 1], su[i + 1], uS, uN,
+                                                    gy0 + a0 + j, gx, ny, nx, fx, fy);
                     const T nu = gs_update(par ? r[2 * k + 1] : r[2 * k], off,
                                            par ? iv[2 * k + 1] : iv[2 * k]);
                     if (par) u[2 * k + 1] = nu; else u[2 * k] = nu;
@@ -341,7 +420,8 @@ __device__ void tile_stage(const MgParams<T>& p, T* sm, int l, bool down, bool f
                 const int i = (a + 1) * LD + b + 1;
                 const T uS = j > 0 ? u[j - 1] : su[i - LD];
                 const T uN = j < R - 1 ? u[j + 1] : su[i + LD];
-                const T off = stencil_off(su[i - 1], su[i + 1], uS, uN, fx, fy);
+                const T off = stencil_at<T, CC>(su[i - 1], su[i + 1], uS, uN,
+                                                gy0 + a, gx, ny, nx, fx, fy);
                 const T res = ((inmask >> j) & 1u)
                                   ? residual_at(r[j], off, d[j], u[j]) : T(0);
                 if (down)
@@ -359,10 +439,10 @@ __device__ void tile_stage(const MgParams<T>& p, T* sm, int l, bool down, bool f
                 const int icy = cy0 + lcy, icx = cx0 + lcx;
                 if (icy < nyc && icx < nxc) {
                     p.rhs[l + 1][c * planec + (long long)icy * nxc + icx] =
-                        restrict_node(res0, lcy, lcx, LD);
+                        restrict_at<T, CC>(res0, lcy, lcx, LD);
                     if (first && c == 0)
                         p.acf[l + 1][(long long)icy * nxc + icx] =
-                            restrict_node(acf, icy, icx, nx);
+                            restrict_at<T, CC>(acf, icy, icx, nx);
                 }
             }
         }
@@ -382,7 +462,7 @@ __device__ void tile_stage(const MgParams<T>& p, T* sm, int l, bool down, bool f
 }
 
 // ------------------------------------------------------ single-block stage
-template <typename T>
+template <typename T, bool CC>
 __device__ void block_smooth(T* u, const T* rhs, const T* invd, int C, int ny,
                              int nx, T facx, T facy, int sweeps) {
     const int n = C * ny * nx;
@@ -391,7 +471,7 @@ __device__ void block_smooth(T* u, const T* rhs, const T* invd, int C, int ny,
             const int ix = i % nx, iy = (i / nx) % ny;
             if (((ix + iy) & 1) != (s & 1)) continue;
             const int base = i - (iy * nx + ix);
-            const T off = offdiag(u + base, iy, ix, ny, nx, facx, facy);
+            const T off = offdiag<T, CC>(u + base, iy, ix, ny, nx, facx, facy);
             u[i] = gs_update(rhs[i], off, invd[iy * nx + ix]);
         }
         __syncthreads();
@@ -402,7 +482,7 @@ __device__ void block_smooth(T* u, const T* rhs, const T* invd, int C, int ny,
 // memory. Level Lc's rhs comes from global memory; its u is the running
 // solution when Lc = 0 (then the residual max-norm goes to *slot) and zero
 // otherwise.
-template <typename T>
+template <typename T, bool CC>
 __device__ void coarse_stage(const MgParams<T>& p, T* sm,
                              typename Bits<T>::type* slot) {
     const int C = p.C, L0 = p.Lc, L = p.L;
@@ -426,14 +506,13 @@ __device__ void coarse_stage(const MgParams<T>& p, T* sm,
     for (int l = L0; l < L - 1; ++l) {
         const int nyc = p.ny[l + 1], nxc = p.nx[l + 1];
         for (int i = threadIdx.x; i < nyc * nxc; i += blockDim.x)
-            ds[l + 1][i] = restrict_node(ds[l], i / nxc, i % nxc, p.nx[l]);
+            ds[l + 1][i] = restrict_at<T, CC>(ds[l], i / nxc, i % nxc, p.nx[l]);
         __syncthreads();
     }
     for (int l = L0; l < L; ++l) {
-        const T diag = T(-2.0 * (p.facx[l] + p.facy[l]));
         const int n = p.ny[l] * p.nx[l];
         for (int i = threadIdx.x; i < n; i += blockDim.x) {
-            const T d = diag - ds[l][i];
+            const T d = diag_at<T, CC>(p, l, i / p.nx[l], i % p.nx[l]) - ds[l][i];
             ds[l][i] = d;
             is[l][i] = T(1) / d;
         }
@@ -446,12 +525,12 @@ __device__ void coarse_stage(const MgParams<T>& p, T* sm,
     for (int l = L0; l < L - 1; ++l) {
         const int ny = p.ny[l], nx = p.nx[l];
         const T fx = T(p.facx[l]), fy = T(p.facy[l]);
-        block_smooth(us[l], rs[l], is[l], C, ny, nx, fx, fy, p.nu1);
+        block_smooth<T, CC>(us[l], rs[l], is[l], C, ny, nx, fx, fy, p.nu1);
         const int n = C * ny * nx;
         for (int i = threadIdx.x; i < n; i += blockDim.x) {
             const int ix = i % nx, iy = (i / nx) % ny;
             const int base = i - (iy * nx + ix);
-            const T off = offdiag(us[l] + base, iy, ix, ny, nx, fx, fy);
+            const T off = offdiag<T, CC>(us[l] + base, iy, ix, ny, nx, fx, fy);
             res[i] = residual_at(rs[l][i], off, ds[l][iy * nx + ix], us[l][i]);
         }
         __syncthreads();
@@ -459,12 +538,12 @@ __device__ void coarse_stage(const MgParams<T>& p, T* sm,
         const int nc = C * nyc * nxc;
         for (int i = threadIdx.x; i < nc; i += blockDim.x) {
             const int icx = i % nxc, icy = (i / nxc) % nyc, c = i / (nyc * nxc);
-            rs[l + 1][i] = restrict_node(res + c * ny * nx, icy, icx, nx);
+            rs[l + 1][i] = restrict_at<T, CC>(res + c * ny * nx, icy, icx, nx);
             us[l + 1][i] = T(0);
         }
         __syncthreads();
     }
-    block_smooth(us[L - 1], rs[L - 1], is[L - 1], C, p.ny[L - 1], p.nx[L - 1],
+    block_smooth<T, CC>(us[L - 1], rs[L - 1], is[L - 1], C, p.ny[L - 1], p.nx[L - 1],
                  T(p.facx[L - 1]), T(p.facy[L - 1]), p.nu1 + p.coarse_sweeps);
     for (int l = L - 2; l >= L0; --l) {
         const int ny = p.ny[l], nx = p.nx[l];
@@ -472,10 +551,14 @@ __device__ void coarse_stage(const MgParams<T>& p, T* sm,
         const int n = C * ny * nx;
         for (int i = threadIdx.x; i < n; i += blockDim.x) {
             const int jx = i % nx, jy = (i / nx) % ny, c = i / (ny * nx);
-            us[l][i] += prolong_node(us[l + 1] + c * nyc * nxc, jy, jx, nyc, nxc);
+            const T* cc = us[l + 1] + c * nyc * nxc;
+            if constexpr (CC)
+                us[l][i] += cc[(jy / 2) * nxc + jx / 2];
+            else
+                us[l][i] += prolong_node(cc, jy, jx, nyc, nxc);
         }
         __syncthreads();
-        block_smooth(us[l], rs[l], is[l], C, ny, nx, T(p.facx[l]), T(p.facy[l]),
+        block_smooth<T, CC>(us[l], rs[l], is[l], C, ny, nx, T(p.facx[l]), T(p.facy[l]),
                      p.nu2);
     }
     T m = T(0);
@@ -485,8 +568,8 @@ __device__ void coarse_stage(const MgParams<T>& p, T* sm,
         if (L0 == 0) {
             const int ix = i % nx, iy = (i / nx) % ny;
             const int base = i - (iy * nx + ix);
-            const T off = offdiag(us[0] + base, iy, ix, ny, nx, T(p.facx[0]),
-                                  T(p.facy[0]));
+            const T off = offdiag<T, CC>(us[0] + base, iy, ix, ny, nx,
+                                         T(p.facx[0]), T(p.facy[0]));
             m = nanmax(m, absval(residual_at(rs[0][i], off, ds[0][iy * nx + ix],
                                              us[0][i])));
         }
@@ -496,7 +579,7 @@ __device__ void coarse_stage(const MgParams<T>& p, T* sm,
 }
 
 // ------------------------------------------------------------ the solve
-template <typename T, int THREADS>
+template <typename T, bool CC, int THREADS>
 __global__ void __launch_bounds__(THREADS, 1024 / THREADS)
 mg_solve_kernel(const MgParams<T> p) {
     extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -518,16 +601,15 @@ mg_solve_kernel(const MgParams<T> p) {
     // first residual and rhs max-norms
     {
         const T fx = T(p.facx[0]), fy = T(p.facy[0]);
-        const T diag = T(-2.0 * (p.facx[0] + p.facy[0]));
         T mres = T(0), mrhs = T(0);
         for (long long i = tid; i < n; i += nthreads) {
             const int ix = int(i % nx), iy = int((i / nx) % ny);
             const long long cell = (long long)iy * nx + ix;
             const T* uc = p.B[0] + (i - cell);
-            const T off = offdiag(uc, iy, ix, ny, nx, fx, fy);
+            const T off = offdiag<T, CC>(uc, iy, ix, ny, nx, fx, fy);
             const T r = p.rhs[0][i];
-            mres = nanmax(mres, absval(residual_at(r, off, diag - p.acf[0][cell],
-                                                   uc[cell])));
+            const T dma = diag_at<T, CC>(p, 0, iy, ix) - p.acf[0][cell];
+            mres = nanmax(mres, absval(residual_at(r, off, dma, uc[cell])));
             mrhs = nanmax(mrhs, absval(r));
         }
         block_max_to_slot(mres, p.slots);
@@ -544,13 +626,13 @@ mg_solve_kernel(const MgParams<T> p) {
     while (res > target && it < p.max_iters) {
         typename Bits<T>::type* slot = p.slots + 2 + it;
         for (int l = 0; l < p.Lc; ++l) {
-            tile_stage<T, THREADS>(p, sm, l, true, it == 0, slot);
+            tile_stage<T, CC, THREADS>(p, sm, l, true, it == 0, slot);
             grid.sync();
         }
-        if (blockIdx.x == 0) coarse_stage(p, sm, slot);
+        if (blockIdx.x == 0) coarse_stage<T, CC>(p, sm, slot);
         grid.sync();
         for (int l = p.Lc - 1; l >= 0; --l) {
-            tile_stage<T, THREADS>(p, sm, l, false, false, slot);
+            tile_stage<T, CC, THREADS>(p, sm, l, false, false, slot);
             grid.sync();
         }
         res = from_bits(p.slots[2 + it]);
@@ -563,9 +645,9 @@ mg_solve_kernel(const MgParams<T> p) {
 }
 
 // One cooperative launch: as many blocks as the card keeps resident.
-template <typename T, int THREADS>
+template <typename T, bool CC, int THREADS>
 int launch_solve(const MgParams<T>& p, int smem_bytes, void* stream) {
-    auto kernel = mg_solve_kernel<T, THREADS>;
+    auto kernel = mg_solve_kernel<T, CC, THREADS>;
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (err != cudaSuccess) return (int)err;
@@ -591,8 +673,8 @@ int solve(const void* u_in, const unsigned long long* table, const int* ny,
           const int* nx, const double* facx, const double* facy, int C, int L,
           int Lc, int nu1, int nu2, int coarse_sweeps, int halo, int max_iters,
           double tol_rel, double tol_abs, int acf_fill, double acf_scalar,
-          void* slots, void* cycles, void* resnorm, int smem_bytes,
-          void* stream) {
+          int cell_centered, void* slots, void* cycles, void* resnorm,
+          int smem_bytes, void* stream) {
     if (L < 1 || L > kMaxLevels || Lc < 0 || Lc >= L || halo < 0 ||
         2 * halo >= kTileDim || max_iters < 0)
         return (int)cudaErrorInvalidValue;
@@ -617,7 +699,8 @@ int solve(const void* u_in, const unsigned long long* table, const int* ny,
     p.slots = (typename Bits<T>::type*)slots;
     p.cycles = (int*)cycles;
     p.resnorm = (T*)resnorm;
-    return launch_solve<T, THREADS>(p, smem_bytes, stream);
+    return cell_centered ? launch_solve<T, true, THREADS>(p, smem_bytes, stream)
+                         : launch_solve<T, false, THREADS>(p, smem_bytes, stream);
 }
 
 }  // namespace hipace
@@ -628,13 +711,14 @@ int solve(const void* u_in, const unsigned long long* table, const int* ny,
         const void* u_in, const void* table, const void* ny, const void* nx,      \
         const void* facx, const void* facy, int C, int L, int Lc, int nu1,        \
         int nu2, int coarse_sweeps, int halo, int max_iters, double tol_rel,      \
-        double tol_abs, int acf_fill, double acf_scalar, void* slots,             \
-        void* cycles, void* resnorm, int smem_bytes, void* stream) {              \
+        double tol_abs, int acf_fill, double acf_scalar, int cell_centered,       \
+        void* slots, void* cycles, void* resnorm, int smem_bytes, void* stream) { \
         return hipace::solve<T, THREADS>(                                         \
             u_in, (const unsigned long long*)table, (const int*)ny,               \
             (const int*)nx, (const double*)facx, (const double*)facy, C, L, Lc,   \
             nu1, nu2, coarse_sweeps, halo, max_iters, tol_rel, tol_abs, acf_fill, \
-            acf_scalar, slots, cycles, resnorm, smem_bytes, stream);              \
+            acf_scalar, cell_centered, slots, cycles, resnorm, smem_bytes,        \
+            stream);                                                              \
     }
 
 extern "C" {

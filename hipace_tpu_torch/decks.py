@@ -17,6 +17,14 @@ with open field boundaries and absorbing particle boundaries, at the
 reference's default predictor-corrector parameters (tolerance 4e-2, at
 most 30 iterations, mixing factor 0.05; ref Hipace.H:210-222). Its domain,
 (-8..8)^2, holds x = y = 0, the open boundary's expansion point.
+
+``ION_MOTION_EVEN`` is the flagship's grid, beam, order and explicit solver
+at an even transverse size (full width 1024^2, the cell-centered multigrid)
+with two mobile plasma species: electrons with a temperature (u_std 0.01 in
+each direction) and hydrogen ions, 1 ppc each, neither with a neutralizing
+background (the ions are the neutralizing charge). It is shaped like the
+reference's ion-motion example (``examples/linear_wake/inputs_ion_motion_SI``:
+electrons and mobile ions, the explicit solver) and is not that file.
 """
 
 from __future__ import annotations
@@ -104,3 +112,30 @@ def pc_open(nxy: int, nz: int, npart: int, extra: str = "") -> Inputs:
     """PC_OPEN on an nxy^2 x nz grid with an npart-particle beam, followed
     by the deck lines in `extra`."""
     return Inputs(PC_OPEN.format(nxy=nxy, nz=nz, npart=npart) + extra)
+
+
+ION_MOTION_EVEN = BLOWOUT_WAKE.replace(
+    """plasmas.names = plasma
+plasma.density(x,y,z) = 1.
+plasma.ppc = 1 1
+plasma.element = electron
+""", """hipace.MG_tolerance_rel = 1e-4
+plasmas.names = elec ions
+elec.density(x,y,z) = 1.
+elec.ppc = 1 1
+elec.element = electron
+elec.u_std = 0.01 0.01 0.01
+elec.neutralize_background = 0
+ions.density(x,y,z) = 1.
+ions.ppc = 1 1
+ions.element = H
+ions.neutralize_background = 0
+""")
+
+
+def ion_motion_even(nxy: int, nz: int, npart: int, extra: str = "") -> Inputs:
+    """ION_MOTION_EVEN on an nxy^2 x nz grid with an npart-particle beam,
+    followed by the deck lines in `extra`; full width is nxy = 1024 with
+    the flagship's npart."""
+    return Inputs(ION_MOTION_EVEN.format(nxy=nxy, nz=nz, npart=npart)
+                  + extra)

@@ -1,14 +1,25 @@
 """2D geometric multigrid for Laplacian(u) - acf*u = rhs, Dirichlet BC.
 
-Port of the real node-centered ``MultiGrid`` of
-``hipace_tpu/fields/multigrid.py:80-296`` (the reference's hpmg solve1 for
-Bx/By, ref HpMultiGrid.cpp). Odd grid sizes, recommended 2^N - 1, with
-u = 0 at the ghost nodes: the DST solver's convention. Red-black
-Gauss-Seidel (red = (ix + iy) even, swept first), full-weighting
-restriction (coarse node ic sits at fine node 2ic+1, stencil [1, 2, 1]/4
-per dimension), bilinear prolongation P = 2 R^T per dimension, V-cycles
-until the max-norm residual is at most
-max(tol_abs, max(tol_rel, 1e-16) * max(|res0|, |rhs|)) or max_iters.
+Port of the real ``MultiGrid`` of ``hipace_tpu/fields/multigrid.py:80-296``
+(the reference's hpmg solve1 for Bx/By, ref HpMultiGrid.cpp) in both of its
+grid conventions (ref HpMultiGrid.cpp:1050-1065), chosen by the parity of
+the sizes, which must agree:
+
+- odd sizes, recommended 2^N - 1 ("node-centered"): u = 0 at the ghost
+  nodes, the DST solver's convention; full-weighting restriction (coarse
+  node ic sits at fine node 2ic+1, stencil [1, 2, 1]/4 per dimension),
+  bilinear prolongation; levels halve while (n - 1) / 2 >= 3.
+- even sizes ("cell-centered"): u = 0 at the cell faces, so the
+  boundary-facing neighbour of an edge cell weighs 4/3 and the edge cell's
+  diagonal is -4 fac in that dimension (ref HpMultiGrid.cpp:163-182): the
+  diagonal is a plane, not a scalar; 2-cell-average restriction,
+  piecewise-constant prolongation; levels halve while both sizes are even
+  and n / 2 >= 2, so 1024 goes down to 2 and 96 stops at 3.
+
+Both: red-black Gauss-Seidel (red = (ix + iy) even, swept first),
+prolongation P = 2 R^T per dimension, V-cycles until the max-norm residual
+is at most max(tol_abs, max(tol_rel, 1e-16) * max(|res0|, |rhs|)) or
+max_iters.
 
 ``solve_plain`` is the plain PyTorch version and K3's reference: the
 transfers are the dense separable products Ry r Rx^T of the XLA path.
@@ -16,8 +27,8 @@ transfers are the dense separable products Ry r Rx^T of the XLA path.
 kernel of ``ops/mg_kernel.py``. ``cycles`` holds the last solve's V-cycle
 count as that path left it -- an int from the plain version, a 0-d device
 tensor from the kernel, which no one has to read back -- and
-``last_cycles`` reads it as an int. Even (cell-centered) grids and the
-complex laser system are not ported.
+``last_cycles`` reads it as an int. The complex laser system is not
+ported.
 """
 
 from __future__ import annotations
@@ -41,16 +52,36 @@ def restrict_matrix(nf: int) -> np.ndarray:
     return R
 
 
+def restrict_matrix_cc(nf: int) -> np.ndarray:
+    """(nc, nf) 2-cell-average restriction, nc = nf // 2."""
+    nc = nf // 2
+    R = np.zeros((nc, nf))
+    for ic in range(nc):
+        R[ic, 2 * ic:2 * ic + 2] = 0.5
+    return R
+
+
+def cc_diag(n_y: int, n_x: int, facx: float, facy: float) -> np.ndarray:
+    """The cell-centered diagonal plane in float64: -2 fac per dimension,
+    -4 fac in the edge cells of that dimension."""
+    dgx = np.full((n_x,), -2.0 * facx)
+    dgx[0] = dgx[-1] = -4.0 * facx
+    dgy = np.full((n_y,), -2.0 * facy)
+    dgy[0] = dgy[-1] = -4.0 * facy
+    return dgx[None, :] + dgy[:, None]
+
+
 class MultiGrid(torch.nn.Module):
-    """Node-centered geometric multigrid; construct once per grid."""
+    """Geometric multigrid, node-centered at odd sizes and cell-centered at
+    even ones; construct once per grid."""
 
     def __init__(self, nx: int, ny: int, dx: float, dy: float,
                  device=None, dtype=torch.float64):
         super().__init__()
-        if nx % 2 == 0 or ny % 2 == 0:
-            raise NotImplementedError(
-                "even (cell-centered) multigrid sizes are not ported: use "
-                "odd transverse cell counts, 2^N - 1 preferred")
+        if nx % 2 != ny % 2:
+            raise ValueError(f"nx = {nx} and ny = {ny} must have the same "
+                             "parity")
+        self.cell_centered = nx % 2 == 0
         self.dtype = dtype
         self.shapes = []
         self.facs = []
@@ -58,25 +89,41 @@ class MultiGrid(torch.nn.Module):
         while True:
             self.shapes.append((n_y, n_x))
             self.facs.append((1.0 / (ddx * ddx), 1.0 / (ddy * ddy)))
-            if ((n_x - 1) % 2 or (n_y - 1) % 2 or (n_x - 1) // 2 < 3
-                    or (n_y - 1) // 2 < 3):
-                break
-            n_x, n_y = (n_x - 1) // 2, (n_y - 1) // 2
+            if self.cell_centered:
+                if n_x % 2 or n_y % 2 or n_x // 2 < 2 or n_y // 2 < 2:
+                    break
+                n_x, n_y = n_x // 2, n_y // 2
+            else:
+                if ((n_x - 1) % 2 or (n_y - 1) % 2 or (n_x - 1) // 2 < 3
+                        or (n_y - 1) // 2 < 3):
+                    break
+                n_x, n_y = (n_x - 1) // 2, (n_y - 1) // 2
             ddx *= 2.0
             ddy *= 2.0
         self.nlevels = len(self.shapes)
-        # diagonal of the Laplacian per level (node-centered: a scalar)
-        self.diags = [-2.0 * (fx + fy) for fx, fy in self.facs]
         for lev in range(self.nlevels):
             n_y, n_x = self.shapes[lev]
             red = (np.add.outer(np.arange(n_y), np.arange(n_x)) % 2) == 0
             self.register_buffer(f"red{lev}", torch.as_tensor(
                 red, device=device))
+            if self.cell_centered:
+                # the boundary-facing neighbour's 4/3 (ref
+                # HpMultiGrid.cpp laplacian())
+                coef = {s: np.ones((n_y, n_x)) for s in "WESN"}
+                coef["E"][:, 0] = coef["W"][:, -1] = 4.0 / 3.0
+                coef["N"][0, :] = coef["S"][-1, :] = 4.0 / 3.0
+                for s, c in coef.items():
+                    self.register_buffer(f"c{s}{lev}", torch.as_tensor(
+                        c, dtype=dtype, device=device))
+                self.register_buffer(f"diag{lev}", torch.as_tensor(
+                    cc_diag(n_y, n_x, *self.facs[lev]), dtype=dtype,
+                    device=device))
+        rmat = restrict_matrix_cc if self.cell_centered else restrict_matrix
         for lev in range(self.nlevels - 1):
             n_y, n_x = self.shapes[lev]
             for name, n in (("Ry", n_y), ("Rx", n_x)):
                 self.register_buffer(f"{name}{lev}", torch.as_tensor(
-                    restrict_matrix(n), dtype=dtype, device=device))
+                    rmat(n), dtype=dtype, device=device))
         # workspace layouts of the kernel's solves (ops/mg_kernel.py)
         self.kernel_layouts = {}
         # V-cycles taken by the last solve: an int (plain version) or a
@@ -90,21 +137,32 @@ class MultiGrid(torch.nn.Module):
         return int(self.cycles)
 
     # ------------------------------------------------------------------
+    def _diag(self, lev):
+        """The Laplacian's diagonal on level lev: a scalar node-centered,
+        the plane diag<lev> cell-centered."""
+        if self.cell_centered:
+            return getattr(self, f"diag{lev}")
+        facx, facy = self.facs[lev]
+        return -2.0 * (facx + facy)
+
     def _offdiag(self, u, lev):
         facx, facy = self.facs[lev]
         up = F.pad(u, (1, 1, 1, 1))
         uW, uE = up[..., 1:-1, :-2], up[..., 1:-1, 2:]
         uS, uN = up[..., :-2, 1:-1], up[..., 2:, 1:-1]
+        if self.cell_centered:
+            cW, cE, cS, cN = (getattr(self, f"c{s}{lev}") for s in "WESN")
+            return facx * (uW * cW + uE * cE) + facy * (uS * cS + uN * cN)
         return facx * (uW + uE) + facy * (uN + uS)
 
     def apply_op(self, u, acf, lev=0):
         """A(u) = Laplacian(u) - acf*u."""
-        return self._offdiag(u, lev) + (self.diags[lev] - acf) * u
+        return self._offdiag(u, lev) + (self._diag(lev) - acf) * u
 
     def _smooth(self, u, rhs, acf, lev, sweeps):
         """Red-black Gauss-Seidel (each sweep = red + black)."""
         red = getattr(self, f"red{lev}")
-        inv_diag = 1.0 / (self.diags[lev] - acf)
+        inv_diag = 1.0 / (self._diag(lev) - acf)
         for _ in range(sweeps):
             for mask in (red, ~red):
                 upd = (rhs - self._offdiag(u, lev)) * inv_diag
@@ -119,8 +177,9 @@ class MultiGrid(torch.nn.Module):
         return u + (2.0 * ry).T @ c @ (2.0 * rx)
 
     def coarsen_acf(self, acf):
-        """Averaged-down a-coefficients per level (ref average_down_acoef).
-        The node-centered averaging denominator Ry 1 Rx^T is exactly 1."""
+        """Averaged-down a-coefficients per level (ref average_down_acoef):
+        the restriction of each level's, a 2x2 average where cell-centered;
+        the node-centered averaging denominator Ry 1 Rx^T is exactly 1."""
         acfs = [acf]
         for lev in range(self.nlevels - 1):
             a = acfs[-1]

@@ -13,9 +13,10 @@ Port of ``hipace_tpu/fields/poisson.py`` and of ``make_poisson_solver``
 
   in its two FFT variants (FFTDirichletFast; FFTDirichletExpanded and
   FFTDirichletDirect).
-- ``MGDirichletPoissonSolver``: the same system through the node-centered
-  multigrid with a zero a-coefficient (ref MGPoissonSolverDirichlet), K3 on
-  the card; odd sizes only.
+- ``MGDirichletPoissonSolver``: the same system through the multigrid with
+  a zero a-coefficient (ref MGPoissonSolverDirichlet), K3 on the card;
+  node-centered at odd sizes (the DST's ghost nodes), cell-centered at even
+  ones (zero at the cell faces).
 - ``PeriodicPoissonSolver``: a C2C FFT with spectral -(kx^2 + ky^2)
   division (ref FFTPoissonSolverPeriodic.cpp).
 
@@ -69,7 +70,7 @@ class DirichletPoissonSolver(torch.nn.Module):
 class MGDirichletPoissonSolver:
     """Laplacian(u) = rhs by the multigrid from u = 0 (ref hpmg solve3 with
     a zero a-coefficient), to a relative residual of tol_rel or 40
-    V-cycles; the ghost-node convention of the DST solvers."""
+    V-cycles; at odd sizes the ghost-node convention of the DST solvers."""
 
     def __init__(self, nx: int, ny: int, dx: float, dy: float,
                  device=None, dtype=torch.float64, tol_rel: float = 1e-11):

@@ -2,7 +2,9 @@
 
 Port of the Pallas kernel ``_mg_kernel`` / ``FusedMG.solve``
 (``hipace_tpu/ops/pallas_mg.py:62-249``), held to the XLA path of
-``MultiGrid.solve`` (exact stencils, no reduced-precision transfers). The
+``MultiGrid.solve`` (exact stencils, no reduced-precision transfers), in
+both grid conventions: node-centered (odd sizes, the Pallas kernel's) and
+cell-centered (even sizes, which the JAX package solves on XLA only). The
 plain version is ``MultiGrid.solve_plain`` in ``fields/multigrid.py``;
 ``MultiGrid.solve`` sends CUDA tensors here.
 
@@ -44,7 +46,9 @@ def plan(shapes, C: int, itemsize: int, nu1: int, nu2: int):
     """(halo, Lc, shared-memory bytes) of a solve on `shapes`.
 
     The halo covers one cell per colour half-sweep plus the reach of the
-    residual and of the restriction. Lc is the first level from which the
+    residual and of the restriction (one cell node-centered, none
+    cell-centered, where the halo stays the same so that tile origins stay
+    even). Lc is the first level from which the
     whole ladder -- per level u and rhs (C planes each), dma and invd, plus
     one residual scratch of level Lc -- fits the block's share of the SM."""
     halo = 2 * max(nu1, nu2) + 2
@@ -161,8 +165,9 @@ def mg_solve(mg, u0, rhs, acf, tol_rel=1e-4, tol_abs=0.0, max_iters=40,
         lay.nx.ctypes.data, lay.facx.ctypes.data, lay.facy.ctypes.data, C,
         mg.nlevels, lay.Lc, nu1, nu2, COARSE_SWEEPS, lay.halo, max_iters,
         tol_rel, tol_abs, int(acf_plane is None),
-        0.0 if acf_plane is not None else float(acf), stats.data_ptr(),
-        cycles_at, cycles_at + 8, lay.smem, cuda_lib.stream_ptr(u0)),
+        0.0 if acf_plane is not None else float(acf),
+        int(mg.cell_centered), stats.data_ptr(), cycles_at, cycles_at + 8,
+        lay.smem, cuda_lib.stream_ptr(u0)),
         "mg_solve")
     cycles = stats[max_iters + 2:max_iters + 3].view(torch.int32)[0]
     resnorm = stats[max_iters + 3:].view(dt)[0]

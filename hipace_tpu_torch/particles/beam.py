@@ -99,20 +99,20 @@ class BeamConfig:
 
         injection = pp.get("injection_type", str)
         if injection not in INJECTION_TYPES:
-            unsupported.fail(f"{name}.injection_type", unsupported.OTHER_PATHS)
+            unsupported.fail(f"{name}.injection_type", unsupported.BEAM_PATHS)
         if pp.query("do_salame", False, bool):
             unsupported.fail(f"{name}.do_salame", unsupported.SALAME)
         for key in ("do_radiation_reaction", "do_spin_tracking"):
             if q(key, False, bool):
-                unsupported.fail(f"{name}.{key}", unsupported.OTHER_PATHS)
+                unsupported.fail(f"{name}.{key}", unsupported.BEAM_PATHS)
         for key in ("external_E(x,y,z,t)", "external_B(x,y,z,t)"):
             if inputs.raw(f"{name}.{key}") or inputs.raw(f"beams.{key}"):
-                unsupported.fail(f"{name}.{key}", unsupported.OTHER_PATHS)
+                unsupported.fail(f"{name}.{key}", unsupported.BEAM_PATHS)
         profile = pp.query("profile", "gaussian", str)
         profiles = {"fixed_weight": ("gaussian", "can"),
                     "fixed_ppc": ("flattop", "gaussian", "parsed")}
         if profile not in profiles.get(injection, (profile,)):
-            unsupported.fail(f"{name}.profile", unsupported.OTHER_PATHS)
+            unsupported.fail(f"{name}.profile", unsupported.BEAM_PATHS)
         pdf = injection == "fixed_weight_pdf"
 
         element = pp.query("element", "electron", str)

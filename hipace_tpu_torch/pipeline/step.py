@@ -5,8 +5,10 @@ Port of the non-MR, non-laser branches of ``hipace_tpu/pipeline/step.py``
 JAX package scans a jitted slice function; here ``SliceStep`` is called
 once per slice, head to tail, by an eager Python loop.
 
-Per slice of the explicit solver: the fused 13-channel plasma deposit (K1;
-14-15 channels with hipace.deposit_rho and deposit_rho_individual), the
+Per slice of the explicit solver: per plasma species the fused 13-channel
+deposit (K1; 14-15 channels with hipace.deposit_rho and
+deposit_rho_individual; the Sx/Sy channels with derivative weights for
+hipace.depos_derivative_type 0 and 1), the
 beam jz deposit (K1), the batched Psi/Ez/Bz solve, the beam Next jx/jy
 deposit (K1), the Sx/Sy assembly and the Bx/By multigrid (K3). Per slice
 of the predictor-corrector solver: the plasma jx/jy/jz/rhomjz deposit (K1),
@@ -161,6 +163,13 @@ class SimConfig:
     # hipace.bxby_solver: explicit, else predictor-corrector
     explicit: bool = True
     depos_order_xy: int = 2
+    # the explicit Sx/Sy deposit's derivative weights (ref
+    # ExplicitDeposition.cpp): 2 centered grid differences, 0/1 the shape
+    # derivative of order p / p + 1
+    depos_derivative_type: int = 2
+    # "leapfrog" or "ab5" (the reference's HIPACE_USE_AB5_PUSH build option,
+    # hipace.plasma_pusher in the JAX package)
+    plasma_pusher: str = "leapfrog"
     do_beam_jx_jy_deposition: bool = True
     # the beam's rho - jz/c in the Psi source (ref Hipace.cpp:853-857)
     do_beam_jz_minus_rho: bool = False
@@ -370,7 +379,8 @@ def pc_bxby_solve(f: dict, plasmas: list, beam_next: dict, cfg: SimConfig,
         nxt = {"jx": torch.zeros_like(jz), "jy": torch.zeros_like(jz)}
         for p, pcfg in zip(plasmas, cfg.plasmas):
             p_tmp = pl.advance_plasma(p, fields_it, g, pcfg, pc, order=order,
-                                      temp_slice=True)
+                                      temp_slice=True,
+                                      pusher=cfg.plasma_pusher)
             nxt, _ = pl.deposit_plasma(p_tmp, ["jx", "jy"], nxt, g, pcfg, pc,
                                        order, cfg.normalized_units)
         if cfg.do_beam_jx_jy_deposition and cfg.beams:
@@ -460,7 +470,8 @@ class SliceStep:
             if cfg.explicit:
                 this, p, dg = pl.fused_plasma_deposits(
                     p, ["jx", "jy", "chi", "rhomjz"] + rho, this, g, pcfg,
-                    pc, order, cfg.normalized_units)
+                    pc, order, cfg.normalized_units,
+                    deriv_type=cfg.depos_derivative_type)
                 dgrids_list.append(dg)
             else:
                 this, p = pl.deposit_plasma(
@@ -523,7 +534,8 @@ class SliceStep:
                 for p in plasmas])
 
         # ---- push plasma (K2)
-        plasmas = [pl.advance_plasma(p, this, g, pcfg, pc, order=order)
+        plasmas = [pl.advance_plasma(p, this, g, pcfg, pc, order=order,
+                                     pusher=cfg.plasma_pusher)
                    for p, pcfg in zip(plasmas, cfg.plasmas)]
 
         # ---- push beam: slipped carry first, then this slice (K2)

@@ -208,8 +208,13 @@ def test_multigrid_scalar_acf_and_2d():
 
 
 def test_multigrid_rejects_even_sizes():
-    with pytest.raises(NotImplementedError):
-        MultiGrid(32, 32, 0.1, 0.1)
+    """An even size is cell-centered and takes an even size in the other
+    dimension: an even size beside an odd one is refused. Even grids run
+    (tests/test_torch_even.py)."""
+    for nx, ny in ((32, 31), (31, 32)):
+        with pytest.raises(ValueError, match="parity"):
+            MultiGrid(nx, ny, 0.1, 0.1)
+    assert MultiGrid(32, 32, 0.1, 0.1).cell_centered
 
 
 def test_jax_reference_is_float64():

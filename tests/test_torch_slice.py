@@ -10,6 +10,7 @@ jax, accepts the TPU tuning keys as no-ops and refuses keys it lacks.
 """
 
 import os
+import re
 import subprocess
 import sys
 
@@ -23,6 +24,7 @@ import __graft_entry__
 import hipace_tpu.fields.multigrid as jmg
 from hipace_tpu.parser import Inputs
 from hipace_tpu.pipeline.simulation import Simulation as JSimulation
+from hipace_tpu_torch import unsupported
 from hipace_tpu_torch.convert import carry_state
 from hipace_tpu_torch.parser import Inputs as TInputs
 from hipace_tpu_torch.pipeline.simulation import Simulation
@@ -213,25 +215,37 @@ def test_tpu_tuning_keys_are_noops():
 
 
 @pytest.mark.parametrize("extra,item", [
-    ("hipace.bxby_solver = predictor-corrector\n"
-     "fields.poisson_solver = MGDirichlet\namr.n_cell = 32 32 8",
-     "other beam and plasma paths"),
-    ("hipace.plasma_pusher = ab5", "other beam and plasma paths"),
+    ("beams.names = beam beam2", "beam paths"),
+    ("hipace.max_time = 10.", "adaptive dt and max_time"),
     ("lasers.names = laser", "laser"),
     ("amr.max_level = 1", "mesh refinement"),
     ("beam.do_salame = 1", "SALAME"),
     ("plasma.initial_ion_level = 1", "ionization"),
     ("hipace.collisions = c1", "collisions"),
-    ("beam.do_spin_tracking = 1", "other beam and plasma paths"),
-    ("hipace.dt = adaptive", "other beam and plasma paths"),
-    ("plasmas.names = plasma ions", "other beam and plasma paths"),
-    ("grid_current.use_grid_current = 1", "other beam and plasma paths"),
-    ("hipace.depos_derivative_type = 1", "other beam and plasma paths"),
-    ("amr.n_cell = 32 32 8", "other beam and plasma paths"),
+    ("beam.do_spin_tracking = 1", "beam paths"),
+    ("hipace.dt = adaptive", "adaptive dt and max_time"),
+    ("beam.do_radiation_reaction = 1", "beam paths"),
+    ("grid_current.use_grid_current = 1", "beam paths"),
+    ("plasma.can_ionize = 1", "ionization"),
+    ("beam.profile = flattop", "beam paths"),
 ])
 def test_unsupported_keys_raise(extra, item):
-    with pytest.raises(NotImplementedError, match=item):
+    """Each refusal names its port-queue item by number and title."""
+    msg = f"item {unsupported.ITEMS[item]} '{item}'"
+    with pytest.raises(NotImplementedError, match=re.escape(msg)):
         Simulation(_small(extra + "\n"), device="cpu", verbose=0)
+
+
+def test_refusals_name_their_roadmap_item():
+    """Every item a refusal can name is that numbered item of ROADMAP.md's
+    port queue, and no refusal names an item that is done."""
+    with open(os.path.join(ROOT, "ROADMAP.md")) as f:
+        roadmap = f.read()
+    assert len(set(unsupported.ITEMS.values())) == len(unsupported.ITEMS)
+    for item, n in unsupported.ITEMS.items():
+        assert re.search(rf"^{n}\. \*\*{re.escape(item)}", roadmap,
+                         re.IGNORECASE | re.MULTILINE), (n, item)
+    assert not hasattr(unsupported, "OTHER_PATHS")
 
 
 def test_port_never_imports_jax(tmp_path):

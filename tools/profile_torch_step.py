@@ -1,11 +1,12 @@
 """Where the time of one time step of the PyTorch/CUDA port goes, on a GPU.
 
-    python3 tools/profile_torch_step.py [--deck flagship|pdf|pc] [--insitu]
-        [--xz] [--nxy 1023] [--nz 64] [--steps 2]
+    python3 tools/profile_torch_step.py [--deck flagship|pdf|pc|even]
+        [--insitu] [--xz] [--nxy 1023] [--nz 64] [--steps 2]
 
 Runs a deck of ``hipace_tpu_torch.decks`` (the flagship blowout wake, its
-fixed_weight_pdf variant, or its predictor-corrector variant with open
-boundaries) in float32 on ``cuda``: one warm-up step,
+fixed_weight_pdf variant, its predictor-corrector variant with open
+boundaries, or the two-species ION_MOTION_EVEN at an even size, 1024^2 by
+default, with the flagship's beam) in float32 on ``cuda``: one warm-up step,
 ``--steps`` timed steps on the host clock, then one step under
 ``torch.profiler``. It prints the device time and launch count per slice of
 each group of device activities (the port's kernels K1-K3, PyTorch
@@ -80,13 +81,14 @@ def device_activities(prof):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--deck", choices=("flagship", "pdf", "pc"),
+    ap.add_argument("--deck", choices=("flagship", "pdf", "pc", "even"),
                     default="flagship")
     ap.add_argument("--insitu", action="store_true",
                     help="in-situ beam, plasma and field records every step")
     ap.add_argument("--xz", action="store_true",
                     help="an xz diagnostic of all comps and rho every step")
-    ap.add_argument("--nxy", type=int, default=1023)
+    ap.add_argument("--nxy", type=int, default=None,
+                    help="grid width (1023; 1024 for --deck even)")
     ap.add_argument("--nz", type=int, default=64)
     ap.add_argument("--steps", type=int, default=2)
     args = ap.parse_args()
@@ -96,14 +98,20 @@ def main() -> int:
         print("no CUDA device", file=sys.stderr)
         return 3
 
-    from hipace_tpu_torch.decks import blowout_wake, pc_open, pdf_beam
+    from hipace_tpu_torch.decks import (blowout_wake, ion_motion_even,
+                                        pc_open, pdf_beam)
     from hipace_tpu_torch.pipeline.simulation import Simulation
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=False, timeout=60)
     print(smi.stdout.strip() or smi.stderr.strip())
-    npart = args.nxy * args.nxy * 10 * args.nz // 1000
+    if args.nxy is None:
+        args.nxy = 1024 if args.deck == "even" else 1023
+    # the bench's beam scaling on the odd width (an even grid gets the beam
+    # of the odd one below it)
+    odd = args.nxy - (args.nxy + 1) % 2
+    npart = odd * odd * 10 * args.nz // 1000
     out = ROOT / "build" / "profile_output"
     extra = (f"hipace.file_prefix = {out}/openpmd\n"
              "hipace.openpmd_backend = json\n")
@@ -118,7 +126,7 @@ def main() -> int:
                   "diagnostic.field_data = all rho\n"
                   "diagnostic.beam_output_period = 0\n")
     deck = {"flagship": blowout_wake, "pdf": pdf_beam,
-            "pc": pc_open}[args.deck]
+            "pc": pc_open, "even": ion_motion_even}[args.deck]
     sim = Simulation(deck(args.nxy, args.nz, npart, extra), device="cuda",
                      dtype=torch.float32, verbose=0)
     write_s = []

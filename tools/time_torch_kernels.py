@@ -5,10 +5,12 @@
 K3: the cost of one V-cycle by grid size (a solve that never converges, cut
 at 11 and at 21 V-cycles; the difference over 10), which separates the
 single-block ladder, each tile level and level 0, and the host's time to
-enqueue one solve. K1: one plasma-like call (1 lane per cell of 1023^2,
-order 2, deriv_type 2) by channel count, with and without the lattice hint,
-for lanes moved by up to half a cell and by up to three cells, with the
-share of blocks on the kernel's direct path. K2: the registers, stack frame
+enqueue one solve; odd sizes (node-centered) and even ones (cell-centered,
+skipped for a checkout whose multigrid refuses them). K1: one plasma-like
+call (1 lane per cell of 1023^2, order 2, deriv_type 2) by channel count,
+with and without the lattice hint, for lanes moved by up to half a cell and
+by up to 3, 6 and 10 cells, with the share of blocks on the kernel's direct
+path. K2: the registers, stack frame
 and spills of its kernels; its order-2 plasma call (1 lane per cell of
 1023^2 in lattice order, moved by up to half a cell) and a 30k-lane
 gaussian beam slice, each timed on the device and by the host's time to
@@ -109,8 +111,13 @@ def k3_section(torch, dtype, gen, cuda_ms, enqueue_us):
     from hipace_tpu_torch.ops.mg_kernel import mg_solve, plan
     name = str(dtype).split(".")[1]
     for C in (2, 1):
-        for n in (1023, 511, 255, 127, 63, 31):
-            mg = MultiGrid(n, n, 16 / n, 16 / n, device="cuda", dtype=dtype)
+        for n in (1023, 1024, 511, 512, 255, 256, 127, 128, 63, 64, 31, 32):
+            try:
+                mg = MultiGrid(n, n, 16 / n, 16 / n, device="cuda",
+                               dtype=dtype)
+            except NotImplementedError as err:
+                print(f"K3 {name} C={C} {n}^2: {err}", flush=True)
+                continue
             rhs = torch.randn((C, n, n), generator=gen, device="cuda",
                               dtype=dtype)
             acf = 1 + 0.1 * torch.rand((n, n), generator=gen, device="cuda",
@@ -124,7 +131,9 @@ def k3_section(torch, dtype, gen, cuda_ms, enqueue_us):
             t11 = cuda_ms(lambda: solve(11))
             t21 = cuda_ms(lambda: solve(21))
             halo, lc, smem = plan(mg.shapes, C, rhs.element_size(), 2, 2)
-            print(f"K3 {name} C={C} {n}^2: first single-block level "
+            print(f"K3 {name} C={C} {n}^2"
+                  f"{' cell-centered' if n % 2 == 0 else ''}: first "
+                  f"single-block level "
                   f"{lc} of {mg.nlevels}, {smem} B shared; "
                   f"{100 * (t21 - t11):.1f} us per V-cycle; enqueue "
                   f"{enqueue_us(lambda: solve(0)):.1f} us", flush=True)
@@ -147,7 +156,7 @@ def k1_section(torch, dtype, gen, cuda_ms):
     n, G = 1023, 2
     NY, NX = n + 2 * G, n + 2 * G
     N = n * n
-    for spread in (0.5, 3.0):
+    for spread in (0.5, 3.0, 6.0, 10.0):
         ym, xm = _plasma_lanes(torch, gen, dtype, n, G, spread)
         for C in (13, 4, 1):
             vals = torch.randn((C, N), generator=gen, device="cuda",
