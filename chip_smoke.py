@@ -50,8 +50,21 @@ timed); a 64^2 x 16 float64 step of the two-species
 the same beam and temperature draws, with the leapfrog, AB5 and derivative
 types 0 and 1; then the even path, that deck at 1024^2 x 64 in float32 for
 one warm-up and two timed steps, its launches against the slice structure
-with two species, and one 1024^2 x 16 step of it on MGDirichlet. It imports
-nothing but the port.
+with two species, and one 1024^2 x 16 step of it on MGDirichlet.
+
+The beam paths: "beam paths, small", 63^2 x 16 float64 runs of two steps on
+the card against the CPU from the same beams, fields within 1e-8 and equal
+V-cycles on every slice, for the drive + witness deck
+(``hipace_tpu_torch.decks.DRIVE_WITNESS``: spin tracking and radiation
+reaction on the witness), the same with external fields (E under beams.,
+the witness's own B, a function of t) and a grid-current deck
+(``hipace_tpu_torch.decks.GRID_CURRENT``); then the witness path,
+DRIVE_WITNESS at 1023^2 x 64 in float32 for one warm-up and two timed
+steps: the K1/K2/K3 launches against the slice structure with two beam
+species (K2 1 + 10 + 10 per slice), finite fields, each beam's count
+conserved, the witness's |s| within 1e-5 of 1, and K2 held against its
+plain version on the witness path's own beam lanes. It imports nothing but
+the port.
 
 Beside each kernel's time (CUDA events around calls queued behind a device
 sleep) it prints the kernel's bound: the least time the card could take, the
@@ -148,6 +161,8 @@ PEAK_FLOPS = {4: 67e12, 8: 34e12}
 SLEEP_CYCLES = 50_000_000
 
 failures: list = []
+# the card's name and power limit, as nvidia-smi reports them
+CARD = {"line": "not read"}
 
 
 def phase(name):
@@ -1021,6 +1036,190 @@ def even_path(torch, counts):
                              "wrong")
 
 
+# the "beam paths, small" decks: (label, deck function, deck lines added)
+BEAM_VARIANTS = (
+    ("DRIVE_WITNESS", "drive_witness", ""),
+    ("DRIVE_WITNESS + external fields", "drive_witness",
+     "beams.external_E(x,y,z,t) = 0.02*x*(1.+0.1*t) 0.02*y 0.01\n"
+     "witness.external_B(x,y,z,t) = 0.01*y 0.005*x 0.\n"),
+    ("GRID_CURRENT", "grid_current", ""),
+)
+
+
+@phase("beam paths, small")
+def beam_small_phase(torch):
+    """Two 63^2 x 16 float64 steps of each BEAM_VARIANTS deck on the kernels
+    against the same steps on the CPU plain path from the same beams:
+    fields within 1e-8 of their largest value, equal V-cycles on every
+    slice, the same live lanes, the beams (positions, momenta, spins)
+    within 1e-8."""
+    from hipace_tpu_torch import decks
+    from hipace_tpu_torch.convert import carry_state
+    from hipace_tpu_torch.particles.beam import BEAM_ATTRS
+    from hipace_tpu_torch.pipeline.simulation import Simulation
+    bad = []
+    for label, fn, extra in BEAM_VARIANTS:
+        def deck():
+            return getattr(decks, fn)(SMALL_NXY, SMALL_NZ, 4000, extra)
+        cpu = Simulation(deck(), device="cpu", verbose=0)
+        gpu = Simulation(deck(), device="cuda", dtype=torch.float64,
+                         verbose=0)
+        carry_state(gpu, {k: v.numpy() for k, v in cpu.binned.items()
+                          if torch.is_tensor(v)}, cpu.dt, cpu.time,
+                    [b.total_charge for b in cpu.beam_cfgs])
+        rel, brel, same = 0.0, 0.0, True
+        for step in range(2):
+            ref = cpu.advance(step, write_output=False)
+            got = gpu.advance(step, write_output=False)
+            d_ref, d_got = ref["diag"], got["diag"].cpu()
+            rel = max(rel, float((d_got - d_ref).abs().max()
+                                 / d_ref.abs().max()))
+            same = same and got["mg_cycles"] == ref["mg_cycles"]
+            v = ref["binned"]["valid"]
+            same = same and bool((got["binned"]["valid"].cpu() == v).all())
+            for k in BEAM_ATTRS:
+                r = ref["binned"][k][v]
+                if r.numel() and float(r.abs().max()) > 0:
+                    brel = max(brel, float(
+                        (got["binned"][k].cpu()[v] - r).abs().max()
+                        / r.abs().max()))
+        cfgs = gpu.beam_cfgs
+        ok = rel < 1e-8 and brel < 1e-8 and same
+        print(f"beam paths, small: {SMALL_NXY}^2 x {SMALL_NZ} float64 "
+              f"{label}, {len(cfgs)} beam(s) (spin "
+              f"{[b.do_spin_tracking for b in cfgs]}, radiation reaction "
+              f"{[b.do_radiation_reaction for b in cfgs]}, external fields "
+              f"{[b.use_external_fields for b in cfgs]}, grid current "
+              f"{gpu.cfg.grid_current is not None}), 2 steps, kernels vs CPU"
+              f" plain path: fields max rel err {rel:.3e} (tol 1e-8), beams "
+              f"{brel:.3e} (tol 1e-8), V-cycles per slice and live lanes "
+              f"equal {same} {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            bad.append(label)
+    if bad:
+        raise AssertionError(f"beam paths small step mismatch: {bad}")
+
+
+@phase("witness path")
+def witness_path(torch, counts, results):
+    """DRIVE_WITNESS at 1023^2 x 64 in float32: one warm-up and two timed
+    steps; finite fields and momenta, each beam's count conserved (by
+    beam_id), the witness's |s| within 1e-5 of 1, the K1/K2/K3 launches
+    against the slice structure with two beam species (the beam pushes'
+    K2 launches counted apart); then K2 on the witness path's own beam
+    lanes (its fullest witness slice, the witness pass) against its plain
+    version, timed, with its bound."""
+    from hipace_tpu_torch.decks import drive_witness
+    from hipace_tpu_torch.ops import gather as gat
+    from hipace_tpu_torch.ops.deposit import deposit
+    from hipace_tpu_torch.ops.gather import gather_main
+    from hipace_tpu_torch.ops.mg_kernel import mg_solve
+    from hipace_tpu_torch.particles import beam as bm
+    from hipace_tpu_torch.particles.plasma import cell_positions
+    from hipace_tpu_torch.pipeline.simulation import Simulation
+    sim = Simulation(drive_witness(NXY, NZ, NPART), device="cuda",
+                     dtype=torch.float32, verbose=0)
+    g = sim.geom
+    nb = len(sim.beam_cfgs)
+
+    def per_beam(binned):
+        v, bid = binned["valid"], binned["beam_id"]
+        return [int((v & (bid == i)).sum()) for i in range(nb)]
+
+    n0 = per_beam(sim.binned)
+    steps = 3
+    # the beam pushes' K2 launches, counted around each push
+    beam_k2 = [0]
+    orig = bm.advance_all_beams
+
+    def counted(*args, **kwargs):
+        before = gather_main.launches
+        out = orig(*args, **kwargs)
+        beam_k2[0] += gather_main.launches - before
+        return out
+
+    for fn in (deposit, gather_main, mg_solve):
+        fn.launches = 0
+    bm.advance_all_beams = counted
+    try:
+        res, times = timed_steps(torch, sim, steps, write=False)
+    finally:
+        bm.advance_all_beams = orig
+    counts.update({"K1": deposit.launches, "K2": gather_main.launches,
+                   "K3": mg_solve.launches, "K2 beam": beam_k2[0]})
+    b = sim.binned
+    n = per_beam(b)
+    finite = bool(torch.isfinite(res["diag"]).all()) and all(
+        bool(torch.isfinite(b[k][b["valid"]]).all())
+        for k in bm.BEAM_ATTRS)
+    wit = b["valid"] & (b["beam_id"] == 1)
+    snorm = torch.sqrt(b["sx"][wit].double() ** 2 + b["sy"][wit].double() ** 2
+                       + b["sz"][wit].double() ** 2)
+    sdev = float((snorm - 1.0).abs().max())
+    turned = float((b["sx"][wit].double() - 1.0).abs().max())
+    gam = torch.sqrt(1.0 + (b["ux"][wit].double() ** 2
+                            + b["uy"][wit].double() ** 2
+                            + b["uz"][wit].double() ** 2))
+    cyc = res["mg_cycles"]
+    print(f"witness path {NXY}^2 x {NZ} float32, beams "
+          f"{[c.name for c in sim.beam_cfgs]} with {n0} particles, "
+          f"subcycles {[c.n_subcycles for c in sim.beam_cfgs]}: fields "
+          f"{tuple(res['diag'].shape)} and beams finite {finite}, particles "
+          f"per beam after {steps} steps {n} (start {n0}), witness |s| - 1 "
+          f"max {sdev:.3e} (tol 1e-5), spin turned by up to {turned:.3e}, "
+          f"witness mean gamma {float(gam.mean()):.6f}, V-cycles per slice "
+          f"{min(cyc)}-{max(cyc)} (last step); {CARD['line']}", flush=True)
+    slices = g.nz * (steps - 1)
+    t_step = sum(t for t, _ in times[1:])
+    print(f"witness path: {slices / t_step:.3f} slices/s, "
+          f"{1e3 * t_step / slices:.3f} ms/slice over {steps - 1} timed "
+          f"steps after 1 warm-up; per timed step "
+          + ", ".join(f"{g.nz / t:.3f}" for t, _ in times[1:])
+          + f"; {CARD['line']}", flush=True)
+    pcfg = sim.plasma_cfgs[0]
+    sub = sum(c.n_subcycles for c in sim.beam_cfgs)
+    per_step = {"K1": int(pcfg.neutralize_background) + 3 * g.nz,
+                "K2": g.nz * (pcfg.n_subcycles + sub), "K3": g.nz,
+                "K2 beam": g.nz * sub}
+    for k, count in counts.items():
+        print(f"witness path launches {k}: {count} (slice structure with "
+              f"{nb} beam species predicts {per_step[k] * steps}; K2 per "
+              f"slice {pcfg.n_subcycles} + "
+              f"{' + '.join(str(c.n_subcycles) for c in sim.beam_cfgs)})",
+              flush=True)
+    # K2 on the witness pass's lanes of the slice that holds most of the
+    # witness: every lane of the merged slice, the drive's dead
+    fullest = int((b["valid"] & (b["beam_id"] == 1)).sum(1).argmax())
+    lanes = {k: v[fullest] for k, v in b.items() if torch.is_tensor(v)}
+    mask = lanes["valid"] & (lanes["beam_id"] == 1)
+    ym, xm = cell_positions(lanes["x"], lanes["y"], mask, g)
+    NY, NX = g.slice_shape
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    planes = [torch.randn((NY, NX), generator=gen, device="cuda")
+              for _ in range(5)]
+    got = gat.gather_main_cuda(planes, ym, xm, 2)
+    ref = gat.gather_main_plain(planes, ym, xm, 2)
+    torch.cuda.synchronize()
+    ok, err, rel, tol = compare("K2", "float32", got, ref)
+    ms = cuda_ms(lambda: gat.gather_main_cuda(planes, ym, xm, 2))
+    plain_ms = cuda_ms(lambda: gat.gather_main_plain(planes, ym, xm, 2))
+    live = int(mask.sum())
+    print(f"K2 float32 witness path beam lanes (slice {fullest}, witness "
+          f"pass) N={ym.numel()}, {live} live: max abs err {err:.3e}, / max "
+          f"{rel:.3e} (tol {tol:g}) {'ok' if ok else 'FAIL'}; kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.3f} ms; {CARD['line']}",
+          flush=True)
+    b_ms, by = bound_line("K2 witness beam", "float32", ms,
+                          4 * (5 * stencil_cells(torch, ym, xm, NY, NX, 2)
+                               + 8 * ym.numel()),
+                          2 * 6 * 16 * live, 4)
+    results[("K2 witness beam", "float32")] = (err, ms, plain_ms, b_ms, by)
+    if (not finite or n != n0 or sdev > 1e-5 or not ok
+            or any(c != per_step[k] * steps for k, c in counts.items())):
+        raise AssertionError("witness path: fields, beams, spin, K2 or "
+                             "launch counts wrong")
+
+
 def read_insitu(path):
     """An in-situ file's records: a JSON dtype header, then the records."""
     import numpy as np
@@ -1232,6 +1431,7 @@ def main() -> int:
     smi_line = (smi.stdout.strip().splitlines()[0] if smi.stdout
                 else smi.stderr.strip())
     print(smi_line)
+    CARD["line"] = smi_line
     kind = torch.cuda.get_device_name(0)
     print(f"torch.cuda.get_device_name: {kind}; torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}")
@@ -1283,6 +1483,10 @@ def main() -> int:
     even_small_phase(torch)
     even_counts: dict = {}
     even_path(torch, even_counts)
+    torch.cuda.empty_cache()
+    beam_small_phase(torch)
+    witness_counts: dict = {}
+    witness_path(torch, witness_counts, results)
 
     if failures:
         print(f"chip_smoke FAILED phases: {failures}", file=sys.stderr)
@@ -1302,7 +1506,10 @@ def main() -> int:
                  even_counts["K3"]),
                 ("K3", "K3 CC MGDirichlet",
                  "K3 mg_solve, even path on MGDirichlet (cell-centered "
-                 "Poisson, C=3)", even_counts["K3 MGDirichlet"])]
+                 "Poisson, C=3)", even_counts["K3 MGDirichlet"]),
+                ("K2", "K2 witness beam",
+                 "K2 gather_main, witness path (drive and witness beam "
+                 "subcycles)", witness_counts["K2 beam"])]
     for k, key, label, launches in entries:
         _, source, replaces = KERNELS[k]
         err, ms, plain_ms, bound_ms, bound_by = results[(key, "float32")]

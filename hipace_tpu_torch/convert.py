@@ -18,10 +18,12 @@ from .particles.beam import ALL_ATTRS, BEAM_INT_ATTRS
 
 
 def carry_state(sim, binned: dict, dt: float, time: float,
-                total_charge: float | None = None) -> None:
+                total_charges=None) -> None:
     """Load `binned` ((nz, cap) numpy arrays keyed like the JAX package's
-    ``Simulation.binned``), dt and time into the port Simulation `sim`.
-    total_charge, when given, must match the port's beam config."""
+    ``Simulation.binned``, every beam's lanes with their beam_id and spin),
+    dt and time into the port Simulation `sim`. total_charges, when given,
+    holds one total charge per beam in deck order, which must match the
+    port's beam configs."""
     nz = sim.geom.nz
     out = {}
     for k in ALL_ATTRS:
@@ -33,10 +35,12 @@ def carry_state(sim, binned: dict, dt: float, time: float,
                  else torch.bool if k == "valid" else sim.dtype)
         out[k] = torch.as_tensor(a).to(device=sim.device, dtype=dtype)
     out["n_dropped"] = int(np.asarray(binned.get("n_dropped", 0)))
-    if total_charge is not None and sim.beam_cfgs and not np.isclose(
-            sim.beam_cfgs[0].total_charge, total_charge, rtol=1e-12):
-        raise ValueError(f"beam total charge {sim.beam_cfgs[0].total_charge}"
-                         f" differs from the carried {total_charge}")
+    if total_charges is not None:
+        ours = [b.total_charge for b in sim.beam_cfgs]
+        if len(ours) != len(total_charges) or not np.allclose(
+                ours, total_charges, rtol=1e-12, atol=0.0):
+            raise ValueError(f"beam total charges {ours} differ from the "
+                             f"carried {list(total_charges)}")
     sim.binned = out
     sim.beam_cap = out["x"].shape[1]
     sim.dt = float(dt)

@@ -25,6 +25,21 @@ each direction) and hydrogen ions, 1 ppc each, neither with a neutralizing
 background (the ions are the neutralizing charge). It is shaped like the
 reference's ion-motion example (``examples/linear_wake/inputs_ion_motion_SI``:
 electrons and mobile ions, the explicit solver) and is not that file.
+
+``DRIVE_WITNESS`` is the flagship's grid, 1 ppc plasma and explicit solver
+with two beams: the flagship's fixed_weight gaussian beam as the drive and,
+behind it in the wake, a fixed_weight gaussian witness (z = -4.5, sigma_z
+0.3, radius 0.3, density 3, uz = 2000 with a 1% spread) with a quarter of
+the drive's particles, spin tracking from (1, 0, 0) and radiation reaction;
+``hipace.background_density_SI`` (1e24 m^-3) gives radiation reaction its
+plasma frequency. It is shaped like the reference's
+``examples/get_started/inputs_pwfa`` (a drive and a witness beam) and is
+not that file.
+
+``GRID_CURRENT`` is a beam in vacuum with an analytic grid current of the
+same shape as the beam, shaped like the reference's ``grid_current.1Rank``
+checksum case (``examples/beam_in_vacuum/inputs_normalized`` with the grid
+current on: order 0, peak current density 0.2, sigma 0.3 0.3 1.41).
 """
 
 from __future__ import annotations
@@ -139,3 +154,64 @@ def ion_motion_even(nxy: int, nz: int, npart: int, extra: str = "") -> Inputs:
     the flagship's npart."""
     return Inputs(ION_MOTION_EVEN.format(nxy=nxy, nz=nz, npart=npart)
                   + extra)
+
+
+DRIVE_WITNESS = BLOWOUT_WAKE.replace("beams.names = beam\n",
+                                     "beams.names = beam witness\n") + """\
+hipace.background_density_SI = 1e24
+witness.injection_type = fixed_weight
+witness.num_particles = {nwit}
+witness.profile = gaussian
+witness.position_mean = 0. 0. -4.5
+witness.position_std = 0.3 0.3 0.3
+witness.zmin = -5.9
+witness.zmax = -3.
+witness.density = 3.
+witness.u_mean = 0. 0. 2000.
+witness.u_std = 0. 0. 20.
+witness.do_spin_tracking = 1
+witness.initial_spin = 1. 0. 0.
+witness.do_radiation_reaction = 1
+"""
+
+
+def drive_witness(nxy: int, nz: int, npart: int, extra: str = "") -> Inputs:
+    """DRIVE_WITNESS on an nxy^2 x nz grid with an npart-particle drive and
+    an npart // 4 witness, followed by the deck lines in `extra`; full width
+    is nxy = 1023 with the flagship's npart."""
+    return Inputs(DRIVE_WITNESS.format(nxy=nxy, nz=nz, npart=npart,
+                                       nwit=npart // 4) + extra)
+
+
+GRID_CURRENT = """
+amr.n_cell = {nxy} {nxy} {nz}
+hipace.normalized_units = 1
+max_step = 0
+hipace.dt = 1.0
+hipace.depos_order_xy = 0
+boundary.field = Dirichlet
+boundary.particle = Absorbing
+geometry.prob_lo = -8. -8. -6.
+geometry.prob_hi =  8.  8.  6.
+grid_current.use_grid_current = 1
+grid_current.peak_current_density = 0.2
+grid_current.position_mean = 0. 0. 0.
+grid_current.position_std = 0.3 0.3 1.41
+beams.names = beam
+beam.injection_type = fixed_weight
+beam.num_particles = {npart}
+beam.profile = gaussian
+beam.position_mean = 0. 0. 0.
+beam.position_std = 0.3 0.3 1.41
+beam.radius = 1.
+beam.density = 0.2
+beam.u_mean = 0. 0. 2000.
+plasmas.names = no_plasma
+diagnostic.output_period = 0
+"""
+
+
+def grid_current(nxy: int, nz: int, npart: int, extra: str = "") -> Inputs:
+    """GRID_CURRENT on an nxy^2 x nz grid with an npart-particle beam,
+    followed by the deck lines in `extra`."""
+    return Inputs(GRID_CURRENT.format(nxy=nxy, nz=nz, npart=npart) + extra)

@@ -68,6 +68,15 @@ def beam_slice_raw(bp: dict, pc, insitu_radius: float = float("inf")):
     return _moments(rows, w, m)
 
 
+def beams_slice_raw(bp: dict, nbeams: int, pc,
+                    insitu_radius: float = float("inf")):
+    """(nbeams, 23) raw weighted sums of a slice's merged beam lanes, one
+    row per species, its lanes by beam_id (BEAM_ORDER)."""
+    return torch.stack([
+        beam_slice_raw(dict(bp, valid=bp["valid"] & (bp["beam_id"] == b)),
+                       pc, insitu_radius) for b in range(nbeams)])
+
+
 def beam_slice_moments(bp: dict, pc, insitu_radius: float = float("inf")):
     """(23,) raw weighted sums (ref BeamParticleContainer.cpp:511-535)."""
     return beam_slice_raw(bp, pc, insitu_radius)[list(BEAM_ORDER)]

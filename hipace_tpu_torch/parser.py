@@ -379,6 +379,9 @@ class TorchFunction:
         # __import__ must be reachable; the namespace is otherwise restricted
         out = eval(self.expr,  # noqa: S307
                    {"__builtins__": {"__import__": __import__}}, ns)
+        if not torch.is_tensor(out):
+            # a constant: filled on the device, with no copy from the host
+            return torch.full_like(ref, out)
         out = torch.as_tensor(out, dtype=ref.dtype, device=ref.device)
         return torch.broadcast_to(out, ref.shape)
 

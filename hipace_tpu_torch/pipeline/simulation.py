@@ -5,15 +5,17 @@ predictor-corrector Bx/By solvers (ref Hipace.cpp:74-554). One time step
 re-initializes every plasma species (its temperature's draws from the
 simulation's generator; the density table's expression for c*t, chosen by
 ``advance``), deposits the neutralizing background (K1), sweeps the slices
-head to tail through ``SliceStep`` and re-bins the pushed beam. Decks that
-select anything off these paths raise at construction
+head to tail through ``SliceStep`` and re-bins the pushed beams. Every beam
+of the deck is drawn in deck order from the simulation's generator, merged
+(a ``beam_id`` per lane) and binned with one capacity planned on the merged
+lanes. Decks that select anything off these paths raise at construction
 (``unsupported.py``).
 
-Output follows the JAX package: the named field diagnostics and the beam
-(from the binned beam before the step's push) go to openPMD files, the
-in-situ moments to reduced-diagnostics files. The slice step leaves every
-diagnostic on the device; a written step reads each of its buffers back
-once, after the sweep.
+Output follows the JAX package: the named field diagnostics and each beam
+(from the binned beams before the step's push) go to openPMD files, the
+in-situ moments to reduced-diagnostics files, one per beam. The slice step
+leaves every diagnostic on the device; a written step reads each of its
+buffers back once, after the sweep.
 """
 
 from __future__ import annotations
@@ -129,15 +131,25 @@ class Simulation:
             insitu_field_period=inputs.query("fields.insitu_period", 0, int),
             insitu_plasma_period=period("plasmas.insitu_period",
                                         plasma_names),
-            insitu_radius=inputs.query("beams.insitu_radius", float("inf")))
+            insitu_radius=inputs.query("beams.insitu_radius", float("inf")),
+            background_density_SI=inputs.query(
+                "hipace.background_density_SI", 0.0),
+            grid_current=self._grid_current_cfg(inputs))
+        if self.normalized_units and any(
+                b.do_radiation_reaction for b in self.beam_cfgs) \
+                and self.cfg.background_density_SI <= 0.0:
+            raise ValueError("radiation reaction in normalized units needs "
+                             "hipace.background_density_SI for the plasma "
+                             "frequency")
 
         # ---- beam init (flat) + capacity planning + binning
         seed = inputs.query("hipace.random_seed", 0, int)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         if self.beam_cfgs:
-            flat = bm.init_beam(self.beam_cfgs[0], self.geom, self.generator,
-                                self.device, self.dtype, self.pc,
-                                self.normalized_units)
+            flat = bm.merge_beams([
+                bm.init_beam(b, self.geom, self.generator, self.device,
+                             self.dtype, self.pc, self.normalized_units)
+                for b in self.beam_cfgs])
             self.beam_cap = bm.plan_capacity(flat, self.geom)
         else:
             flat = {k: torch.zeros(1, dtype=v.dtype, device=self.device)
@@ -251,6 +263,17 @@ class Simulation:
                      if dg.period != 0 or is_full_interior(dg, g))
         return kept, union, dep_rho, dep_rho_ind
 
+    @staticmethod
+    def _grid_current_cfg(inputs):
+        """grid_current.* (ref utils/GridCurrent.cpp): (peak current
+        density, mean, std) or None."""
+        pp = inputs.prefix("grid_current")
+        if not pp.query("use_grid_current", False, bool):
+            return None
+        return (pp.get("peak_current_density"),
+                tuple(pp.get_list("position_mean")),
+                tuple(pp.get_list("position_std")))
+
     # ------------------------------------------------------------------
     def _time_step(self, binned: dict, time: float, dt: float) -> dict:
         """One full time step: plasma re-init, neutralizing background, the
@@ -279,7 +302,8 @@ class Simulation:
         fields["RhomJzIons"] = {"rhomjz": rhomjz_ion}
 
         carry = {"fields": fields, "plasma": plasmas,
-                 "slip": empty_slip(self.device, self.dtype), "dt": dt}
+                 "slip": empty_slip(self.device, self.dtype), "dt": dt,
+                 "time": torch.tensor(time, **dev)}
         nz = g.nz
         # the sweep's device buffers, one row per slice
         bufs = {}
@@ -298,7 +322,7 @@ class Simulation:
             carry["diag_int"] = int_diags
         if cfg.insitu_beam_period and cfg.beams:
             bufs["insitu_beam"] = torch.empty(
-                (nz, len(ins.BEAM_ORDER)), **dev)
+                (nz, len(cfg.beams), len(ins.BEAM_ORDER)), **dev)
         if cfg.insitu_plasma_period:
             bufs["insitu_plasma"] = torch.empty(
                 (nz, len(self.plasma_cfgs), len(ins.PLASMA_ORDER)), **dev)
@@ -406,12 +430,13 @@ class Simulation:
             return self._insitu_writers[wkey]
 
         if "insitu_beam" in res and step % cfg.insitu_beam_period == 0:
-            (b,) = self.beam_cfgs
-            moments = res["insitu_beam"].cpu().numpy()[:, ins.BEAM_ORDER]
-            rec = ins.beam_record(step, self.time, moments, b.charge, b.mass,
-                                  g, self.normalized_units)
-            writer("beam", b.name, "diags/insitu",
-                   f"{b.name}.insitu_file_prefix").write_record(rec)
+            moments = res["insitu_beam"].cpu().numpy()[..., ins.BEAM_ORDER]
+            for ib, b in enumerate(self.beam_cfgs):
+                rec = ins.beam_record(step, self.time, moments[:, ib],
+                                      b.charge, b.mass, g,
+                                      self.normalized_units)
+                writer("beam", b.name, "diags/insitu",
+                       f"{b.name}.insitu_file_prefix").write_record(rec)
         if "insitu_field" in res and step % cfg.insitu_field_period == 0:
             moments = res["insitu_field"].cpu().numpy() * (
                 g.dx * g.dy * g.dz)
@@ -497,10 +522,12 @@ class Simulation:
         if self.beam_data and self._period_hit(self.beam_output_period,
                                                step):
             valid = pre_binned["valid"].reshape(-1).cpu().numpy()
-            for bcfg in self.beam_cfgs:
+            bid = pre_binned["beam_id"].reshape(-1).cpu().numpy()
+            for ib, bcfg in enumerate(self.beam_cfgs):
                 if bcfg.name not in self.beam_data:
                     continue
-                bout = {k: pre_binned[k].reshape(-1).cpu().numpy()[valid]
+                keep = valid & (bid == ib)
+                bout = {k: pre_binned[k].reshape(-1).cpu().numpy()[keep]
                         for _, k in BEAM_RECORDS}
                 # openPMD momenta are dimensionless gamma*beta (ref
                 # OpenPMDWriter.H:79-95); stored momenta are u*c

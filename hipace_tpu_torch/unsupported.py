@@ -12,7 +12,6 @@ from __future__ import annotations
 
 from .parser import Inputs
 
-BEAM_PATHS = "beam paths"
 ADAPTIVE_DT = "adaptive dt and max_time"
 LASER = "laser"
 IONIZATION = "ionization"
@@ -20,7 +19,7 @@ COLLISIONS = "collisions"
 SALAME = "SALAME"
 MR = "mesh refinement"
 # ROADMAP.md port queue: item title -> item number
-ITEMS = {BEAM_PATHS: 3, ADAPTIVE_DT: 4, LASER: 5, IONIZATION: 6,
+ITEMS = {ADAPTIVE_DT: 4, LASER: 5, IONIZATION: 6,
          COLLISIONS: 7, SALAME: 8, MR: 9}
 
 
@@ -45,11 +44,7 @@ def check_deck(inputs: Inputs) -> None:
         fail("amr.max_level", MR)
     if q("hipace.collisions", "", str):
         fail("hipace.collisions", COLLISIONS)
-    if len(_names(inputs, "beams.names", "no_beam")) > 1:
-        fail("beams.names", BEAM_PATHS)
     if inputs.raw("hipace.dt", "") == "adaptive":
         fail("hipace.dt", ADAPTIVE_DT)
     if inputs.contains("hipace.max_time"):
         fail("hipace.max_time", ADAPTIVE_DT)
-    if q("grid_current.use_grid_current", False, bool):
-        fail("grid_current.use_grid_current", BEAM_PATHS)

@@ -137,7 +137,8 @@ def runs(request, tmp_path_factory):
     tsim = Simulation(TInputs(_deck(beam, tdir)), device="cpu", verbose=0)
     if beam != "fixed_ppc":
         carry_state(tsim, {k: np.array(v) for k, v in jsim.binned.items()},
-                    jsim.dt, jsim.time, jsim.beam_cfgs[0].total_charge)
+                    jsim.dt, jsim.time,
+                    [b.total_charge for b in jsim.beam_cfgs])
     jsim.evolve()
     tsim.evolve()
     return beam, jdir, tdir

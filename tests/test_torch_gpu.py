@@ -382,3 +382,93 @@ def test_even_step_on_the_card_matches_the_cpu(cuda, extra):
         pl.plasma_draws = orig
     assert got["mg_cycles"] == ref["mg_cycles"]
     assert _rel(got["diag"].cpu(), ref["diag"]) < 1e-8
+
+
+# external fields in both forms (E under beams., the witness's own B) with
+# a t dependence, spin_anom from beams.
+BEAM_EXTRA = ("beams.external_E(x,y,z,t) = 0.02*x*(1.+0.1*t) 0.02*y 0.01\n"
+              "witness.external_B(x,y,z,t) = 0.01*y\nbeams.spin_anom = 0.1\n")
+
+
+def _beam_lanes(sim, n, nbeams, seed):
+    """One slice's lanes over the box, some slipped, some dead, resume
+    counters 0-3, species at random, unit spins, as float64 numpy."""
+    rng = np.random.default_rng(seed)
+    g = sim.geom
+    lo = g.prob_lo[2] + 3 * g.dz
+    s = rng.standard_normal((3, n))
+    s = s / np.linalg.norm(s, axis=0)
+    return {"x": rng.uniform(-6, 6, n), "y": rng.uniform(-6, 6, n),
+            "z": rng.uniform(lo - 0.2 * g.dz, lo + g.dz, n),
+            "ux": rng.normal(0, 3, n), "uy": rng.normal(0, 3, n),
+            "uz": 2000 + rng.normal(0, 20, n), "w": rng.uniform(0.5, 1.5, n),
+            "valid": rng.random(n) < 0.9,
+            "nsub": rng.integers(0, 4, n).astype(np.int32),
+            "beam_id": rng.integers(0, nbeams, n).astype(np.int32),
+            "sx": s[0], "sy": s[1], "sz": s[2]}, lo
+
+
+def test_beam_push_on_the_card_matches_the_cpu(cuda):
+    """Both beams of DRIVE_WITNESS pushed through one slice in float64 with
+    external fields, the witness's spin and radiation reaction, on K2
+    against the CPU plain path: within 1e-12, the same lanes and
+    counters."""
+    from hipace_tpu_torch.decks import drive_witness
+    from hipace_tpu_torch.particles import beam as bm
+    from hipace_tpu_torch.pipeline.simulation import Simulation
+    sim = Simulation(drive_witness(31, 8, 1000, BEAM_EXTRA), device="cpu",
+                     verbose=0)
+    wit = sim.beam_cfgs[1]
+    assert wit.do_spin_tracking and wit.do_radiation_reaction
+    assert all(b.use_external_fields for b in sim.beam_cfgs)
+    lanes, min_z = _beam_lanes(sim, 4000, 2, 11)
+    rng = np.random.default_rng(12)
+    NY, NX = sim.geom.slice_shape
+    planes = {k: 0.5 * rng.standard_normal((NY, NX))
+              for k in ("Psi", "Ez", "Bx", "By", "Bz")}
+    out = []
+    for dev in ("cpu", cuda):
+        out.append(bm.advance_all_beams(
+            {k: torch.as_tensor(v, device=dev) for k, v in lanes.items()},
+            {k: torch.as_tensor(v, device=dev) for k, v in planes.items()},
+            sim.geom, sim.beam_cfgs, sim.pc, 1.0, min_z,
+            time=torch.tensor(0.7, dtype=torch.float64, device=dev),
+            background_density_SI=sim.cfg.background_density_SI,
+            external=bm.beam_constants(sim.beam_cfgs, dev,
+                                       torch.float64)["external"]))
+    ref, got = out
+    for k in ("valid", "nsub", "beam_id"):
+        assert torch.equal(got[k].cpu(), ref[k]), k
+    for k in bm.BEAM_ATTRS:
+        assert _rel(got[k].cpu(), ref[k]) < 1e-12, k
+
+
+def test_two_beam_deposit_on_the_card_matches_the_cpu(cuda):
+    """One K1 deposit of jx, jy, jz and rho - jz/c over two beams' lanes,
+    each lane with its species' charge (a proton witness), in float64."""
+    from hipace_tpu_torch.decks import drive_witness
+    from hipace_tpu_torch.particles import beam as bm
+    from hipace_tpu_torch.pipeline.simulation import Simulation
+    sim = Simulation(drive_witness(31, 8, 1000, "witness.element = proton\n"),
+                     device="cpu", verbose=0)
+    assert [b.charge for b in sim.beam_cfgs] == [-1.0, 1.0]
+    lanes, _ = _beam_lanes(sim, 4000, 2, 13)
+    NY, NX = sim.geom.slice_shape
+    names = {"jx": "jx", "jy": "jy", "jz": "jz", "rhomjz": "rhomjz"}
+    out = []
+    for dev in ("cpu", cuda):
+        zero = {v: torch.zeros((NY, NX), dtype=torch.float64, device=dev)
+                for v in names.values()}
+        charges = bm.beam_constants(sim.beam_cfgs, dev,
+                                    torch.float64)["charges"]
+        out.append(bm.deposit_beam_slice(
+            {k: torch.as_tensor(v, device=dev) for k, v in lanes.items()},
+            names, zero, sim.geom, sim.beam_cfgs, sim.pc, 2, True, charges))
+    ref, got = out
+    for k in ("jx", "jy", "jz"):
+        assert _rel(got[k].cpu(), ref[k]) < 1e-12, k
+    # rho - jz/c of a beam at gamma ~2000 is 1 - vz ~ 1e-6 of jz: one ulp
+    # of a lane's vz is ~1e-10 of it, so that channel is held to 1e-12 of
+    # the charge it carries (jz)
+    err = float((got["rhomjz"].cpu() - ref["rhomjz"]).abs().max())
+    assert err < 1e-12 * float(ref["jz"].abs().max())

@@ -166,7 +166,8 @@ def step_case(request):
         jax.effects_barrier()
     tsim = Simulation(TInputs(deck), device="cpu", verbose=0)
     carry_state(tsim, {k: np.array(v) for k, v in jsim.binned.items()},
-                jsim.dt, jsim.time, jsim.beam_cfgs[0].total_charge)
+                jsim.dt, jsim.time,
+                [b.total_charge for b in jsim.beam_cfgs])
     tres = tsim.run_step(0)
     return jres, tres, cycles, tsim
 

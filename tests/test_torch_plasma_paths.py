@@ -107,7 +107,8 @@ def step_case(request, table_path, tmp_path_factory):
     tsim = Simulation(TInputs(_decks(table_path, tdir)[request.param]),
                       device="cpu", verbose=0)
     carry_state(tsim, {k: np.array(v) for k, v in jsim.binned.items()},
-                jsim.dt, jsim.time, jsim.beam_cfgs[0].total_charge)
+                jsim.dt, jsim.time,
+                [b.total_charge for b in jsim.beam_cfgs])
     with pytest.MonkeyPatch.context() as mp:
         queue = list(draws)
         mp.setattr(tpl, "plasma_draws", lambda *a, **k: queue.pop(0))

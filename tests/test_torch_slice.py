@@ -77,7 +77,8 @@ def step_pair():
         jax.effects_barrier()
     tsim = Simulation(TInputs(DECK), device="cpu", verbose=0)
     carry_state(tsim, {k: np.array(v) for k, v in jsim.binned.items()},
-                jsim.dt, jsim.time, jsim.beam_cfgs[0].total_charge)
+                jsim.dt, jsim.time,
+                [b.total_charge for b in jsim.beam_cfgs])
     tres = tsim.run_step(0)
     # a second step from each package's own pushed beam
     jsim.binned, jsim.time = jres["binned"], jsim.time + jsim.dt
@@ -177,7 +178,8 @@ def test_si_units_step_matches():
     jres = jsim.run_step(0)
     tsim = Simulation(TInputs(SI_DECK), device="cpu", verbose=0)
     carry_state(tsim, {k: np.array(v) for k, v in jsim.binned.items()},
-                jsim.dt, jsim.time, jsim.beam_cfgs[0].total_charge)
+                jsim.dt, jsim.time,
+                [b.total_charge for b in jsim.beam_cfgs])
     tres = tsim.run_step(0)
     ref, got = np.asarray(jres["diag"]), tres["diag"].numpy()
     for i, comp in enumerate(DIAG_COMPS):
@@ -215,19 +217,19 @@ def test_tpu_tuning_keys_are_noops():
 
 
 @pytest.mark.parametrize("extra,item", [
-    ("beams.names = beam beam2", "beam paths"),
+    ("plasma.ionization_product = ions", "ionization"),
     ("hipace.max_time = 10.", "adaptive dt and max_time"),
     ("lasers.names = laser", "laser"),
     ("amr.max_level = 1", "mesh refinement"),
     ("beam.do_salame = 1", "SALAME"),
     ("plasma.initial_ion_level = 1", "ionization"),
     ("hipace.collisions = c1", "collisions"),
-    ("beam.do_spin_tracking = 1", "beam paths"),
+    ("plasma.fine_ppc = 2 2", "mesh refinement"),
     ("hipace.dt = adaptive", "adaptive dt and max_time"),
-    ("beam.do_radiation_reaction = 1", "beam paths"),
-    ("grid_current.use_grid_current = 1", "beam paths"),
+    ("plasma.fine_patch(x,y) = x*x + y*y < 1.", "mesh refinement"),
+    ("plasma.fine_transition_cells = 5", "mesh refinement"),
     ("plasma.can_ionize = 1", "ionization"),
-    ("beam.profile = flattop", "beam paths"),
+    ("lasers.names = laser1 laser2", "laser"),
 ])
 def test_unsupported_keys_raise(extra, item):
     """Each refusal names its port-queue item by number and title."""

@@ -1,15 +1,16 @@
 """Where the time of one time step of the PyTorch/CUDA port goes, on a GPU.
 
-    python3 tools/profile_torch_step.py [--deck flagship|pdf|pc|even]
+    python3 tools/profile_torch_step.py [--deck flagship|pdf|pc|even|witness]
         [--insitu] [--xz] [--nxy 1023] [--nz 64] [--steps 2]
 
 Runs a deck of ``hipace_tpu_torch.decks`` (the flagship blowout wake, its
 fixed_weight_pdf variant, its predictor-corrector variant with open
-boundaries, or the two-species ION_MOTION_EVEN at an even size, 1024^2 by
-default, with the flagship's beam) in float32 on ``cuda``: one warm-up step,
-``--steps`` timed steps on the host clock, then one step under
-``torch.profiler``. It prints the device time and launch count per slice of
-each group of device activities (the port's kernels K1-K3, PyTorch
+boundaries, the two-species ION_MOTION_EVEN at an even size, 1024^2 by
+default, with the flagship's beam, or DRIVE_WITNESS, the flagship with a
+second, spin-tracked and radiating witness beam) in float32 on ``cuda``:
+one warm-up step, ``--steps`` timed steps on the host clock, then one step
+under ``torch.profiler``. It prints the device time and launch count per
+slice of each group of device activities (the port's kernels K1-K3, PyTorch
 elementwise kernels, copies, FFT, the rest), the device-to-host copies per
 slice (each one a wait of the host for the device), the busiest kernels, and
 the busy share: profiled device time per slice over the unprofiled wall time
@@ -81,7 +82,8 @@ def device_activities(prof):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--deck", choices=("flagship", "pdf", "pc", "even"),
+    ap.add_argument("--deck", choices=("flagship", "pdf", "pc", "even",
+                                       "witness"),
                     default="flagship")
     ap.add_argument("--insitu", action="store_true",
                     help="in-situ beam, plasma and field records every step")
@@ -98,8 +100,8 @@ def main() -> int:
         print("no CUDA device", file=sys.stderr)
         return 3
 
-    from hipace_tpu_torch.decks import (blowout_wake, ion_motion_even,
-                                        pc_open, pdf_beam)
+    from hipace_tpu_torch.decks import (blowout_wake, drive_witness,
+                                        ion_motion_even, pc_open, pdf_beam)
     from hipace_tpu_torch.pipeline.simulation import Simulation
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -121,12 +123,14 @@ def main() -> int:
             f"{out}/{name}_insitu\n"
             for key, name in (("beams", "beam"), ("plasmas", "plasma"),
                               ("fields", "fields")))
+        extra += f"witness.insitu_file_prefix = {out}/witness_insitu\n"
     if args.xz:
         extra += ("diagnostic.output_period = 1\ndiagnostic.diag_type = xz\n"
                   "diagnostic.field_data = all rho\n"
                   "diagnostic.beam_output_period = 0\n")
     deck = {"flagship": blowout_wake, "pdf": pdf_beam,
-            "pc": pc_open, "even": ion_motion_even}[args.deck]
+            "pc": pc_open, "even": ion_motion_even,
+            "witness": drive_witness}[args.deck]
     sim = Simulation(deck(args.nxy, args.nz, npart, extra), device="cuda",
                      dtype=torch.float32, verbose=0)
     write_s = []
