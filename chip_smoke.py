@@ -63,8 +63,27 @@ DRIVE_WITNESS at 1023^2 x 64 in float32 for one warm-up and two timed
 steps: the K1/K2/K3 launches against the slice structure with two beam
 species (K2 1 + 10 + 10 per slice), finite fields, each beam's count
 conserved, the witness's |s| within 1e-5 of 1, and K2 held against its
-plain version on the witness path's own beam lanes. It imports nothing but
-the port.
+plain version on the witness path's own beam lanes.
+
+The laser and adaptive dt: K3's complex path (the laser envelope's solve)
+against its plain version in float32 and float64, node-centered at 1023^2
+with the laser's own acf (a chi plane plus an imaginary scalar), 255^2 and
+63 x 31, cell-centered at 1024^2, 96 x 64 and 32^2, equal V-cycle counts,
+the full-width solves timed beside a real C = 2 solve; "laser, small", two
+63^2 x 16 float64 steps of ``hipace_tpu_torch.decks.LASER_WAKE`` on both
+laser solvers and both Bx/By solvers with laser_diag output and in-situ
+laser records, on the card against the CPU (fields and envelope within
+1e-8, real and complex V-cycles and PC iterations equal on every slice,
+every output file within 1e-8); the laser path, LASER_WAKE at 1023^2 x 64
+in float32 for one warm-up and two timed steps: the launches of K1, K2 and
+real and complex K3 against the slice structure, the envelope finite, the
+peak |a| of step 0 within 5% of a0, the host's reads per slice, the laser's
+own time per slice, and the same deck's first step in float64 for its
+V-cycles; "adaptive dt, small", ``ADAPTIVE_VACUUM`` at 32^2 x 32 float64
+for 20 steps on the card against the CPU (the dt sequence equal to 1e-12,
+landing on max_time, then a dt = 0 step); and the flagship with
+``hipace.dt = adaptive`` at 1023^2 x 16, its dt per step and its host reads
+against a fixed-dt step. It imports nothing but the port.
 
 Beside each kernel's time (CUDA events around calls queued behind a device
 sleep) it prints the kernel's bound: the least time the card could take, the
@@ -1220,6 +1239,476 @@ def witness_path(torch, counts, results):
                              "launch counts wrong")
 
 
+# ------------------------------------------------------- the laser, adaptive dt
+# complex K3: (ny, nx) grids; the first of each convention is timed
+K3C_GRIDS = ((1023, 1023), (255, 255), (31, 63), (1024, 1024), (64, 96),
+             (32, 32))
+LASER_NZ = 64
+LASER_BOX = ("geometry.prob_lo = -10. -10. -7.5\n"
+             "geometry.prob_hi = 10. 10. 6.\n")
+# "laser, small": (label, deck lines); both laser solvers, both Bx/By
+# solvers. The predictor-corrector runs in a (-10..10)^2 box: in
+# LASER_WAKE's own (-20..20)^2 box at 63^2 its loop runs 30 iterations on
+# every slice and its fields depend on the last bits of a0 (the JAX
+# package's as the port's), so no two runs can agree there
+LASER_VARIANTS = (
+    ("explicit + multigrid", ""),
+    ("predictor-corrector + FFT, (-10..10)^2 box",
+     "hipace.bxby_solver = predictor-corrector\nlasers.solver_type = fft\n"
+     + LASER_BOX),
+)
+LASER_OUTPUT = """
+max_step = 1
+diagnostic.output_period = 1
+hipace.openpmd_backend = json
+diagnostic.names = lev0 laser_diag
+lev0.field_data = all
+lasers.insitu_period = 1
+"""
+
+
+def laser_acf(torch, mg, gen, dtype):
+    """The laser's multigrid system on mg's grid as LaserAdvance builds it
+    for LASER_WAKE (c = 1, dt = 1, dz = 13.5 / 64, lambda0 0.8e-6 in the
+    deck's units, djn = 0): a random complex rhs and first guess, the real
+    plane chi + 3 / (c dt dz) + 2 / (c dt)^2 with a plasma chi of ~1, and
+    the imaginary scalar -2 k0 / (c dt) as a 0-d device tensor."""
+    import math
+    ny, nx = mg.shapes[0]
+    ctype = torch.complex64 if dtype == torch.float32 else torch.complex128
+    rhs = torch.randn((ny, nx), generator=gen, device="cuda", dtype=ctype)
+    u0 = 0.5 * torch.randn((ny, nx), generator=gen, device="cuda",
+                           dtype=ctype)
+    chi = 1.0 + 0.2 * torch.rand((ny, nx), generator=gen, device="cuda",
+                                 dtype=dtype)
+    dz = 13.5 / LASER_NZ
+    acf_r = 3.0 / dz + 2.0 + chi
+    ai = torch.tensor(-2.0 * 2.0 * math.pi / 0.8e-6, device="cuda",
+                      dtype=dtype)
+    return u0, rhs, (acf_r, torch.complex(torch.zeros_like(ai), ai)), chi
+
+
+@phase("K3 complex")
+def k3_complex_phase(torch, results):
+    """Complex K3 (the laser envelope's solve) against solve_plain on the
+    card, float32 and float64, node-centered (1023^2 with the laser's own
+    acf, 255^2, 63 x 31) and cell-centered (1024^2, 96 x 64, 32^2), at the
+    laser's tolerance 1e-4 and at 1e-9; equal V-cycle counts; the two
+    full-width solves timed, beside a real C = 2 solve on the same grid."""
+    from hipace_tpu_torch.fields.multigrid import MultiGrid
+    from hipace_tpu_torch.ops.mg_kernel import mg_solve
+    dx = dy = 40.0 / 1024
+    for dtype in (torch.float32, torch.float64):
+        name = str(dtype).split(".")[1]
+        for i, (ny, nx) in enumerate(K3C_GRIDS):
+            mg = MultiGrid(nx, ny, dx, dy, device="cuda", dtype=dtype)
+            gen = torch.Generator(device="cuda").manual_seed(20 + i)
+            u0, rhs, acf, chi = laser_acf(torch, mg, gen, dtype)
+            for tol_rel in (1e-4, 1e-9):
+                kw = {"tol_rel": tol_rel, "max_iters": 40}
+                before = mg_solve.complex_launches
+                got, cycles, _ = mg_solve(mg, u0, rhs, acf, **kw)
+                cycles = int(cycles)
+                ref = mg.solve_plain(u0, rhs, acf, **kw)
+                plain_cycles = mg.last_cycles
+                torch.cuda.synchronize()
+                err = float((got - ref).abs().max())
+                rel = err / float(ref.abs().max())
+                ok = (rel <= CC_TOL[name] and cycles == plain_cycles
+                      and mg_solve.complex_launches == before + 1)
+                print(f"K3 complex {name} "
+                      f"{'cell' if mg.cell_centered else 'node'}-centered "
+                      f"on {ny}x{nx}, {mg.nlevels} levels, tol_rel "
+                      f"{tol_rel:g}: V-cycles {cycles} (plain "
+                      f"{plain_cycles}); max abs err {err:.3e}, / max "
+                      f"{rel:.3e} (tol {CC_TOL[name]:g}) "
+                      f"{'ok' if ok else 'FAIL'}", flush=True)
+                if not ok:
+                    raise AssertionError(f"K3 complex {name} {ny}x{nx}: "
+                                         "outside tolerance or V-cycle "
+                                         "counts differ")
+            if i not in (0, 3):
+                continue
+            kw = {"tol_rel": 1e-4, "max_iters": 40}
+            got, cycles, _ = mg_solve(mg, u0, rhs, acf, **kw)
+            cycles = int(cycles)
+            ms = cuda_ms(lambda: mg_solve(mg, u0, rhs, acf, **kw), reps=10)
+            plain_ms = cuda_ms(lambda: mg.solve_plain(u0, rhs, acf, **kw),
+                               reps=2)
+            # the real C = 2 solve on the same grid and the real acf plane,
+            # run for the same number of V-cycles
+            real_rhs = torch.stack([rhs.real, rhs.imag]).contiguous()
+            real_kw = {"tol_rel": 0.0, "max_iters": max(cycles, 1)}
+            real_ms = cuda_ms(lambda: mg_solve(
+                mg, torch.zeros_like(real_rhs), real_rhs, acf[0],
+                **real_kw), reps=10)
+            key = "K3 complex" + (" CC" if mg.cell_centered else "")
+            print(f"{key} {name} {ny}x{nx} solve: kernel {ms:.3f} ms for "
+                  f"{cycles} V-cycles ({ms / max(cycles, 1):.4f} per "
+                  f"V-cycle), plain {plain_ms:.3f} ms; the real C=2 solve "
+                  f"on the same grid {real_ms:.3f} ms for "
+                  f"{real_kw['max_iters']} V-cycles "
+                  f"({real_ms / real_kw['max_iters']:.4f} per V-cycle); "
+                  f"{CARD['line']}", flush=True)
+            # u0 and rhs (two planes each), the acf's real plane and its
+            # imaginary scalar in, u (two planes) out; per V-cycle and cell
+            # of every level ~4 complex half-sweeps of 16 operations, the
+            # residual (18) and the transfers (10)
+            size = torch.empty((), dtype=dtype).element_size()
+            cells = sum(h * w for h, w in mg.shapes)
+            b_ms, by = bound_line(key, name, ms, size * (7 * ny * nx + 1),
+                                  cycles * cells * (16 * 4 + 18 + 10), size)
+            results[(key, name)] = (err, ms, plain_ms, b_ms, by)
+
+
+def sync_counted(torch, fn):
+    """fn() and the host's synchronizing reads of the device during it,
+    counted through the sync debug mode's warnings."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def all_files(folder):
+    return sorted(p for p in folder.rglob("*") if p.is_file())
+
+
+@phase("laser, small")
+def laser_small_phase(torch):
+    """Two 63^2 x 16 float64 steps of LASER_WAKE per LASER_VARIANTS on the
+    kernels against the same steps on the CPU plain path, each writing
+    openPMD files (json; lev0 with every field and laser_diag,
+    laserEnvelope included) and in-situ laser records: each field of the
+    stack and the laser stream within 1e-8, real
+    and complex V-cycles and PC iterations equal on every slice, every
+    output file within 1e-8."""
+    import shutil
+    from hipace_tpu_torch.decks import laser_wake
+    from hipace_tpu_torch.pipeline.simulation import Simulation
+    bad = []
+    for i, (label, extra) in enumerate(LASER_VARIANTS):
+        sims, res = {}, {}
+        for dev in ("cpu", "cuda"):
+            folder = OUT / f"laser_small_{i}_{dev}"
+            shutil.rmtree(folder, ignore_errors=True)
+            sims[dev] = Simulation(laser_wake(
+                SMALL_NXY, SMALL_NZ, 0, extra + LASER_OUTPUT
+                + f"hipace.file_prefix = {folder}/openpmd\n"
+                + f"lasers.insitu_file_prefix = {folder}/laser_insitu\n"),
+                device=dev, dtype=torch.float64, verbose=0)
+            res[dev] = []
+            for step in range(2):
+                sims[dev].set_dt()
+                res[dev].append(sims[dev].advance(step))
+        # each field of the lev0 stack (field_data = all) on its own scale
+        rel, srel, same = 0.0, 0.0, True
+        comps = sims["cpu"].cfg.diag_comps
+        for ref, got in zip(res["cpu"], res["cuda"]):
+            d_ref, d_got = ref["diag"], got["diag"].cpu()
+            per = ((d_got - d_ref).abs().amax(dim=(0, 2, 3))
+                   / d_ref.abs().amax(dim=(0, 2, 3)).clamp_min(1e-300))
+            rel = max(rel, float(per.max()))
+            for k in (0, 1):
+                s_ref = ref["laser_stream"][k]
+                srel = max(srel, float(
+                    (got["laser_stream"][k].cpu() - s_ref).abs().max()
+                    / s_ref.abs().max()))
+            for key in ("mg_cycles", "laser_cycles", "pc_iters"):
+                same = same and got[key] == ref[key]
+        files = {dev: all_files(OUT / f"laser_small_{i}_{dev}")
+                 for dev in sims}
+        names = [f.relative_to(OUT / f"laser_small_{i}_cpu")
+                 for f in files["cpu"]]
+        worst = [0.0, ""]
+        if [f.relative_to(OUT / f"laser_small_{i}_cuda")
+                for f in files["cuda"]] != names or len(names) != 3:
+            raise AssertionError(f"the runs wrote different files: {files}")
+        # the first |a|^2 moments in x and y cancel over the symmetric
+        # pulse: they are held on the scale of the sum of |a|^2 times the
+        # box's half width
+        g = sims["cpu"].geom
+        half = max(abs(v) for v in g.prob_lo[:2] + g.prob_hi[:2])
+        for got_f, ref_f in zip(files["cuda"], files["cpu"]):
+            if got_f.suffix == ".json":
+                compare_tree(json.loads(got_f.read_text()),
+                             json.loads(ref_f.read_text()), got_f.name,
+                             worst)
+                continue
+            got_r, ref_r = read_insitu(got_f), read_insitu(ref_f)
+            first = ("[|a|^2*x]", "[|a|^2*y]")
+            for k in ref_r.dtype.names:
+                if k not in first:
+                    compare_tree(got_r[k], ref_r[k], f"{got_f.name}[{k}]",
+                                 worst)
+            scale = half * float(abs(ref_r["[|a|^2]"]).max())
+            for k in first:
+                mrel = float(abs(got_r[k] - ref_r[k]).max()) / scale
+                if mrel > worst[0]:
+                    worst[:] = [mrel, f"{got_f.name}[{k}] (/ half width x "
+                                      "sum |a|^2)"]
+        last = res["cuda"][-1]
+        ok = rel < 1e-8 and srel < 1e-8 and same and worst[0] < 1e-8
+        print(f"laser, small: {SMALL_NXY}^2 x {SMALL_NZ} float64 LASER_WAKE "
+              f"{label}, 2 steps, kernels vs CPU plain path: fields "
+              f"({len(comps)}: {' '.join(comps)}) max rel err {rel:.3e} (each "
+              f"on its own max), envelope {srel:.3e}, {len(names)} files "
+              f"({', '.join(map(str, names))}) worst {worst[0]:.3e} "
+              f"({worst[1]}) (tol 1e-8); real V-cycles, complex V-cycles "
+              f"and PC iterations per slice equal {same} (last step: "
+              f"{last['mg_cycles']}, {last['laser_cycles']}, "
+              f"{last['pc_iters']}) {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            bad.append(label)
+    if bad:
+        raise AssertionError(f"laser small step mismatch: {bad}")
+
+
+@phase("laser path")
+def laser_path(torch, counts, results):
+    """LASER_WAKE at 1023^2 x 64 in float32: one warm-up step, in which the
+    host's reads of the device are counted, and two timed steps; the
+    launches of K1, K2, real and complex K3 against the slice structure,
+    finite fields and envelope, the peak |a| of step 0 within 5% of a0; the
+    laser's time per slice from its own calls; step 0 against the same step
+    in float64 and in float32 on the plain versions."""
+    import math
+    from hipace_tpu_torch.decks import laser_wake
+    from hipace_tpu_torch.ops.deposit import deposit
+    from hipace_tpu_torch.ops.gather import gather_laser_aabs, gather_main
+    from hipace_tpu_torch.ops.mg_kernel import mg_solve
+    from hipace_tpu_torch.pipeline.simulation import Simulation
+    sim = Simulation(laser_wake(NXY, LASER_NZ), device="cuda",
+                     dtype=torch.float32, verbose=0)
+    g = sim.geom
+    a0 = sim.laser_cfg.pulses[0].a0
+    steps = 3
+    for fn in (deposit, gather_main, mg_solve):
+        fn.launches = 0
+    mg_solve.complex_launches = 0
+    times, peaks, copies = [], [], None
+    for step in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if step == 0:
+            res, copies = sync_counted(torch, lambda: sim.run_step(0))
+        else:
+            res = sim.run_step(step)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        sim.time += sim.dt
+        n00, np1 = res["laser_stream"][1], res["laser_stream"][0]
+        if step == 0:       # held against the float64 step below
+            diag0, env0 = res["diag"].clone(), np1.clone()
+        finite = (bool(torch.isfinite(res["diag"]).all())
+                  and bool(torch.isfinite(torch.view_as_real(np1)).all()))
+        peaks.append(float(n00.abs().max()))
+        cyc, lcyc = res["mg_cycles"], res["laser_cycles"]
+        print(f"laser path step {step}: fields {tuple(res['diag'].shape)} "
+              f"and envelope {tuple(np1.shape)} finite {finite}, peak |a| "
+              f"{peaks[-1]:.6f} (a0 {a0}), real V-cycles per slice "
+              f"{min(cyc)}-{max(cyc)} (mean {sum(cyc) / len(cyc):.3f}, "
+              f"{sum(c == 40 for c in cyc)} slices at max_iters 40), "
+              f"complex {min(lcyc)}-{max(lcyc)} (mean "
+              f"{sum(lcyc) / len(lcyc):.3f})", flush=True)
+        if not finite:
+            raise AssertionError("non-finite fields or envelope")
+    counts.update({"K1": deposit.launches, "K2": gather_main.launches,
+                   "K3": mg_solve.launches,
+                   "K3 complex": mg_solve.complex_launches})
+    pcfg = sim.plasma_cfgs[0]
+    per_step = {"K1": int(pcfg.neutralize_background) + g.nz,
+                "K2": g.nz * pcfg.n_subcycles, "K3": g.nz,
+                "K3 complex": g.nz}
+    for k, count in counts.items():
+        print(f"laser path launches {k}: {count} (slice structure predicts "
+              f"{per_step[k] * steps}: per slice one plasma deposit, push "
+              f"and Bx/By solve and one envelope solve; no beam)",
+              flush=True)
+    slices = g.nz * (steps - 1)
+    t_step = sum(times[1:])
+    print(f"laser path {NXY}^2 x {g.nz} float32, {sim.laser_geom.slice_shape}"
+          f" complex envelope, no beam: {slices / t_step:.3f} slices/s, "
+          f"{1e3 * t_step / slices:.3f} ms/slice over {steps - 1} timed "
+          f"steps after 1 warm-up; per timed step "
+          + ", ".join(f"{g.nz / t:.3f}" for t in times[1:])
+          + f"; {CARD['line']}", flush=True)
+    print(f"laser path device-to-host copies per slice (synchronizing reads, "
+          f"warm-up step): {copies / g.nz:.3f} (the flagship's: the beam's "
+          f"2.05; the laser adds none)", flush=True)
+    # the laser's own device work per slice, each part timed alone on the
+    # path's shapes: the advance (its complex K3 solve apart) and the |a|^2
+    # gathers of the deposit and of the push on the plasma's lanes
+    st = sim.slice_step
+    lg = sim.laser_geom
+    state = {k: res["laser_stream"][1][g.nz // 2] for k in
+             ("n00j00", "n00jp1", "n00jp2", "nm1j00", "nm1jp1", "nm1jp2",
+              "np1jp1", "np1jp2")}
+    chi = torch.ones(lg.slice_shape, device="cuda")
+    adv_ms = cuda_ms(lambda: st.laser_advance(state, chi, sim.dt, 1))
+    p = sim.plasma_cfgs[0]
+    from hipace_tpu_torch.particles.plasma import init_plasma
+    lanes = init_plasma(p, g, "cuda", torch.float32)
+    aabs = torch.abs(state["n00j00"]) ** 2
+    gat_ms = cuda_ms(lambda: gather_laser_aabs(lanes["x"], lanes["y"], aabs,
+                                               g, 2))
+    laser_ms = adv_ms + 2 * gat_ms
+    print(f"laser path, the laser's device time per slice: advance "
+          f"{adv_ms:.3f} ms (with its complex K3 solve), |a|^2 gather "
+          f"{gat_ms:.3f} ms x 2 (deposit and push) = {laser_ms:.3f} ms, "
+          f"{100 * laser_ms / (1e3 * t_step / slices):.1f}% of the wall "
+          f"time per slice; {CARD['line']}", flush=True)
+    print(f"laser path real V-cycles per slice of the last step, head "
+          f"first: {res['mg_cycles']}", flush=True)
+    sim_comps = sim.cfg.diag_comps
+    del res, sim
+    torch.cuda.empty_cache()
+    # the same deck's first step in float64, and in float32 on the plain
+    # versions (the JAX package's arithmetic) on the card: whether the Bx/By
+    # solves that run to max_iters in float32 do so in float64, and the
+    # float32 kernel step held against both. The float32 stopping target
+    # lies within the rounding floor of a float32 residual there
+    # (tools/laser_f32_solve.py: the JAX package's float32 solve stalls so
+    # at 511^2), and float32 moves this deck's fields by up to 35% of their
+    # max at 1023^2, the plain versions as much as the kernels. So the
+    # kernel step must lie (1) within 1e-2 of the plain float32 step in
+    # every field's checksum sum|f| (tests/test_f32_physics.py's measure),
+    # (2) no farther from float64 than twice the plain float32 step's
+    # max|d| / max|f64|, field by field, and (3) within 5e-2 of float64 in
+    # every checksum; the advanced envelope within 1e-4 (the envelope
+    # solve's tol_rel) of float64 and of the plain step.
+    def step0(dtype, plain=False):
+        from hipace_tpu_torch.ops import cuda_lib
+        kernel_rule = cuda_lib.use_kernel
+        if plain:
+            cuda_lib.use_kernel = lambda tensor: False
+        try:
+            run = Simulation(laser_wake(NXY, LASER_NZ), device="cuda",
+                             dtype=dtype, verbose=0).run_step(0)
+        finally:
+            cuda_lib.use_kernel = kernel_rule
+        return (run["diag"].double(), run["laser_stream"][0].to(
+            torch.complex128), run["mg_cycles"])
+
+    d64, e64, cyc64 = step0(torch.float64)
+    print(f"laser path in float64, step 0: real V-cycles per slice, head "
+          f"first: {cyc64} (mean {sum(cyc64) / len(cyc64):.3f})",
+          flush=True)
+    dp, ep, cycp = step0(torch.float32, plain=True)
+    print(f"laser path in float32 on the plain versions, step 0: real "
+          f"V-cycles per slice, head first: {cycp}", flush=True)
+
+    def checksum(a, b):
+        sa, sb = float(a.abs().sum()), float(b.abs().sum())
+        return abs(sa - sb) / sb if sb else sa
+
+    def pointwise(a, b):
+        top = float(b.abs().max())
+        d = float((a - b).abs().max())
+        return d / top if top else d
+
+    drift, f32_ok = [], True
+    for i, c in enumerate(sim_comps):
+        k, p, r = diag0[:, i].double(), dp[:, i], d64[:, i]
+        cs_kp, cs_k = checksum(k, p), checksum(k, r)
+        pt_k, pt_p = pointwise(k, r), pointwise(p, r)
+        f32_ok = (f32_ok and cs_kp <= 1e-2 and cs_k <= 5e-2
+                  and pt_k <= 2 * pt_p + 1e-12)
+        drift.append(f"{c} {cs_kp:.2e} {cs_k:.2e}/{pt_k:.2e} ({pt_p:.2e})")
+    env = pointwise(env0.to(e64.dtype), e64)
+    env_p = pointwise(env0.to(e64.dtype), ep)
+    f32_ok = f32_ok and env <= 1e-4 and env_p <= 1e-4
+    print(f"laser path step 0 in float32 on the kernels, per field: checksum "
+          f"against the plain float32 step, checksum against float64 / "
+          f"max|d| / max|f64| (the plain float32 step's): {', '.join(drift)};"
+          f" advanced envelope max|d| / max against float64 {env:.3e}, "
+          f"against the plain step {env_p:.3e}; tolerances 1e-2, 5e-2, twice "
+          f"the plain step's, 1e-4 {'ok' if f32_ok else 'FAIL'}", flush=True)
+    del d64, e64, dp, ep, diag0, env0
+    torch.cuda.empty_cache()
+    ok = (all(c == per_step[k] * steps for k, c in counts.items())
+          and abs(peaks[0] - a0) <= 0.05 * a0
+          and copies / g.nz <= 0.1 and math.isfinite(laser_ms) and f32_ok)
+    if not ok:
+        raise AssertionError("laser path: launch counts, peak |a|, host "
+                             "reads or float32 against float64 wrong")
+
+
+@phase("adaptive dt, small")
+def adaptive_small_phase(torch):
+    """ADAPTIVE_VACUUM at 32^2 x 32 float64 through the time loop for 20
+    steps on the kernels and on the CPU plain path: equal dt sequences to
+    1e-12, landing on max_time, then one step with dt = 0."""
+    from hipace_tpu_torch.decks import adaptive_vacuum
+    from hipace_tpu_torch.pipeline.simulation import Simulation
+    dts = {}
+    for dev in ("cpu", "cuda"):
+        sim = Simulation(adaptive_vacuum(32, 32, 20, 80.0), device=dev,
+                         dtype=torch.float64, verbose=0)
+        dts[dev] = []
+        for step in range(sim.max_step + 1):
+            sim.set_dt()
+            dts[dev].append(sim.dt)
+            sim.advance(step, write_output=False)
+            if sim._has_last_step:
+                break
+        dts[dev + " time"] = sim.time
+    ref, got = dts["cpu"], dts["cuda"]
+    rel = max(abs(a - b) / max(abs(b), 1e-300) for a, b in zip(got, ref))
+    ok = (len(got) == len(ref) == 20 and rel <= 1e-12 and got[-1] == 0.0
+          and dts["cuda time"] == 80.0)
+    print(f"adaptive dt, small: 32^2 x 32 float64 ADAPTIVE_VACUUM, "
+          f"{len(got)} steps on the card (CPU {len(ref)}), dt max rel err "
+          f"{rel:.3e} (tol 1e-12), time at the end {dts['cuda time']!r} "
+          f"(max_time 80.0), dt per step {', '.join(f'{d:.9g}' for d in got)}"
+          f" {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("adaptive dt sequence mismatch")
+
+
+@phase("adaptive flagship")
+def adaptive_flagship(torch):
+    """The flagship deck with hipace.dt = adaptive at 1023^2 x 16 float32,
+    three steps through the time loop: dt per step and the host's reads of
+    the device in each step, against one step of the same deck at a fixed
+    dt: adaptive dt may add the one read of the step's moments, no read per
+    slice."""
+    from hipace_tpu_torch.decks import blowout_wake
+    from hipace_tpu_torch.pipeline.simulation import Simulation
+    nz = 16
+
+    def deck(extra):
+        return blowout_wake(NXY, nz, NXY * NXY * 10 * nz // 1000, extra)
+
+    fixed = Simulation(deck(""), device="cuda", dtype=torch.float32,
+                       verbose=0)
+    _, base = sync_counted(torch, lambda: fixed.advance(0, False))
+    del fixed
+    sim = Simulation(deck("hipace.dt = adaptive\n"), device="cuda",
+                     dtype=torch.float32, verbose=0)
+    lines, worst = [], 0
+    for step in range(3):
+        sim.set_dt()
+        dt = sim.dt
+        _, copies = sync_counted(
+            torch, lambda: sim.advance(step, write_output=False))
+        worst = max(worst, copies)
+        lines.append(f"step {step} dt {dt:.9g}, {copies} reads "
+                     f"({copies / nz:.3f} per slice)")
+    ok = worst <= base + 1 and sim.dt > 0
+    print(f"adaptive flagship {NXY}^2 x {nz} float32: " + "; ".join(lines)
+          + f"; next dt {sim.dt:.9g}; at a fixed dt {base} reads "
+          f"({base / nz:.3f} per slice: the beam's 2 per slice and the "
+          f"step's own) {'ok' if ok else 'FAIL'}; {CARD['line']}",
+          flush=True)
+    if not ok:
+        raise AssertionError("adaptive flagship: host reads or dt wrong")
+
+
 def read_insitu(path):
     """An in-situ file's records: a JSON dtype header, then the records."""
     import numpy as np
@@ -1487,6 +1976,14 @@ def main() -> int:
     beam_small_phase(torch)
     witness_counts: dict = {}
     witness_path(torch, witness_counts, results)
+    torch.cuda.empty_cache()
+    k3_complex_phase(torch, results)
+    laser_small_phase(torch)
+    laser_counts: dict = {}
+    laser_path(torch, laser_counts, results)
+    torch.cuda.empty_cache()
+    adaptive_small_phase(torch)
+    adaptive_flagship(torch)
 
     if failures:
         print(f"chip_smoke FAILED phases: {failures}", file=sys.stderr)
@@ -1509,7 +2006,10 @@ def main() -> int:
                  "Poisson, C=3)", even_counts["K3 MGDirichlet"]),
                 ("K2", "K2 witness beam",
                  "K2 gather_main, witness path (drive and witness beam "
-                 "subcycles)", witness_counts["K2 beam"])]
+                 "subcycles)", witness_counts["K2 beam"]),
+                ("K3", "K3 complex",
+                 "K3 mg_solve, laser path (complex envelope, "
+                 "node-centered)", laser_counts["K3 complex"])]
     for k, key, label, launches in entries:
         _, source, replaces = KERNELS[k]
         err, ms, plain_ms, bound_ms, bound_by = results[(key, "float32")]

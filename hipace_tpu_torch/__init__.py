@@ -6,7 +6,8 @@ hand-written CUDA C++ kernels for sm_90a (``csrc/``):
 
 - K1 particle deposit (``ops/deposit.py``),
 - K2 fused main-fields gather (``ops/gather.py``),
-- K3 multigrid Bx/By solve (``ops/mg_kernel.py``).
+- K3 multigrid solve (``ops/mg_kernel.py``): Bx/By, real, and the laser
+  envelope's complex system.
 
 Each kernel has a plain PyTorch version beside it. CPU tensors take the
 plain version; CUDA tensors launch the kernel or raise. A run is on the card

@@ -1,20 +1,28 @@
 // K3: geometric multigrid for Laplacian(u) - acf*u = rhs with Dirichlet
-// boundaries, C channels sharing one acf (Bx, By).
+// boundaries, C channels sharing one acf: real (Bx, By; hpmg solve1) or
+// complex (the laser envelope; hpmg solve2).
 //
 // Replaces the TPU kernel _mg_kernel driven by FusedMG.solve
 // (hipace_tpu/ops/pallas_mg.py:62-249), held to the XLA path of
 // MultiGrid.solve (hipace_tpu/fields/multigrid.py:80-296): red-black
 // Gauss-Seidel (red = (ix+iy) even first, nu1/nu2 sweeps, nu1 + 8 on the
 // coarsest level), prolongation 2R^T per dimension, exact stencils
-// throughout (no reduced-precision transfers). Both grid conventions, a
-// template parameter CC:
-//   node-centered (odd sizes, the TPU kernel's only one): zero ghost nodes,
-//     a scalar diagonal, full-weighting restriction [1,2,1]/4 x [1,2,1]/4,
-//     bilinear prolongation;
-//   cell-centered (even sizes, XLA-only in the JAX package): zero at the
-//     cell faces, so an edge cell's boundary-facing neighbour weighs 4/3 and
-//     its diagonal is -4 fac in that dimension (a per-cell diagonal), the
-//     2x2 average as restriction, injection as prolongation.
+// throughout (no reduced-precision transfers). Two template parameters:
+//   CC, the grid convention:
+//     node-centered (odd sizes, the TPU kernel's only one): zero ghost
+//       nodes, a scalar diagonal, full-weighting restriction
+//       [1,2,1]/4 x [1,2,1]/4, bilinear prolongation;
+//     cell-centered (even sizes, XLA-only in the JAX package): zero at the
+//       cell faces, so an edge cell's boundary-facing neighbour weighs 4/3
+//       and its diagonal is -4 fac in that dimension (a per-cell diagonal),
+//       the 2x2 average as restriction, injection as prolongation;
+//   CX, complex values (XLA-only in the JAX package): u, rhs and acf are
+//     complex, stored planar (a channel's real plane, then its imaginary
+//     plane). The Laplacian and the transfers act on the two planes alike;
+//     a cell's smoother update and residual couple them through the complex
+//     products (diag - acf) u and (rhs - off) / (diag - acf), with the
+//     reciprocal written conj(d) / |d|^2; the max-norm is the modulus
+//     (hypot). Each thread holds both parts of its cells.
 //
 // What bounds it on the H100: bytes, by the roofline (u0, rhs and acf read
 // once and u written once take microseconds), but what it really pays is
@@ -55,11 +63,13 @@
 // the plain PyTorch version round alike. The transfers' products are by
 // powers of two, exact, so a contraction there rounds as the plain version
 // does. The cell-centered levels need a restriction reach of 0 cells, not 1;
-// they keep the same even halo, so tile origins stay even.
+// they keep the same even halo, so tile origins stay even. A complex cell
+// doubles the registers and the shared memory of a real one.
 
 #include "common.cuh"
 
 #include <cooperative_groups.h>
+#include <type_traits>
 
 namespace cg = cooperative_groups;
 
@@ -90,12 +100,99 @@ __device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(
 __device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
 
+// ------------------------------------------------------- complex values
 template <typename T>
+struct Cx {
+    T re, im;
+};
+
+template <typename T>
+__device__ __forceinline__ Cx<T> operator-(Cx<T> a) { return {-a.re, -a.im}; }
+template <typename T>
+__device__ __forceinline__ Cx<T> add_rn(Cx<T> a, Cx<T> b) {
+    return {add_rn(a.re, b.re), add_rn(a.im, b.im)};
+}
+template <typename T>
+__device__ __forceinline__ Cx<T> mul_rn(T s, Cx<T> v) { return {mul_rn(s, v.re), mul_rn(s, v.im)}; }
+template <typename T>
+__device__ __forceinline__ Cx<T> mul_rn(Cx<T> v, T s) { return {mul_rn(v.re, s), mul_rn(v.im, s)}; }
+// (a.re b.re - a.im b.im) + i (a.re b.im + a.im b.re), each product rounded
+template <typename T>
+__device__ __forceinline__ Cx<T> mul_rn(Cx<T> a, Cx<T> b) {
+    return {add_rn(mul_rn(a.re, b.re), -mul_rn(a.im, b.im)),
+            add_rn(mul_rn(a.re, b.im), mul_rn(a.im, b.re))};
+}
+// the transfers' exact products and their sums, free to contract
+template <typename T>
+__device__ __forceinline__ Cx<T> operator*(T s, Cx<T> v) { return {s * v.re, s * v.im}; }
+template <typename T>
+__device__ __forceinline__ Cx<T> operator+(Cx<T> a, Cx<T> b) { return {a.re + b.re, a.im + b.im}; }
+template <typename T>
+__device__ __forceinline__ Cx<T>& operator+=(Cx<T>& a, Cx<T> b) {
+    a.re += b.re;
+    a.im += b.im;
+    return a;
+}
+
+// the value type of a cell and its global-memory planes: a complex channel
+// is NP = 2 planes of one level, the imaginary one `ps` elements on
+template <typename T, bool CX> struct Val;
+template <typename T> struct Val<T, false> {
+    using V = T;
+    static constexpr int NP = 1;
+    __device__ static __forceinline__ T ld(const T* p, long long i, long long) { return p[i]; }
+    __device__ static __forceinline__ void st(T* p, long long i, long long, T v) { p[i] = v; }
+};
+template <typename T> struct Val<T, true> {
+    using V = Cx<T>;
+    static constexpr int NP = 2;
+    __device__ static __forceinline__ Cx<T> ld(const T* p, long long i, long long ps) {
+        return {p[i], p[i + ps]};
+    }
+    __device__ static __forceinline__ void st(T* p, long long i, long long ps, Cx<T> v) {
+        p[i] = v.re;
+        p[i + ps] = v.im;
+    }
+};
+
+// a read-only view of one channel in global memory, indexable like an array
+template <typename T, bool CX>
+struct Plane {
+    const T* p;
+    long long ps;
+    __device__ __forceinline__ typename Val<T, CX>::V operator[](long long i) const {
+        return Val<T, CX>::ld(p, i, ps);
+    }
+};
+
+// diag - acf: the imaginary part is -acf.im
+template <typename T>
+__device__ __forceinline__ T dma_of(T dg, T a) { return dg - a; }
+template <typename T>
+__device__ __forceinline__ Cx<T> dma_of(T dg, Cx<T> a) { return {dg - a.re, -a.im}; }
+
+// 1 / d: complex as conj(d) / |d|^2
+template <typename T>
+__device__ __forceinline__ T recip(T d) { return T(1) / d; }
+template <typename T>
+__device__ __forceinline__ Cx<T> recip(Cx<T> d) {
+    const T n = add_rn(mul_rn(d.re, d.re), mul_rn(d.im, d.im));
+    return {d.re / n, (-d.im) / n};
+}
+
+template <typename T>
+__device__ __forceinline__ T absval(T a) { return a < T(0) ? -a : a; }
+// the modulus as torch.abs and torch.hypot take it on the card
+__device__ __forceinline__ float absval(Cx<float> a) { return hypotf(a.re, a.im); }
+__device__ __forceinline__ double absval(Cx<double> a) { return hypot(a.re, a.im); }
+
+template <typename T, bool CX>
 struct MgParams {
     const T* u_in;
     // per level: A = the down-leg's u, B = the level's final u (B[0] is the
     // solution), rhs (rhs[0] is the caller's), acf (acf[0] the caller's or
     // scratch for a scalar acf). Entries the solve never touches are null.
+    // A complex level holds NP = 2 planes per channel, and acf two planes.
     T* A[kMaxLevels];
     T* B[kMaxLevels];
     T* rhs[kMaxLevels];
@@ -106,7 +203,7 @@ struct MgParams {
     double facy[kMaxLevels];
     double acf_scalar;
     double tol_rel, tol_abs;
-    int acf_fill;     // fill acf[0] with acf_scalar
+    int acf_fill;     // fill acf[0] with acf_scalar (real solves only)
     int C, L, Lc, nu1, nu2, coarse_sweeps, halo, max_iters;
     typename Bits<T>::type* slots;   // max_iters + 2 max-norms
     int* cycles;
@@ -114,20 +211,20 @@ struct MgParams {
 };
 
 // facx (uW + uE) + facy (uN + uS)
-template <typename T>
-__device__ __forceinline__ T stencil_off(T uW, T uE, T uS, T uN, T facx, T facy) {
+template <typename T, typename V>
+__device__ __forceinline__ V stencil_off(V uW, V uE, V uS, V uN, T facx, T facy) {
     return add_rn(mul_rn(facx, add_rn(uW, uE)), mul_rn(facy, add_rn(uN, uS)));
 }
 
 // the Gauss-Seidel update (rhs - off) * invd
-template <typename T>
-__device__ __forceinline__ T gs_update(T rhs, T off, T invd) {
+template <typename V>
+__device__ __forceinline__ V gs_update(V rhs, V off, V invd) {
     return mul_rn(add_rn(rhs, -off), invd);
 }
 
 // rhs - (off + dma u)
-template <typename T>
-__device__ __forceinline__ T residual_at(T rhs, T off, T dma, T u) {
+template <typename V>
+__device__ __forceinline__ V residual_at(V rhs, V off, V dma, V u) {
     return add_rn(rhs, -add_rn(off, mul_rn(dma, u)));
 }
 
@@ -139,14 +236,14 @@ __device__ __forceinline__ T cc_coef(bool edge) { return edge ? T(4.0 / 3.0) : T
 // the off-diagonal part at grid cell (iy, ix) of an (ny, nx) level from its
 // four neighbours (zero outside the grid): facx (uW + uE) + facy (uN + uS),
 // cell-centered facx (uW cW + uE cE) + facy (uS cS + uN cN)
-template <typename T, bool CC>
-__device__ __forceinline__ T stencil_at(T uW, T uE, T uS, T uN, int iy, int ix,
+template <typename T, bool CC, typename V>
+__device__ __forceinline__ V stencil_at(V uW, V uE, V uS, V uN, int iy, int ix,
                                         int ny, int nx, T facx, T facy) {
     if constexpr (CC) {
-        const T w = mul_rn(uW, cc_coef<T>(ix == nx - 1));
-        const T e = mul_rn(uE, cc_coef<T>(ix == 0));
-        const T so = mul_rn(uS, cc_coef<T>(iy == ny - 1));
-        const T no = mul_rn(uN, cc_coef<T>(iy == 0));
+        const V w = mul_rn(uW, cc_coef<T>(ix == nx - 1));
+        const V e = mul_rn(uE, cc_coef<T>(ix == 0));
+        const V so = mul_rn(uS, cc_coef<T>(iy == ny - 1));
+        const V no = mul_rn(uN, cc_coef<T>(iy == 0));
         return add_rn(mul_rn(facx, add_rn(w, e)), mul_rn(facy, add_rn(so, no)));
     } else {
         return stencil_off(uW, uE, uS, uN, facx, facy);
@@ -164,32 +261,33 @@ __device__ __forceinline__ T cc_diag(int iy, int ix, int ny, int nx, double facx
 }
 
 // the diagonal of the Laplacian at (iy, ix) of level l
-template <typename T, bool CC>
-__device__ __forceinline__ T diag_at(const MgParams<T>& p, int l, int iy, int ix) {
+template <typename T, bool CC, bool CX>
+__device__ __forceinline__ T diag_at(const MgParams<T, CX>& p, int l, int iy, int ix) {
     if constexpr (CC)
         return cc_diag<T>(iy, ix, p.ny[l], p.nx[l], p.facx[l], p.facy[l]);
     else
         return T(-2.0 * (p.facx[l] + p.facy[l]));
 }
 
-// the off-diagonal part on a bare (ny, nx) plane with zero Dirichlet ghosts
-template <typename T, bool CC>
-__device__ __forceinline__ T offdiag(const T* uc, int iy, int ix, int ny, int nx,
-                                     T facx, T facy) {
+// the off-diagonal part on a bare (ny, nx) plane with zero Dirichlet ghosts;
+// uc is a pointer to values or a Plane view
+template <typename T, bool CC, typename V, typename A>
+__device__ __forceinline__ V offdiag(A uc, int iy, int ix, int ny, int nx, T facx,
+                                     T facy) {
     const int i = iy * nx + ix;
-    T uW = ix > 0 ? uc[i - 1] : T(0);
-    T uE = ix < nx - 1 ? uc[i + 1] : T(0);
-    T uS = iy > 0 ? uc[i - nx] : T(0);
-    T uN = iy < ny - 1 ? uc[i + nx] : T(0);
+    V uW = ix > 0 ? V(uc[i - 1]) : V{};
+    V uE = ix < nx - 1 ? V(uc[i + 1]) : V{};
+    V uS = iy > 0 ? V(uc[i - nx]) : V{};
+    V uN = iy < ny - 1 ? V(uc[i + nx]) : V{};
     return stencil_at<T, CC>(uW, uE, uS, uN, iy, ix, ny, nx, facx, facy);
 }
 
 // restriction of one coarse node (icy, icx) from a fine plane of row stride
 // ldf: the separable [1,2,1]/4 stencil, rows first as in Ry r Rx^T
-template <typename T>
-__device__ __forceinline__ T restrict_node(const T* fc, int icy, int icx, int ldf) {
+template <typename T, typename E>
+__device__ __forceinline__ E restrict_node(const E* fc, int icy, int icx, int ldf) {
     const int jy = 2 * icy + 1, jx = 2 * icx + 1;
-    T t[3];
+    E t[3];
     for (int b = 0; b < 3; ++b) {
         const int col = jx - 1 + b;
         t[b] = T(0.25) * fc[(jy - 1) * ldf + col] + T(0.5) * fc[jy * ldf + col] +
@@ -199,26 +297,26 @@ __device__ __forceinline__ T restrict_node(const T* fc, int icy, int icx, int ld
 }
 
 // the cell-centered restriction, the 2x2 average, rows first as in Ry r Rx^T
-template <typename T>
-__device__ __forceinline__ T restrict_cc(const T* fc, int icy, int icx, int ldf) {
-    const T* r0 = fc + (2 * icy) * ldf + 2 * icx;
-    const T* r1 = r0 + ldf;
-    const T t0 = T(0.5) * r0[0] + T(0.5) * r1[0];
-    const T t1 = T(0.5) * r0[1] + T(0.5) * r1[1];
+template <typename T, typename E>
+__device__ __forceinline__ E restrict_cc(const E* fc, int icy, int icx, int ldf) {
+    const E* r0 = fc + (2 * icy) * ldf + 2 * icx;
+    const E* r1 = r0 + ldf;
+    const E t0 = T(0.5) * r0[0] + T(0.5) * r1[0];
+    const E t1 = T(0.5) * r0[1] + T(0.5) * r1[1];
     return T(0.5) * t0 + T(0.5) * t1;
 }
 
-template <typename T, bool CC>
-__device__ __forceinline__ T restrict_at(const T* fc, int icy, int icx, int ldf) {
+template <typename T, bool CC, typename E>
+__device__ __forceinline__ E restrict_at(const E* fc, int icy, int icx, int ldf) {
     if constexpr (CC)
-        return restrict_cc(fc, icy, icx, ldf);
+        return restrict_cc<T>(fc, icy, icx, ldf);
     else
-        return restrict_node(fc, icy, icx, ldf);
+        return restrict_node<T>(fc, icy, icx, ldf);
 }
 
 // bilinear prolongation of a coarse plane at fine node (jy, jx)
-template <typename T>
-__device__ __forceinline__ T prolong_node(const T* cc, int jy, int jx, int nyc,
+template <typename T, typename V>
+__device__ __forceinline__ V prolong_node(const V* cc, int jy, int jx, int nyc,
                                           int nxc) {
     int iy[2], ix[2];
     T wy[2], wx[2];
@@ -235,9 +333,9 @@ __device__ __forceinline__ T prolong_node(const T* cc, int jy, int jx, int nyc,
         if (jx / 2 - 1 >= 0) { ix[nx_] = jx / 2 - 1; wx[nx_++] = T(0.5); }
         if (jx / 2 < nxc) { ix[nx_] = jx / 2; wx[nx_++] = T(0.5); }
     }
-    T v = T(0);
+    V v{};
     for (int a = 0; a < ny_; ++a) {
-        T t = T(0);
+        V t{};
         for (int b = 0; b < nx_; ++b) t += wx[b] * cc[iy[a] * nxc + ix[b]];
         v += wy[a] * t;
     }
@@ -248,24 +346,21 @@ __device__ __forceinline__ T prolong_node(const T* cc, int jy, int jx, int nyc,
 // outside the grid, at tile-local fine node (jy, jx) with jy, jx >= 1: the
 // terms prolong_node leaves out at the grid's edge are zeros here, and a
 // product with 0.5 is exact, so both give the same value
-template <typename T>
-__device__ __forceinline__ T prolong_tile(const T* sc, int jy, int jx, int ld) {
-    const T* lo = sc + ((jy - 1) >> 1) * ld;
-    const T* hi = sc + (jy >> 1) * ld;
+template <typename T, typename V>
+__device__ __forceinline__ V prolong_tile(const V* sc, int jy, int jx, int ld) {
+    const V* lo = sc + ((jy - 1) >> 1) * ld;
+    const V* hi = sc + (jy >> 1) * ld;
     const int xlo = (jx - 1) >> 1, xhi = jx >> 1;
     const bool xodd = jx & 1;
-    const T tlo = xodd ? lo[xlo] : T(0.5) * lo[xlo] + T(0.5) * lo[xhi];
+    const V tlo = xodd ? lo[xlo] : T(0.5) * lo[xlo] + T(0.5) * lo[xhi];
     if (jy & 1) return tlo;
-    const T thi = xodd ? hi[xlo] : T(0.5) * hi[xlo] + T(0.5) * hi[xhi];
+    const V thi = xodd ? hi[xlo] : T(0.5) * hi[xlo] + T(0.5) * hi[xhi];
     return T(0.5) * tlo + T(0.5) * thi;
 }
 
 // NaN-propagating max of non-negative values
 template <typename T>
 __device__ __forceinline__ T nanmax(T a, T b) { return (b > a || b != b) ? b : a; }
-
-template <typename T>
-__device__ __forceinline__ T absval(T a) { return a < T(0) ? -a : a; }
 
 // block-wide nanmax folded into *slot; every thread of the block calls it
 template <typename T>
@@ -301,9 +396,12 @@ __device__ __forceinline__ double pymax(double a, double b) { return b > a ? b :
 // array for the residual that the restriction reads, or for the coarse tile
 // that the prolongation reads. A half-sweep costs a thread two shared loads
 // per updated cell, not seven.
-template <typename T, bool CC, int THREADS>
-__device__ void tile_stage(const MgParams<T>& p, T* sm, int l, bool down, bool first,
+template <typename T, bool CC, bool CX, int THREADS>
+__device__ void tile_stage(const MgParams<T, CX>& p, T* sm, int l, bool down, bool first,
                            typename Bits<T>::type* slot) {
+    using IO = Val<T, CX>;
+    using V = typename IO::V;
+    constexpr int NP = IO::NP;
     constexpr int AD = kTileDim, LD = kTileLd;
     constexpr int R = AD * AD / THREADS;      // rows per thread, even
     constexpr int LDC = AD / 2 + 2;           // coarse tile: 33 rows and columns
@@ -314,8 +412,8 @@ __device__ void tile_stage(const MgParams<T>& p, T* sm, int l, bool down, bool f
     const T fx = T(p.facx[l]), fy = T(p.facy[l]);
     const T diag = T(-2.0 * (p.facx[l] + p.facy[l]));
     const long long plane = (long long)ny * nx, planec = (long long)nyc * nxc;
-    T* su = sm;
-    T* sr = su + LD * LD;
+    V* su = reinterpret_cast<V*>(sm);
+    V* sr = su + LD * LD;
     const T* src_u = down ? (l == 0 ? p.B[0] : nullptr) : p.A[l];
     T* dst_u = down ? p.A[l] : p.B[l];
     const T* acf = p.acf[l];
@@ -325,8 +423,8 @@ __device__ void tile_stage(const MgParams<T>& p, T* sm, int l, bool down, bool f
     T m = T(0);
     // the ring around u stays zero; the single-block stage may have used it
     for (int i = threadIdx.x; i < LD; i += THREADS) {
-        su[i] = su[(LD - 1) * LD + i] = T(0);
-        su[i * LD] = su[i * LD + LD - 1] = T(0);
+        su[i] = su[(LD - 1) * LD + i] = V{};
+        su[i * LD] = su[i * LD + LD - 1] = V{};
     }
 
     for (int item = blockIdx.x; item < items; item += gridDim.x) {
@@ -334,7 +432,7 @@ __device__ void tile_stage(const MgParams<T>& p, T* sm, int l, bool down, bool f
         const int fy0 = (t / ntx) * TS, fx0 = (t % ntx) * TS;
         // array cell (a, b) is grid cell (gy0 + a, gx0 + b); both even
         const int gy0 = fy0 - H, gx0 = fx0 - H;
-        const T* rhs_c = p.rhs[l] + c * plane;
+        const T* rhs_c = p.rhs[l] + c * NP * plane;
         const int gx = gx0 + b;
         const bool col_in = gx >= 0 && gx < nx;
         const int gxc = min(max(gx, 0), nx - 1);
@@ -343,19 +441,19 @@ __device__ void tile_stage(const MgParams<T>& p, T* sm, int l, bool down, bool f
             // the coarse cells under this array, zeros outside the grid:
             // coarse (cy0 + i, cx0 + j) at sr[i * LDC + j]
             const int cy0 = gy0 / 2 - 1, cx0 = gx0 / 2 - 1;
-            const T* cu = p.B[l + 1] + c * planec;
+            const T* cu = p.B[l + 1] + c * NP * planec;
             for (int i = threadIdx.x; i < (LDC - 1) * (LDC - 1); i += THREADS) {
                 const int iy = i / (LDC - 1), ix = i % (LDC - 1);
                 const int cy = cy0 + iy, cx = cx0 + ix;
                 const bool in = cy >= 0 && cy < nyc && cx >= 0 && cx < nxc;
-                sr[iy * LDC + ix] = in ? cu[(long long)cy * nxc + cx] : T(0);
+                sr[iy * LDC + ix] = in ? IO::ld(cu, (long long)cy * nxc + cx, planec) : V{};
             }
             __syncthreads();
         }
 
         // this thread's column strip into registers: every load goes
         // to a clamped address, ghosts are zeroed afterwards
-        T u[R], r[R], d[R], iv[R];
+        V u[R], r[R], d[R], iv[R];
         unsigned int inmask = 0;
 #pragma unroll
         for (int j = 0; j < R; ++j) {
@@ -363,16 +461,16 @@ __device__ void tile_stage(const MgParams<T>& p, T* sm, int l, bool down, bool f
             const bool in = col_in && gy >= 0 && gy < ny;
             const int gyc = min(max(gy, 0), ny - 1);
             const long long g = (long long)gyc * nx + gxc;
-            const T rv = rhs_c[g];
+            const V rv = IO::ld(rhs_c, g, plane);
             T dg = diag;
             if constexpr (CC) dg = cc_diag<T>(gyc, gxc, ny, nx, p.facx[l], p.facy[l]);
-            const T dv = dg - acf[g];
-            const T uv = src_u ? src_u[c * plane + g] : T(0);
+            const V dv = dma_of(dg, IO::ld(acf, g, plane));
+            const V uv = src_u ? IO::ld(src_u + c * NP * plane, g, plane) : V{};
             inmask |= (in ? 1u : 0u) << j;
-            r[j] = in ? rv : T(0);
-            d[j] = in ? dv : T(0);
-            iv[j] = in ? T(1) / dv : T(0);
-            u[j] = in ? uv : T(0);
+            r[j] = in ? rv : V{};
+            d[j] = in ? dv : V{};
+            iv[j] = in ? recip(dv) : V{};
+            u[j] = in ? uv : V{};
         }
         if (!down) {
 #pragma unroll
@@ -381,7 +479,7 @@ __device__ void tile_stage(const MgParams<T>& p, T* sm, int l, bool down, bool f
                     if constexpr (CC)   // injection: coarse cell gy / 2
                         u[j] += sr[((a0 + j) / 2 + 1) * LDC + b / 2 + 1];
                     else
-                        u[j] += prolong_tile(sr, a0 + j + 2, b + 2, LDC);
+                        u[j] += prolong_tile<T>(sr, a0 + j + 2, b + 2, LDC);
                 }
         }
 #pragma unroll
@@ -397,12 +495,12 @@ __device__ void tile_stage(const MgParams<T>& p, T* sm, int l, bool down, bool f
                 const int j = 2 * k + par;
                 const int i = (a0 + j + 1) * LD + b + 1;
                 if ((inmask >> j) & 1u) {
-                    const T uS = par ? u[2 * k] : (k > 0 ? u[2 * k - 1] : su[i - LD]);
-                    const T uN = par ? (k < R / 2 - 1 ? u[2 * k + 2] : su[i + LD])
+                    const V uS = par ? u[2 * k] : (k > 0 ? u[2 * k - 1] : su[i - LD]);
+                    const V uN = par ? (k < R / 2 - 1 ? u[2 * k + 2] : su[i + LD])
                                      : u[2 * k + 1];
-                    const T off = stencil_at<T, CC>(su[i - 1], su[i + 1], uS, uN,
+                    const V off = stencil_at<T, CC>(su[i - 1], su[i + 1], uS, uN,
                                                     gy0 + a0 + j, gx, ny, nx, fx, fy);
-                    const T nu = gs_update(par ? r[2 * k + 1] : r[2 * k], off,
+                    const V nu = gs_update(par ? r[2 * k + 1] : r[2 * k], off,
                                            par ? iv[2 * k + 1] : iv[2 * k]);
                     if (par) u[2 * k + 1] = nu; else u[2 * k] = nu;
                     su[i] = nu;
@@ -418,12 +516,12 @@ __device__ void tile_stage(const MgParams<T>& p, T* sm, int l, bool down, bool f
             for (int j = 0; j < R; ++j) {
                 const int a = a0 + j;
                 const int i = (a + 1) * LD + b + 1;
-                const T uS = j > 0 ? u[j - 1] : su[i - LD];
-                const T uN = j < R - 1 ? u[j + 1] : su[i + LD];
-                const T off = stencil_at<T, CC>(su[i - 1], su[i + 1], uS, uN,
+                const V uS = j > 0 ? u[j - 1] : su[i - LD];
+                const V uN = j < R - 1 ? u[j + 1] : su[i + LD];
+                const V off = stencil_at<T, CC>(su[i - 1], su[i + 1], uS, uN,
                                                 gy0 + a, gx, ny, nx, fx, fy);
-                const T res = ((inmask >> j) & 1u)
-                                  ? residual_at(r[j], off, d[j], u[j]) : T(0);
+                const V res = ((inmask >> j) & 1u)
+                                  ? residual_at(r[j], off, d[j], u[j]) : V{};
                 if (down)
                     sr[i] = res;
                 else if (a >= H && a < H + TS && b >= H && b < H + TS)
@@ -433,16 +531,18 @@ __device__ void tile_stage(const MgParams<T>& p, T* sm, int l, bool down, bool f
         if (down) {
             __syncthreads();
             const int cy0 = fy0 / 2, cx0 = fx0 / 2;
-            const T* res0 = sr + (H + 1) * LD + (H + 1);   // grid cell (fy0, fx0)
+            const V* res0 = sr + (H + 1) * LD + (H + 1);   // grid cell (fy0, fx0)
+            T* rhs_n = p.rhs[l + 1] + c * NP * planec;
             for (int i = threadIdx.x; i < TC * TC; i += THREADS) {
                 const int lcy = i / TC, lcx = i % TC;
                 const int icy = cy0 + lcy, icx = cx0 + lcx;
                 if (icy < nyc && icx < nxc) {
-                    p.rhs[l + 1][c * planec + (long long)icy * nxc + icx] =
-                        restrict_at<T, CC>(res0, lcy, lcx, LD);
+                    const long long ic = (long long)icy * nxc + icx;
+                    IO::st(rhs_n, ic, planec, restrict_at<T, CC>(res0, lcy, lcx, LD));
                     if (first && c == 0)
-                        p.acf[l + 1][(long long)icy * nxc + icx] =
-                            restrict_at<T, CC>(acf, icy, icx, nx);
+                        for (int q = 0; q < NP; ++q)   // each plane of acf
+                            p.acf[l + 1][q * planec + ic] =
+                                restrict_at<T, CC>(acf + q * plane, icy, icx, nx);
                 }
             }
         }
@@ -453,7 +553,8 @@ __device__ void tile_stage(const MgParams<T>& p, T* sm, int l, bool down, bool f
             for (int j = 0; j < R; ++j) {
                 const int a = a0 + j;
                 if (a >= H && a < H + TS && ((inmask >> j) & 1u))
-                    dst_u[c * plane + (long long)(gy0 + a) * nx + gx] = u[j];
+                    IO::st(dst_u + c * NP * plane, (long long)(gy0 + a) * nx + gx,
+                           plane, u[j]);
             }
         }
         __syncthreads();
@@ -462,8 +563,8 @@ __device__ void tile_stage(const MgParams<T>& p, T* sm, int l, bool down, bool f
 }
 
 // ------------------------------------------------------ single-block stage
-template <typename T, bool CC>
-__device__ void block_smooth(T* u, const T* rhs, const T* invd, int C, int ny,
+template <typename T, bool CC, typename V>
+__device__ void block_smooth(V* u, const V* rhs, const V* invd, int C, int ny,
                              int nx, T facx, T facy, int sweeps) {
     const int n = C * ny * nx;
     for (int s = 0; s < 2 * sweeps; ++s) {
@@ -471,7 +572,7 @@ __device__ void block_smooth(T* u, const T* rhs, const T* invd, int C, int ny,
             const int ix = i % nx, iy = (i / nx) % ny;
             if (((ix + iy) & 1) != (s & 1)) continue;
             const int base = i - (iy * nx + ix);
-            const T off = offdiag<T, CC>(u + base, iy, ix, ny, nx, facx, facy);
+            const V off = offdiag<T, CC, V>(u + base, iy, ix, ny, nx, facx, facy);
             u[i] = gs_update(rhs[i], off, invd[iy * nx + ix]);
         }
         __syncthreads();
@@ -482,15 +583,18 @@ __device__ void block_smooth(T* u, const T* rhs, const T* invd, int C, int ny,
 // memory. Level Lc's rhs comes from global memory; its u is the running
 // solution when Lc = 0 (then the residual max-norm goes to *slot) and zero
 // otherwise.
-template <typename T, bool CC>
-__device__ void coarse_stage(const MgParams<T>& p, T* sm,
+template <typename T, bool CC, bool CX>
+__device__ void coarse_stage(const MgParams<T, CX>& p, T* sm,
                              typename Bits<T>::type* slot) {
+    using IO = Val<T, CX>;
+    using V = typename IO::V;
+    constexpr int NP = IO::NP;
     const int C = p.C, L0 = p.Lc, L = p.L;
-    T* us[kMaxLevels];
-    T* rs[kMaxLevels];
-    T* ds[kMaxLevels];
-    T* is[kMaxLevels];
-    T* ptr = sm;
+    V* us[kMaxLevels];
+    V* rs[kMaxLevels];
+    V* ds[kMaxLevels];
+    V* is[kMaxLevels];
+    V* ptr = reinterpret_cast<V*>(sm);
     for (int l = L0; l < L; ++l) {
         const int n = p.ny[l] * p.nx[l];
         us[l] = ptr; ptr += C * n;
@@ -498,10 +602,10 @@ __device__ void coarse_stage(const MgParams<T>& p, T* sm,
         ds[l] = ptr; ptr += n;
         is[l] = ptr; ptr += n;
     }
-    T* res = ptr;
+    V* res = ptr;
     const int n0 = p.ny[L0] * p.nx[L0];
     // acf down the ladder (held in ds), then dma = diag - acf and 1 / dma
-    for (int i = threadIdx.x; i < n0; i += blockDim.x) ds[L0][i] = p.acf[L0][i];
+    for (int i = threadIdx.x; i < n0; i += blockDim.x) ds[L0][i] = IO::ld(p.acf[L0], i, n0);
     __syncthreads();
     for (int l = L0; l < L - 1; ++l) {
         const int nyc = p.ny[l + 1], nxc = p.nx[l + 1];
@@ -512,14 +616,15 @@ __device__ void coarse_stage(const MgParams<T>& p, T* sm,
     for (int l = L0; l < L; ++l) {
         const int n = p.ny[l] * p.nx[l];
         for (int i = threadIdx.x; i < n; i += blockDim.x) {
-            const T d = diag_at<T, CC>(p, l, i / p.nx[l], i % p.nx[l]) - ds[l][i];
+            const V d = dma_of(diag_at<T, CC>(p, l, i / p.nx[l], i % p.nx[l]), ds[l][i]);
             ds[l][i] = d;
-            is[l][i] = T(1) / d;
+            is[l][i] = recip(d);
         }
     }
     for (int i = threadIdx.x; i < C * n0; i += blockDim.x) {
-        us[L0][i] = L0 == 0 ? p.B[0][i] : T(0);
-        rs[L0][i] = p.rhs[L0][i];
+        const long long g = (long long)(i / n0) * NP * n0 + i % n0;
+        us[L0][i] = L0 == 0 ? IO::ld(p.B[0], g, n0) : V{};
+        rs[L0][i] = IO::ld(p.rhs[L0], g, n0);
     }
     __syncthreads();
     for (int l = L0; l < L - 1; ++l) {
@@ -530,7 +635,7 @@ __device__ void coarse_stage(const MgParams<T>& p, T* sm,
         for (int i = threadIdx.x; i < n; i += blockDim.x) {
             const int ix = i % nx, iy = (i / nx) % ny;
             const int base = i - (iy * nx + ix);
-            const T off = offdiag<T, CC>(us[l] + base, iy, ix, ny, nx, fx, fy);
+            const V off = offdiag<T, CC, V>(us[l] + base, iy, ix, ny, nx, fx, fy);
             res[i] = residual_at(rs[l][i], off, ds[l][iy * nx + ix], us[l][i]);
         }
         __syncthreads();
@@ -539,37 +644,38 @@ __device__ void coarse_stage(const MgParams<T>& p, T* sm,
         for (int i = threadIdx.x; i < nc; i += blockDim.x) {
             const int icx = i % nxc, icy = (i / nxc) % nyc, c = i / (nyc * nxc);
             rs[l + 1][i] = restrict_at<T, CC>(res + c * ny * nx, icy, icx, nx);
-            us[l + 1][i] = T(0);
+            us[l + 1][i] = V{};
         }
         __syncthreads();
     }
     block_smooth<T, CC>(us[L - 1], rs[L - 1], is[L - 1], C, p.ny[L - 1], p.nx[L - 1],
-                 T(p.facx[L - 1]), T(p.facy[L - 1]), p.nu1 + p.coarse_sweeps);
+                        T(p.facx[L - 1]), T(p.facy[L - 1]), p.nu1 + p.coarse_sweeps);
     for (int l = L - 2; l >= L0; --l) {
         const int ny = p.ny[l], nx = p.nx[l];
         const int nyc = p.ny[l + 1], nxc = p.nx[l + 1];
         const int n = C * ny * nx;
         for (int i = threadIdx.x; i < n; i += blockDim.x) {
             const int jx = i % nx, jy = (i / nx) % ny, c = i / (ny * nx);
-            const T* cc = us[l + 1] + c * nyc * nxc;
+            const V* cc = us[l + 1] + c * nyc * nxc;
             if constexpr (CC)
                 us[l][i] += cc[(jy / 2) * nxc + jx / 2];
             else
-                us[l][i] += prolong_node(cc, jy, jx, nyc, nxc);
+                us[l][i] += prolong_node<T>(cc, jy, jx, nyc, nxc);
         }
         __syncthreads();
         block_smooth<T, CC>(us[l], rs[l], is[l], C, ny, nx, T(p.facx[l]), T(p.facy[l]),
-                     p.nu2);
+                            p.nu2);
     }
     T m = T(0);
     const int ny = p.ny[L0], nx = p.nx[L0];
     for (int i = threadIdx.x; i < C * n0; i += blockDim.x) {
-        p.B[L0][i] = us[L0][i];
+        const long long g = (long long)(i / n0) * NP * n0 + i % n0;
+        IO::st(p.B[L0], g, n0, us[L0][i]);
         if (L0 == 0) {
             const int ix = i % nx, iy = (i / nx) % ny;
             const int base = i - (iy * nx + ix);
-            const T off = offdiag<T, CC>(us[0] + base, iy, ix, ny, nx,
-                                         T(p.facx[0]), T(p.facy[0]));
+            const V off = offdiag<T, CC, V>(us[0] + base, iy, ix, ny, nx,
+                                            T(p.facx[0]), T(p.facy[0]));
             m = nanmax(m, absval(residual_at(rs[0][i], off, ds[0][iy * nx + ix],
                                              us[0][i])));
         }
@@ -579,9 +685,12 @@ __device__ void coarse_stage(const MgParams<T>& p, T* sm,
 }
 
 // ------------------------------------------------------------ the solve
-template <typename T, bool CC, int THREADS>
+template <typename T, bool CC, bool CX, int THREADS>
 __global__ void __launch_bounds__(THREADS, 1024 / THREADS)
-mg_solve_kernel(const MgParams<T> p) {
+mg_solve_kernel(const MgParams<T, CX> p) {
+    using IO = Val<T, CX>;
+    using V = typename IO::V;
+    constexpr int NP = IO::NP;
     extern __shared__ __align__(16) unsigned char smem_raw[];
     T* sm = reinterpret_cast<T*>(smem_raw);
     cg::grid_group grid = cg::this_grid();
@@ -591,10 +700,10 @@ mg_solve_kernel(const MgParams<T> p) {
     const long long plane = (long long)ny * nx, n = p.C * plane;
 
     // set-up: the running solution, a scalar acf as a plane, clean slots
-    for (long long i = tid; i < n; i += nthreads) p.B[0][i] = p.u_in[i];
-    if (p.acf_fill)
-        for (long long i = tid; i < plane; i += nthreads)
-            p.acf[0][i] = T(p.acf_scalar);
+    for (long long i = tid; i < NP * n; i += nthreads) p.B[0][i] = p.u_in[i];
+    if constexpr (!CX)   // a complex acf always comes as planes
+        if (p.acf_fill)
+            for (long long i = tid; i < plane; i += nthreads) p.acf[0][i] = T(p.acf_scalar);
     for (long long i = tid; i < p.max_iters + 2; i += nthreads) p.slots[i] = 0;
     grid.sync();
 
@@ -605,10 +714,11 @@ mg_solve_kernel(const MgParams<T> p) {
         for (long long i = tid; i < n; i += nthreads) {
             const int ix = int(i % nx), iy = int((i / nx) % ny);
             const long long cell = (long long)iy * nx + ix;
-            const T* uc = p.B[0] + (i - cell);
-            const T off = offdiag<T, CC>(uc, iy, ix, ny, nx, fx, fy);
-            const T r = p.rhs[0][i];
-            const T dma = diag_at<T, CC>(p, 0, iy, ix) - p.acf[0][cell];
+            const long long base = (i / plane) * NP * plane;
+            const Plane<T, CX> uc{p.B[0] + base, plane};
+            const V off = offdiag<T, CC, V>(uc, iy, ix, ny, nx, fx, fy);
+            const V r = IO::ld(p.rhs[0] + base, cell, plane);
+            const V dma = dma_of(diag_at<T, CC>(p, 0, iy, ix), IO::ld(p.acf[0], cell, plane));
             mres = nanmax(mres, absval(residual_at(r, off, dma, uc[cell])));
             mrhs = nanmax(mrhs, absval(r));
         }
@@ -626,13 +736,13 @@ mg_solve_kernel(const MgParams<T> p) {
     while (res > target && it < p.max_iters) {
         typename Bits<T>::type* slot = p.slots + 2 + it;
         for (int l = 0; l < p.Lc; ++l) {
-            tile_stage<T, CC, THREADS>(p, sm, l, true, it == 0, slot);
+            tile_stage<T, CC, CX, THREADS>(p, sm, l, true, it == 0, slot);
             grid.sync();
         }
-        if (blockIdx.x == 0) coarse_stage<T, CC>(p, sm, slot);
+        if (blockIdx.x == 0) coarse_stage<T, CC, CX>(p, sm, slot);
         grid.sync();
         for (int l = p.Lc - 1; l >= 0; --l) {
-            tile_stage<T, CC, THREADS>(p, sm, l, false, false, slot);
+            tile_stage<T, CC, CX, THREADS>(p, sm, l, false, false, slot);
             grid.sync();
         }
         res = from_bits(p.slots[2 + it]);
@@ -645,9 +755,9 @@ mg_solve_kernel(const MgParams<T> p) {
 }
 
 // One cooperative launch: as many blocks as the card keeps resident.
-template <typename T, bool CC, int THREADS>
-int launch_solve(const MgParams<T>& p, int smem_bytes, void* stream) {
-    auto kernel = mg_solve_kernel<T, CC, THREADS>;
+template <typename T, bool CC, bool CX, int THREADS>
+int launch_solve(const MgParams<T, CX>& p, int smem_bytes, void* stream) {
+    auto kernel = mg_solve_kernel<T, CC, CX, THREADS>;
     cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (err != cudaSuccess) return (int)err;
@@ -668,17 +778,14 @@ int launch_solve(const MgParams<T>& p, int smem_bytes, void* stream) {
 }
 
 // table: 4 rows (A, B, rhs, acf) of L device pointers
-template <typename T, int THREADS>
-int solve(const void* u_in, const unsigned long long* table, const int* ny,
-          const int* nx, const double* facx, const double* facy, int C, int L,
-          int Lc, int nu1, int nu2, int coarse_sweeps, int halo, int max_iters,
-          double tol_rel, double tol_abs, int acf_fill, double acf_scalar,
-          int cell_centered, void* slots, void* cycles, void* resnorm,
-          int smem_bytes, void* stream) {
-    if (L < 1 || L > kMaxLevels || Lc < 0 || Lc >= L || halo < 0 ||
-        2 * halo >= kTileDim || max_iters < 0)
-        return (int)cudaErrorInvalidValue;
-    MgParams<T> p = {};
+template <typename T, bool CX, int THREADS>
+int solve_as(const void* u_in, const unsigned long long* table, const int* ny,
+             const int* nx, const double* facx, const double* facy, int C, int L,
+             int Lc, int nu1, int nu2, int coarse_sweeps, int halo, int max_iters,
+             double tol_rel, double tol_abs, int acf_fill, double acf_scalar,
+             int cell_centered, void* slots, void* cycles, void* resnorm,
+             int smem_bytes, void* stream) {
+    MgParams<T, CX> p = {};
     p.u_in = (const T*)u_in;
     for (int l = 0; l < L; ++l) {
         p.A[l] = (T*)table[l];
@@ -699,8 +806,30 @@ int solve(const void* u_in, const unsigned long long* table, const int* ny,
     p.slots = (typename Bits<T>::type*)slots;
     p.cycles = (int*)cycles;
     p.resnorm = (T*)resnorm;
-    return cell_centered ? launch_solve<T, true, THREADS>(p, smem_bytes, stream)
-                         : launch_solve<T, false, THREADS>(p, smem_bytes, stream);
+    return cell_centered ? launch_solve<T, true, CX, THREADS>(p, smem_bytes, stream)
+                         : launch_solve<T, false, CX, THREADS>(p, smem_bytes, stream);
+}
+
+template <typename T, int THREADS>
+int solve(const void* u_in, const unsigned long long* table, const int* ny,
+          const int* nx, const double* facx, const double* facy, int C, int L,
+          int Lc, int nu1, int nu2, int coarse_sweeps, int halo, int max_iters,
+          double tol_rel, double tol_abs, int acf_fill, double acf_scalar,
+          int cell_centered, int cplx, void* slots, void* cycles, void* resnorm,
+          int smem_bytes, void* stream) {
+    if (L < 1 || L > kMaxLevels || Lc < 0 || Lc >= L || halo < 0 ||
+        2 * halo >= kTileDim || max_iters < 0)
+        return (int)cudaErrorInvalidValue;
+    return cplx ? solve_as<T, true, THREADS>(
+                      u_in, table, ny, nx, facx, facy, C, L, Lc, nu1, nu2,
+                      coarse_sweeps, halo, max_iters, tol_rel, tol_abs, acf_fill,
+                      acf_scalar, cell_centered, slots, cycles, resnorm,
+                      smem_bytes, stream)
+                : solve_as<T, false, THREADS>(
+                      u_in, table, ny, nx, facx, facy, C, L, Lc, nu1, nu2,
+                      coarse_sweeps, halo, max_iters, tol_rel, tol_abs, acf_fill,
+                      acf_scalar, cell_centered, slots, cycles, resnorm,
+                      smem_bytes, stream);
 }
 
 }  // namespace hipace
@@ -712,12 +841,13 @@ int solve(const void* u_in, const unsigned long long* table, const int* ny,
         const void* facx, const void* facy, int C, int L, int Lc, int nu1,        \
         int nu2, int coarse_sweeps, int halo, int max_iters, double tol_rel,      \
         double tol_abs, int acf_fill, double acf_scalar, int cell_centered,       \
-        void* slots, void* cycles, void* resnorm, int smem_bytes, void* stream) { \
+        int cplx, void* slots, void* cycles, void* resnorm, int smem_bytes,       \
+        void* stream) {                                                           \
         return hipace::solve<T, THREADS>(                                         \
             u_in, (const unsigned long long*)table, (const int*)ny,               \
             (const int*)nx, (const double*)facx, (const double*)facy, C, L, Lc,   \
             nu1, nu2, coarse_sweeps, halo, max_iters, tol_rel, tol_abs, acf_fill, \
-            acf_scalar, cell_centered, slots, cycles, resnorm, smem_bytes,        \
+            acf_scalar, cell_centered, cplx, slots, cycles, resnorm, smem_bytes,  \
             stream);                                                              \
     }
 

@@ -40,6 +40,21 @@ not that file.
 same shape as the beam, shaped like the reference's ``grid_current.1Rank``
 checksum case (``examples/beam_in_vacuum/inputs_normalized`` with the grid
 current on: order 0, peak current density 0.2, sigma 0.3 0.3 1.41).
+
+``LASER_WAKE`` is a laser-driven blowout: the overrides of the reference's
+``laser_blowout_wake_explicit.1Rank`` checksum case (no beam; prob_lo -20
+-20 -7.5, prob_hi 20 20 6; lasers.lambda0 0.8e-6; one gaussian pulse of a0
+4.5, w0 4 and L0 2 at the origin; the multigrid envelope solver) on the
+flagship's 1 ppc electron plasma with the explicit Bx/By solver. Full width
+is nxy = 1023: 1,046,529 plasma lanes and a 1025^2 complex envelope per
+slice.
+
+``ADAPTIVE_VACUUM`` is a beam in vacuum on the adaptive time step, shaped
+like the reference's ``adaptive_time_step.1Rank`` case (32^3 cells over
+(-2..2)^3, a fixed_ppc gaussian beam of ppc 4 4 1, density 1 and radius 1
+with four subcycles, an external Ez = z/2, ``plasmas.adaptive_density`` 1,
+nt_per_betatron 89.7597901025655) with ``hipace.max_time``, so that the run
+lands on it and takes one more step with dt = 0.
 """
 
 from __future__ import annotations
@@ -215,3 +230,63 @@ def grid_current(nxy: int, nz: int, npart: int, extra: str = "") -> Inputs:
     """GRID_CURRENT on an nxy^2 x nz grid with an npart-particle beam,
     followed by the deck lines in `extra`."""
     return Inputs(GRID_CURRENT.format(nxy=nxy, nz=nz, npart=npart) + extra)
+
+
+LASER_WAKE = BLOWOUT_WAKE.replace(
+    "geometry.prob_lo = -8. -8. -6.\ngeometry.prob_hi =  8.  8.  2.\n",
+    "geometry.prob_lo = -20. -20. -7.5\ngeometry.prob_hi =  20.  20.  6.\n"
+).replace("beams.names = beam\n", "beams.names = no_beam\n") + """\
+lasers.names = laser
+lasers.lambda0 = .8e-6
+lasers.solver_type = multigrid
+laser.a0 = 4.5
+laser.position_mean = 0. 0. 0.
+laser.w0 = 4.
+laser.L0 = 2.
+"""
+
+
+def laser_wake(nxy: int, nz: int, npart: int = 0, extra: str = "") -> Inputs:
+    """LASER_WAKE on an nxy^2 x nz grid, followed by the deck lines in
+    `extra`; npart is unused (the deck has no beam), kept so that every
+    deck function takes the same arguments."""
+    return Inputs(LASER_WAKE.format(nxy=nxy, nz=nz, npart=npart) + extra)
+
+
+ADAPTIVE_VACUUM = """
+amr.n_cell = {nxy} {nxy} {nz}
+hipace.normalized_units = 1
+max_step = {max_step}
+hipace.dt = adaptive
+hipace.nt_per_betatron = 89.7597901025655
+hipace.max_time = {max_time}
+plasmas.adaptive_density = 1
+hipace.adaptive_control_phase_advance = 0
+boundary.field = Dirichlet
+boundary.particle = Absorbing
+geometry.prob_lo = -2. -2. -2.
+geometry.prob_hi =  2.  2.  2.
+beams.names = beam
+beams.external_E(x,y,z,t) = 0. 0. .5*z
+beam.injection_type = fixed_ppc
+beam.profile = gaussian
+beam.ppc = 4 4 1
+beam.n_subcycles = 4
+beam.density = 1.
+beam.radius = 1.
+beam.position_mean = 0. 0. 0.
+beam.position_std = 0.3 0.3 0.5
+beam.zmin = -1.9
+beam.zmax = 1.9
+beam.u_mean = 0. 0. 2000.
+plasmas.names = no_plasma
+diagnostic.output_period = 0
+"""
+
+
+def adaptive_vacuum(nxy: int, nz: int, max_step: int = 20,
+                    max_time: float = 80.0, extra: str = "") -> Inputs:
+    """ADAPTIVE_VACUUM on an nxy^2 x nz grid for max_step steps, landing on
+    max_time, followed by the deck lines in `extra`."""
+    return Inputs(ADAPTIVE_VACUUM.format(nxy=nxy, nz=nz, max_step=max_step,
+                                         max_time=max_time) + extra)

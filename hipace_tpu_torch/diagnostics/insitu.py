@@ -12,7 +12,9 @@ summed over the lanes, with the live-lane count Np last (a matrix product
 of those rows with the weights is slower on the card: one GEMM tile per
 slice walks the million lanes in turn). The slice step keeps these raw
 vectors on the device; ``*_ORDER`` puts them in the JAX package's order once
-per written step, on the host. The laser's moments wait for the laser.
+per written step, on the host. The laser's per-slice moments (its peak and
+integrated |a|^2 moments, the on-axis envelope) are one (8,) vector per
+slice on the laser grid.
 """
 
 from __future__ import annotations
@@ -121,6 +123,46 @@ def field_slice_moments(this: dict, geom, pc, dxdydz):
 
 
 # ----------------------------------------------------------------------
+LASER_NAMES = ("max(|a|^2)", "[|a|^2]", "[|a|^2*x]", "[|a|^2*x*x]",
+               "[|a|^2*y]", "[|a|^2*y*y]")
+
+
+def laser_slice_moments(env, geom):
+    """(8,) per-slice laser moments (ref MultiLaser.H:241-256) of the
+    complex envelope env on the laser geometry: max |a|^2, the sums of
+    |a|^2, |a|^2 x, |a|^2 x^2, |a|^2 y, |a|^2 y^2, and the on-axis
+    envelope's real and imaginary parts; on the device."""
+    a = interior(env, geom)
+    aabs = torch.abs(a) ** 2
+    kw = dict(dtype=aabs.dtype, device=aabs.device)
+    X = (geom.prob_lo[0] + (torch.arange(geom.nx, **kw) + 0.5)
+         * geom.dx)[None, :]
+    Y = (geom.prob_lo[1] + (torch.arange(geom.ny, **kw) + 0.5)
+         * geom.dy)[:, None]
+    ax = a[geom.ny // 2, geom.nx // 2]
+    return torch.stack([
+        torch.max(aabs), torch.sum(aabs), torch.sum(aabs * X),
+        torch.sum(aabs * X * X), torch.sum(aabs * Y),
+        torch.sum(aabs * Y * Y), ax.real, ax.imag])
+
+
+def laser_record(step, time, moments, geom, normalized_units):
+    """The laser's in-situ record of one step from its (nz, 8) moments."""
+    m = np.asarray(moments, np.float64)
+    rec = {
+        "time": float(time), "step": int(step), "n_slices": int(m.shape[0]),
+        "z_lo": float(geom.prob_lo[2]), "z_hi": float(geom.prob_hi[2]),
+        "is_normalized_units": int(normalized_units),
+    }
+    dxdy = geom.dx * geom.dy
+    rec["max(|a|^2)"] = m[:, 0]
+    for i, name in enumerate(LASER_NAMES[1:], start=1):
+        rec[name] = m[:, i] * dxdy
+    rec["axis(a).re"] = m[:, 6]
+    rec["axis(a).im"] = m[:, 7]
+    return rec
+
+
 def _dtype_json(record):
     """Build the JSON dtype description for one record (nested dicts become
     nested structured dtypes, like insitu_utils::write_header)."""

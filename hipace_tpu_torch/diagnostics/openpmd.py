@@ -10,7 +10,10 @@ where h5py does not import.
 
 Fields are written as (nz, ny, nx) datasets with axisLabels ("z","y","x");
 beams as 1D particle record components x/y/z, w, ux/uy/uz (momenta stored as
-gamma*beta like the reference, ref OpenPMDWriter.H:79-95).
+gamma*beta like the reference, ref OpenPMDWriter.H:79-95). The laser's
+complex ``laserEnvelope`` is written as it is: in h5 as h5py writes a complex
+array (the JAX package's file), in json with the openPMD-api json backend's
+datatype "CDOUBLE", each value a [re, im] pair.
 """
 
 from __future__ import annotations
@@ -147,6 +150,9 @@ class OpenPMDWriter:
 
         def dset(arr, attrs):
             arr = np.asarray(arr)
+            if np.iscomplexobj(arr):
+                return {"attributes": attrs, "datatype": "CDOUBLE",
+                        "data": np.stack([arr.real, arr.imag], -1).tolist()}
             return {"attributes": attrs,
                     "datatype": "DOUBLE",
                     "data": arr.tolist()}
@@ -212,7 +218,10 @@ def read_field(path: str, it: int, name: str):
         d = doc["data"][str(it)]["fields"]
         for p in name.split("/"):
             d = d[p]
-        return np.array(d["data"])
+        arr = np.array(d["data"])
+        if d.get("datatype") == "CDOUBLE":
+            return arr[..., 0] + 1j * arr[..., 1]
+        return arr
     with _h5py().File(path, "r") as f:
         return np.array(f[f"data/{it}/fields/{name}"])
 

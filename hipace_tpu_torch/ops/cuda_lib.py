@@ -39,7 +39,7 @@ SIGNATURES = {
     "hipace_gather_main": [_P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I,
                            _P],
     "hipace_mg_solve": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
-                        _I, _D, _D, _I, _D, _I, _P, _P, _P, _I, _P],
+                        _I, _D, _D, _I, _D, _I, _I, _P, _P, _P, _I, _P],
 }
 
 

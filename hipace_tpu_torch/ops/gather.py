@@ -15,6 +15,10 @@ The planes come either as a (5, NY, NX) tensor, the JAX package's layout,
 or as a sequence of five (NY, NX) tensors, which the kernel reads where
 they lie. ``gather_main`` returns a (6, N) tensor: CPU tensors take
 ``gather_main_plain``, CUDA tensors launch ``csrc/gather.cu``.
+
+``gather_laser_aabs``, the laser's |a|^2 and its centred derivatives at the
+plasma's lanes, is plain PyTorch on any device: the JAX package runs it on
+XLA, not in a Pallas kernel.
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ import torch
 
 from . import cuda_lib
 from .deposit import LIVE_FRACTION
-from .shape import shape_weights_derivative
+from .shape import shape_weights, shape_weights_derivative
 
 PLANE_NAMES = ("Psi", "Ez", "Bx", "By", "Bz")
 
@@ -132,3 +136,36 @@ def gather_main(planes, ym, xm, order):
 
 
 gather_main.launches = 0
+
+
+def gather_laser_aabs(xp, yp, aabs, geom, order):
+    """|a|^2 and its centred derivatives at the particles (ref
+    FieldGather.H:236-280 doLaserGatherShapeN; the JAX package's
+    ``hipace_tpu/ops/gather.py`` ``gather_laser_aabs``, which runs on XLA):
+    plain PyTorch on any device, no kernel. Each lane reads one
+    (m+2) x (m+2) block of the padded (NY, NX) plane around its order-p
+    stencil (m = p + 1 taps; rows clipped to the plane, the block's first
+    column clipped so the block fits), and the value, d/dx and d/dy are the
+    stencil's weighted sums of the block's centre and of its centred
+    differences. Returns (a2, a2_dx, a2_dy), each (N,)."""
+    G = geom.nguards
+    NY, NX = aabs.shape
+    dx_inv, dy_inv = 1.0 / geom.dx, 1.0 / geom.dy
+    ix0, wx = shape_weights((xp - geom.x_pos_offset) * dx_inv, order)
+    iy0, wy = shape_weights((yp - geom.y_pos_offset) * dy_inv, order)
+    m = order + 1
+    mb = m + 2
+    offs = torch.arange(mb, device=xp.device)
+    rows = (iy0[:, None] - 1 + G + offs).clamp(0, NY - 1)
+    cols = (ix0 - 1 + G).clamp(0, NX - mb)[:, None] + offs
+    block = aabs.reshape(NY * NX)[rows[:, :, None] * NX + cols[:, None, :]]
+    w = wy[:, :, None] * wx[:, None, :]
+    a00 = block[:, 1:m + 1, 1:m + 1]
+    ap1 = block[:, 1:m + 1, 2:m + 2]
+    am1 = block[:, 1:m + 1, 0:m]
+    bp1 = block[:, 2:m + 2, 1:m + 1]
+    bm1 = block[:, 0:m, 1:m + 1]
+    a_v = (w * a00).sum(dim=(1, 2))
+    adx = (w * 0.5 * dx_inv * (ap1 - am1)).sum(dim=(1, 2))
+    ady = (w * 0.5 * dy_inv * (bp1 - bm1)).sum(dim=(1, 2))
+    return a_v, adx, ady

@@ -1,4 +1,5 @@
-"""K3: the multigrid Bx/By solve on the hand-written kernel.
+"""K3: the multigrid solves (Bx/By, the laser envelope) on the hand-written
+kernel.
 
 Port of the Pallas kernel ``_mg_kernel`` / ``FusedMG.solve``
 (``hipace_tpu/ops/pallas_mg.py:62-249``), held to the XLA path of
@@ -18,10 +19,18 @@ carves the per-level buffers out of one workspace (the layout is worked out
 once per MultiGrid and kind of solve), and hands the kernel the table of
 pointers. If the launch is refused, the call raises.
 
-``mg_solve.launches`` counts solves; ``mg_solve.kernel_launches`` counts
-every device launch those solves made (the cooperative kernel, plus a copy
-or cast where an argument had to be made contiguous or of the working
-type).
+A complex solve (the laser envelope, hpmg solve2) runs the kernel's
+complex instantiation on planar values: u0 and rhs, complex tensors, are
+laid out as (C, 2, ny, nx) real planes (a copy each) and the solution comes
+back complex. The acf becomes two planes (real, imaginary): from a complex
+plane, or from a real plane plus a complex scalar, ``(plane, scalar)``,
+spread on the device.
+
+``mg_solve.launches`` counts real solves and ``mg_solve.complex_launches``
+complex ones; ``mg_solve.kernel_launches`` counts the cooperative kernel of
+every solve plus each argument the wrapper had to lay out: made contiguous
+or of the working type, or, for a complex solve, split into planes (u0,
+rhs, the acf) and the solution joined back.
 """
 
 from __future__ import annotations
@@ -42,8 +51,10 @@ BLOCKS_PER_SM = {4: 2, 8: 1}
 TABLE_ROWS = {"A": 0, "B": 1, "rhs": 2, "acf": 3}
 
 
-def plan(shapes, C: int, itemsize: int, nu1: int, nu2: int):
-    """(halo, Lc, shared-memory bytes) of a solve on `shapes`.
+def plan(shapes, C: int, itemsize: int, nu1: int, nu2: int,
+         cplx: bool = False):
+    """(halo, Lc, shared-memory bytes) of a solve on `shapes`; a complex
+    cell is two values.
 
     The halo covers one cell per colour half-sweep plus the reach of the
     residual and of the restriction (one cell node-centered, none
@@ -55,13 +66,14 @@ def plan(shapes, C: int, itemsize: int, nu1: int, nu2: int):
     if TILE_DIM - 2 * halo < 16:
         raise ValueError(f"nu1={nu1}, nu2={nu2} leave no room in a "
                          f"{TILE_DIM}-cell tile")
+    cellsize = itemsize * (2 if cplx else 1)
     # u, and the residual or the coarse tile
-    tile = 2 * (TILE_DIM + 2) ** 2 * itemsize
+    tile = 2 * (TILE_DIM + 2) ** 2 * cellsize
     # 1 KB per resident block is the system's
     budget = max(tile, MAX_SMEM // BLOCKS_PER_SM[itemsize] - 1024)
     cells = [ny * nx for ny, nx in shapes]
     for lc in range(len(shapes)):
-        coarse = itemsize * ((2 * C + 2) * sum(cells[lc:]) + C * cells[lc])
+        coarse = cellsize * ((2 * C + 2) * sum(cells[lc:]) + C * cells[lc])
         if coarse <= budget:
             # the tile stages run only above level Lc
             return halo, lc, max(coarse, tile if lc else 0)
@@ -83,14 +95,16 @@ class Layout:
     facy: np.ndarray
 
 
-def _layout(mg, C, itemsize, nu1, nu2, scalar_acf) -> Layout:
+def _layout(mg, C, itemsize, nu1, nu2, scalar_acf, cplx=False) -> Layout:
     """The layout of this kind of solve, worked out once per MultiGrid: A
     (the down-leg's u) for l < Lc; B (the final u), rhs and acf for
-    1 <= l <= Lc; acf[0] for a scalar acf."""
-    key = (C, itemsize, nu1, nu2, scalar_acf)
+    1 <= l <= Lc; acf[0] for a scalar acf. A complex level holds two planes
+    per channel and two acf planes."""
+    key = (C, itemsize, nu1, nu2, scalar_acf, cplx)
     if key not in mg.kernel_layouts:
-        halo, Lc, smem = plan(mg.shapes, C, itemsize, nu1, nu2)
-        cells = [ny * nx for ny, nx in mg.shapes]
+        halo, Lc, smem = plan(mg.shapes, C, itemsize, nu1, nu2, cplx)
+        npl = 2 if cplx else 1
+        cells = [npl * ny * nx for ny, nx in mg.shapes]
         sizes = {("A", l): C * cells[l] for l in range(Lc)}
         for l in range(1, Lc + 1):
             sizes["B", l] = sizes["rhs", l] = C * cells[l]
@@ -115,28 +129,53 @@ def mg_solve(mg, u0, rhs, acf, tol_rel=1e-4, tol_abs=0.0, max_iters=40,
              nu1=2, nu2=2):
     """Solve Laplacian(u) - acf*u = rhs from u0 on CUDA tensors.
 
-    u0, rhs: (C, ny, nx) or (ny, nx); acf: (ny, nx) tensor or a scalar.
-    Returns (u, cycles, resnorm): a new tensor, and the V-cycle count
-    (int32) and the last max-norm residual as 0-d device tensors."""
-    squeeze = u0.ndim == 2
-    if squeeze:
-        u0, rhs = u0[None], rhs[None]
-    C, ny, nx = u0.shape
+    Real: u0, rhs (C, ny, nx) or (ny, nx); acf a (ny, nx) tensor or a
+    scalar. Complex: u0, rhs complex (C, ny, nx) or (ny, nx); acf a
+    complex (ny, nx) tensor, a complex scalar or (real plane, complex
+    scalar).
+    Returns (u, cycles, resnorm): a new tensor laid out as u0, and the
+    V-cycle count (int32) and the last max-norm residual as 0-d device
+    tensors."""
+    cplx = torch.is_complex(u0)
+    launched = 1
+    if cplx:
+        if not torch.is_complex(rhs):
+            raise ValueError("a complex u0 needs a complex rhs")
+        squeeze = u0.ndim == 2
+        if squeeze:
+            u0, rhs = u0[None], rhs[None]
+        u0 = torch.stack([u0.real, u0.imag], dim=1)
+        rhs = torch.stack([rhs.real, rhs.imag], dim=1)
+        launched += 2
+        C, _, ny, nx = u0.shape
+        full = (C, 2, ny, nx)
+    else:
+        squeeze = u0.ndim == 2
+        if squeeze:
+            u0, rhs = u0[None], rhs[None]
+        C, ny, nx = u0.shape
+        full = (C, ny, nx)
     if (ny, nx) != mg.shapes[0]:
         raise ValueError(f"grid {(ny, nx)} does not match the multigrid "
                          f"{mg.shapes[0]}")
     if max_iters < 0:
         raise ValueError(f"max_iters {max_iters} is negative")
     dt, dev = u0.dtype, u0.device
-    launched = 1
     if not u0.is_contiguous():
         u0, launched = u0.contiguous(), launched + 1
     if not rhs.is_contiguous():
         rhs, launched = rhs.contiguous(), launched + 1
     cuda_lib.require(u0, "u0", dtype=dt)
-    cuda_lib.require(rhs, "rhs", dtype=dt, shape=(C, ny, nx), device=dev)
+    cuda_lib.require(rhs, "rhs", dtype=dt, shape=full, device=dev)
     acf_plane = None
-    if torch.is_tensor(acf):
+    if cplx:
+        # the two acf planes, spread and summed on the device
+        from ..fields.multigrid import planar_acf
+        acf_plane = planar_acf(acf, (ny, nx), dt, dev).contiguous()
+        launched += 1
+        cuda_lib.require(acf_plane, "acf", dtype=dt, shape=(2, ny, nx),
+                         device=dev)
+    elif torch.is_tensor(acf):
         if acf.ndim == 0:       # no readback: spread the 0-d value
             acf = acf.expand(ny, nx)
         if acf.dtype != dt or not acf.is_contiguous():
@@ -145,7 +184,7 @@ def mg_solve(mg, u0, rhs, acf, tol_rel=1e-4, tol_abs=0.0, max_iters=40,
         cuda_lib.require(acf_plane, "acf", shape=(ny, nx), device=dev)
 
     itemsize = u0.element_size()
-    lay = _layout(mg, C, itemsize, nu1, nu2, acf_plane is None)
+    lay = _layout(mg, C, itemsize, nu1, nu2, acf_plane is None, cplx)
     work = torch.empty(lay.total, dtype=dt, device=dev)
     u = torch.empty_like(u0)
     # the norm slots, then the V-cycle count and the last norm, 8 bytes each
@@ -165,16 +204,22 @@ def mg_solve(mg, u0, rhs, acf, tol_rel=1e-4, tol_abs=0.0, max_iters=40,
         lay.nx.ctypes.data, lay.facx.ctypes.data, lay.facy.ctypes.data, C,
         mg.nlevels, lay.Lc, nu1, nu2, COARSE_SWEEPS, lay.halo, max_iters,
         tol_rel, tol_abs, int(acf_plane is None),
-        0.0 if acf_plane is not None else float(acf),
-        int(mg.cell_centered), stats.data_ptr(), cycles_at, cycles_at + 8,
-        lay.smem, cuda_lib.stream_ptr(u0)),
+        0.0 if acf_plane is not None else float(acf), int(mg.cell_centered), int(cplx), stats.data_ptr(), cycles_at,
+        cycles_at + 8, lay.smem, cuda_lib.stream_ptr(u0)),
         "mg_solve")
     cycles = stats[max_iters + 2:max_iters + 3].view(torch.int32)[0]
     resnorm = stats[max_iters + 3:].view(dt)[0]
-    mg_solve.launches += 1
+    if cplx:
+        mg_solve.complex_launches += 1
+    else:
+        mg_solve.launches += 1
+    if cplx:
+        u = torch.complex(u[:, 0], u[:, 1])
+        launched += 1
     mg_solve.kernel_launches += launched
     return (u[0] if squeeze else u), cycles, resnorm
 
 
 mg_solve.launches = 0
+mg_solve.complex_launches = 0
 mg_solve.kernel_launches = 0

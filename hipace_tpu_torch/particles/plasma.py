@@ -18,7 +18,15 @@ three normals from the simulation's generator as tensors and
 ``init_plasma`` is the transform of the draws it is given, so a test can
 feed it the JAX package's own draws (the two generators' streams differ).
 
-Not ported: ionization, the MR fine patch and the laser terms.
+With a laser envelope, |a|^2 (the slice's ``aabs`` plane) enters as the
+ponderomotive terms (ref PushPlasmaParticles.H, PlasmaDepositCurrent.cpp,
+ExplicitDeposition.cpp): gathered at each lane by ``gather_laser_aabs`` with
+its centred derivatives, scaled by ``laser_norm`` = ((q/e)(m_e/m))^2, into
+the push's gamma and forces, the deposits' gamma, and the explicit
+deposit's sixth Sx/Sy channel, combined with the grid differences of
+|a|^2.
+
+Not ported: ionization and the MR fine patch.
 """
 
 from __future__ import annotations
@@ -31,7 +39,7 @@ from .. import unsupported
 from ..constants import SI_c, PhysConst
 from ..geometry import Geometry
 from ..ops.deposit import deposit
-from ..ops.gather import PLANE_NAMES, gather_main
+from ..ops.gather import PLANE_NAMES, gather_laser_aabs, gather_main
 from ..ops.shape import DW_KIND, W_KIND
 from ..parser import Inputs, TorchFunction, deck_function
 from ..utils.atomic_data import ATOMIC_WEIGHTS_DA
@@ -256,20 +264,29 @@ def init_plasma(cfg: PlasmaConfig, geom: Geometry, device, dtype,
 
 # ----------------------------------------------------------------------
 def _momentum_derivative(ux, uy, psi_inv, exmby, eypbx, ez, bx_c, by_c, bz,
-                         clight_inv, q_m_c):
-    """PlasmaMomentumPush (ref PushPlasmaParticles.H:39-75), no laser."""
-    gamma_psi = 0.5 * psi_inv * psi_inv * (
-        1.0 + ux * ux * clight_inv * clight_inv
-        + uy * uy * clight_inv * clight_inv) + 0.5
+                         clight_inv, q_m_c, laser=None):
+    """PlasmaMomentumPush (ref PushPlasmaParticles.H:39-75); laser, where
+    given, is the lanes' scaled (a2, a2_dx, a2_dy)."""
+    if laser is None:
+        gamma_psi = 0.5 * psi_inv * psi_inv * (
+            1.0 + ux * ux * clight_inv * clight_inv
+            + uy * uy * clight_inv * clight_inv) + 0.5
+    else:
+        gamma_psi = 0.5 * psi_inv * psi_inv * (
+            1.0 + laser[0] + ux * ux * clight_inv * clight_inv
+            + uy * uy * clight_inv * clight_inv) + 0.5
     dz_ux = q_m_c * (gamma_psi * exmby + by_c + uy * bz * psi_inv)
     dz_uy = q_m_c * (gamma_psi * eypbx - bx_c - ux * bz * psi_inv)
+    if laser is not None:
+        dz_ux = dz_ux - laser[1] * psi_inv
+        dz_uy = dz_uy - laser[2] * psi_inv
     dz_psi = (q_m_c * clight_inv
               * ((ux * exmby + uy * eypbx) * clight_inv * psi_inv - ez))
     return dz_ux, dz_uy, dz_psi
 
 
 def _momentum_derivative_jvp(ux, uy, psi, dux, duy, dpsi, fields,
-                             clight_inv, q_m_c):
+                             clight_inv, q_m_c, laser=None):
     """Directional derivative of _momentum_derivative at (ux, uy, psi)
     along (dux, duy, dpsi): the dual part of the reference's dual-number
     push (ref utils/DualNumbers.H)."""
@@ -277,21 +294,30 @@ def _momentum_derivative_jvp(ux, uy, psi, dux, duy, dpsi, fields,
     c2 = clight_inv * clight_inv
     psi_inv = 1.0 / psi
     dpsi_inv = -psi_inv * psi_inv * dpsi
-    s = 1.0 + ux * ux * c2 + uy * uy * c2
+    if laser is None:
+        s = 1.0 + ux * ux * c2 + uy * uy * c2
+    else:
+        s = 1.0 + laser[0] + ux * ux * c2 + uy * uy * c2
     ds = 2.0 * (ux * dux + uy * duy) * c2
     dgamma = psi_inv * dpsi_inv * s + 0.5 * psi_inv * psi_inv * ds
     d_ux = q_m_c * (dgamma * exmby + bz * (duy * psi_inv + uy * dpsi_inv))
     d_uy = q_m_c * (dgamma * eypbx - bz * (dux * psi_inv + ux * dpsi_inv))
+    if laser is not None:
+        d_ux = d_ux - laser[1] * dpsi_inv
+        d_uy = d_uy - laser[2] * dpsi_inv
     d_psi = q_m_c * c2 * ((dux * exmby + duy * eypbx) * psi_inv
                           + (ux * exmby + uy * eypbx) * dpsi_inv)
     return d_ux, d_uy, d_psi
 
 
-def _second_order_substep(ux, uy, psi, sdz, fields, clight_inv, q_m_c):
+def _second_order_substep(ux, uy, psi, sdz, fields, clight_inv, q_m_c,
+                          laser=None):
     """One leapfrog substep with the second-order correction
     (ref PlasmaParticleAdvance.cpp:148-168)."""
-    d = _momentum_derivative(ux, uy, 1.0 / psi, *fields, clight_inv, q_m_c)
-    d2 = _momentum_derivative_jvp(ux, uy, psi, *d, fields, clight_inv, q_m_c)
+    d = _momentum_derivative(ux, uy, 1.0 / psi, *fields, clight_inv, q_m_c,
+                             laser)
+    d2 = _momentum_derivative_jvp(ux, uy, psi, *d, fields, clight_inv, q_m_c,
+                                  laser)
     half = 0.5 * sdz * sdz
     return (ux + sdz * d[0] + half * d2[0], uy + sdz * d[1] + half * d2[1],
             psi + sdz * d[2] + half * d2[2])
@@ -352,14 +378,22 @@ def gather_fields(planes, x, y, mask, geom: Geometry, order: int):
             out[2], out[3], out[4], out[5])
 
 
+def laser_norm(cfg: PlasmaConfig, pc: PhysConst, charge=None) -> float:
+    """((q/e)(m_e/m))^2, the species' factor on |a|^2."""
+    q = cfg.charge if charge is None else charge
+    return ((q / pc.q_e) * (pc.m_e / cfg.mass)) ** 2
+
+
 def advance_plasma(p: dict, fields: dict, geom: Geometry, cfg: PlasmaConfig,
                    pc: PhysConst, order: int = 2, temp_slice: bool = False,
-                   pusher: str = "leapfrog"):
+                   pusher: str = "leapfrog", use_laser: bool = False):
     """Advance plasma particles one zeta slice (ref
     PlasmaParticleAdvance.cpp:29-305), by the leapfrog or, with pusher
     "ab5", the Adams-Bashforth 5 multistep push (ref
     PlasmaParticleAdvance.cpp:218-305 under HIPACE_USE_AB5_PUSH), whose
-    state carries init_plasma(ab5=True)'s force history. With temp_slice
+    state carries init_plasma(ab5=True)'s force history. With use_laser the
+    ponderomotive terms of fields["aabs"] join each subcycle's push. With
+    temp_slice
     (the predictor-corrector's trial push on its current Bx/By guess) every
     subcycle gathers at the unchanged x_prev/y_prev and pushes from the
     unchanged half-step momenta, and only x, y, ux, uy, psi, w and valid
@@ -373,16 +407,23 @@ def advance_plasma(p: dict, fields: dict, geom: Geometry, cfg: PlasmaConfig,
     ux_h, uy_h, psi_h = p["ux_half"], p["uy_half"], p["psi_half"]
     valid, w = p["valid"], p["w"]
     planes = field_planes(fields)
+    lnorm = laser_norm(cfg, pc)
+    laser = None
     for _ in range(cfg.n_subcycles):
         exmby, eypbx, ez, bx, by, bz = gather_fields(planes, xprev, yprev,
                                                      valid, geom, order)
         fvals = (exmby, eypbx, ez, bx * pc.c, by * pc.c, bz)
+        if use_laser:
+            a2, a2dx, a2dy = gather_laser_aabs(xprev, yprev, fields["aabs"],
+                                               geom, order)
+            laser = (a2 * 0.5 * lnorm, a2dx * 0.25 * pc.c * lnorm,
+                     a2dy * 0.25 * pc.c * lnorm)
         if pusher == "ab5":
             # the derivative at the current state becomes history slot 1;
             # the push sums the five history terms
             psi_inv_h = 1.0 / psi_h
             dz_ux, dz_uy, dz_psi = _momentum_derivative(
-                ux_h, uy_h, psi_inv_h, *fvals, clight_inv, q_m_c)
+                ux_h, uy_h, psi_inv_h, *fvals, clight_inv, q_m_c, laser)
             hist = {"Fx1": clight_inv * ux_h * psi_inv_h,
                     "Fy1": clight_inv * uy_h * psi_inv_h,
                     "Fux1": dz_ux, "Fuy1": dz_uy, "Fpsi1": dz_psi}
@@ -410,7 +451,7 @@ def advance_plasma(p: dict, fields: dict, geom: Geometry, cfg: PlasmaConfig,
         ux, uy, psi = ux_h, uy_h, psi_h
         for _s in range(nsub):
             ux, uy, psi = _second_order_substep(ux, uy, psi, sdz, fvals,
-                                                clight_inv, q_m_c)
+                                                clight_inv, q_m_c, laser)
         # position push t -> t+1 with momentum at t+1/2
         xnew = xprev + dz * clight_inv * (ux / psi)
         ynew = yprev + dz * clight_inv * (uy / psi)
@@ -423,7 +464,7 @@ def advance_plasma(p: dict, fields: dict, geom: Geometry, cfg: PlasmaConfig,
         # half momentum push t+1/2 -> t+1 (deposit values only)
         for _s in range(nsub // 2):
             ux, uy, psi = _second_order_substep(ux, uy, psi, sdz, fvals,
-                                                clight_inv, q_m_c)
+                                                clight_inv, q_m_c, laser)
     out = dict(p)
     out.update(x=x, y=y, w=w, valid=valid, ux=ux, uy=uy, psi=psi)
     if not temp_slice:
@@ -448,11 +489,13 @@ def _qsa_mask(p, gamma_psi, psi_inv, cfg):
 
 def deposit_plasma(p: dict, stack_comps, fields: dict, geom: Geometry,
                    cfg: PlasmaConfig, pc: PhysConst, order: int,
-                   normalized_units: bool, flip_charge: bool = False):
+                   normalized_units: bool, flip_charge: bool = False,
+                   use_laser: bool = False):
     """Deposit plasma currents/densities through K1 (ref
     PlasmaDepositCurrent.cpp:22-257). stack_comps is a subset of
-    jx, jy, jz, rho, rho_<species>, chi, rhomjz. Returns (fields, p) with
-    QSA-violating particles invalidated."""
+    jx, jy, jz, rho, rho_<species>, chi, rhomjz; with use_laser |a|^2 from
+    fields["aabs"] enters gamma. Returns (fields, p) with QSA-violating
+    particles invalidated."""
     charge = -cfg.charge if flip_charge else cfg.charge
     clight_inv = 1.0 / pc.c
     invvol = 1.0 if normalized_units else 1.0 / (geom.dx * geom.dy * geom.dz)
@@ -461,8 +504,15 @@ def deposit_plasma(p: dict, stack_comps, fields: dict, geom: Geometry,
     vy_c = p["uy"] * psi_inv
     q_invvol = charge * invvol * p["w"]
     q_mu0_m = charge * pc.mu0 / cfg.mass
-    gamma_psi = 0.5 * (psi_inv * psi_inv + vx_c * vx_c * clight_inv ** 2
-                       + vy_c * vy_c * clight_inv ** 2 + 1.0)
+    if use_laser:
+        a2 = gather_laser_aabs(p["x"], p["y"], fields["aabs"], geom,
+                               order)[0] * laser_norm(cfg, pc, charge)
+        gamma_psi = 0.5 * ((1.0 + 0.5 * a2) * psi_inv * psi_inv
+                           + vx_c * vx_c * clight_inv ** 2
+                           + vy_c * vy_c * clight_inv ** 2 + 1.0)
+    else:
+        gamma_psi = 0.5 * (psi_inv * psi_inv + vx_c * vx_c * clight_inv ** 2
+                           + vy_c * vy_c * clight_inv ** 2 + 1.0)
     wmask, bad = _qsa_mask(p, gamma_psi, psi_inv, cfg)
     q_invvol = q_invvol * wmask
     values = {
@@ -490,7 +540,8 @@ def deposit_plasma(p: dict, stack_comps, fields: dict, geom: Geometry,
 
 def fused_plasma_deposits(p: dict, stack_comps, fields: dict, geom: Geometry,
                           cfg: PlasmaConfig, pc: PhysConst, order: int,
-                          normalized_units: bool, deriv_type: int = 2):
+                          normalized_units: bool, deriv_type: int = 2,
+                          use_laser: bool = False):
     """Main currents and the explicit Sx/Sy coefficient channels in ONE K1
     deposit (ref ExplicitDeposition.cpp; the JAX function's two branches).
     deriv_type 2: the centered derivative channels deposit with plain
@@ -498,7 +549,9 @@ def fused_plasma_deposits(p: dict, stack_comps, fields: dict, geom: Geometry,
     0 or 1: they deposit with the derivative weights of that type, dw along
     y for the two dy channels and along x for the two dx channels, on
     order + deriv_type + 1 taps. stack_comps: jx, jy, chi, rhomjz and, where
-    the deck asks, rho and rho_<species>. Returns (fields, p, dgrids)."""
+    the deck asks, rho and rho_<species>. With use_laser |a|^2 enters gamma
+    and a sixth coefficient channel (q/m)^2 mu0 rho / (4 psi^2) joins the
+    plain-weight ones. Returns (fields, p, dgrids)."""
     charge = cfg.charge
     cin = 1.0 / pc.c
     invvol = 1.0 if normalized_units else 1.0 / (geom.dx * geom.dy * geom.dz)
@@ -510,7 +563,13 @@ def fused_plasma_deposits(p: dict, stack_comps, fields: dict, geom: Geometry,
     q_invvol = charge * invvol * p["w"]
     q_mu0_m = charge * pc.mu0 / cfg.mass
     q_m = charge / cfg.mass
-    gamma_psi = 0.5 * (psi_inv * psi_inv + vx * vx + vy * vy + 1.0)
+    if use_laser:
+        a2 = gather_laser_aabs(p["x"], p["y"], fields["aabs"], geom,
+                               order)[0] * laser_norm(cfg, pc)
+        gamma_psi = 0.5 * ((1.0 + 0.5 * a2) * psi_inv * psi_inv
+                           + vx * vx + vy * vy + 1.0)
+    else:
+        gamma_psi = 0.5 * (psi_inv * psi_inv + vx * vx + vy * vy + 1.0)
     wmask, bad = _qsa_mask(p, gamma_psi, psi_inv, cfg)
     q_invvol = q_invvol * wmask
     values = {
@@ -523,10 +582,13 @@ def fused_plasma_deposits(p: dict, stack_comps, fields: dict, geom: Geometry,
     }
     # explicit Sx/Sy coefficient channels (ref ExplicitDeposition.cpp)
     cd_mu0 = charge * invvol * pc.mu0 * p["w"] * wmask
-    base = cd_mu0 * (q_m * psi_inv)
+    qm_psi = q_m * psi_inv
+    base = cd_mu0 * qm_psi
     chans = [base * vx, base * vy, base * vx * vy * cin,
              base * (gamma_psi - vy * vy) * cin,
              base * (gamma_psi - vx * vx) * cin]
+    if use_laser:
+        chans.append(0.25 * base * qm_psi)
     cdc = cd_mu0 * pc.c
     dx_inv, dy_inv = 1.0 / geom.dx, 1.0 / geom.dy
     v2 = [cdc * dx_inv * vx * vy,
@@ -562,11 +624,14 @@ def fused_plasma_deposits(p: dict, stack_comps, fields: dict, geom: Geometry,
     return out, new_p, dgrids
 
 
-def combine_explicit_sxsy(fields: dict, dgrids, pc: PhysConst):
+def combine_explicit_sxsy(fields: dict, dgrids, pc: PhysConst,
+                          geom: Geometry | None = None):
     """Pointwise combine of the fused coefficient grids into Sy/Sx after
     ExmBy/EypBx/Ez/Bz are solved (ref ExplicitDeposition.cpp:187-258). For
     deriv_type 2 (need_diff) the centered derivative is the grid difference
-    D[i] = (E[i+1] - E[i-1])/2; the other types deposited theirs."""
+    D[i] = (E[i+1] - E[i-1])/2; the other types deposited theirs. With the
+    laser's sixth channel, the clamped-edge centred differences of
+    fields["aabs"] (geom's cell sizes) join Sy and Sx."""
     d1, d2, d3, need_diff = dgrids
     if need_diff:
         z = torch.zeros_like(d2[:, :, :1])
@@ -583,5 +648,16 @@ def combine_explicit_sxsy(fields: dict, dgrids, pc: PhysConst):
                  + exmby_f * d1[2] - eypbx_f * d1[3] + d2[0] + d3[0])
     out["Sx"] = (fields["Sx"] + bz_f * d1[1] + cin * ez_f * d1[0]
                  + exmby_f * d1[4] - eypbx_f * d1[2] + d2[1] + d3[1])
+    if d1.shape[0] == 6:
+        aab = fields["aabs"]
+        lf = (pc.m_e / pc.q_e) ** 2 * pc.c
+        a2dx_f = (torch.cat([aab[:, 1:], aab[:, -1:]], dim=1)
+                  - torch.cat([aab[:, :1], aab[:, :-1]], dim=1)
+                  ) * (0.5 * (1.0 / geom.dx) * lf)
+        a2dy_f = (torch.cat([aab[1:, :], aab[-1:, :]], dim=0)
+                  - torch.cat([aab[:1, :], aab[:-1, :]], dim=0)
+                  ) * (0.5 * (1.0 / geom.dy) * lf)
+        out["Sy"] = out["Sy"] + a2dy_f * d1[5]
+        out["Sx"] = out["Sx"] - a2dx_f * d1[5]
     return out
 

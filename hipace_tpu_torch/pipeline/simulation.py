@@ -11,6 +11,15 @@ of the deck is drawn in deck order from the simulation's generator, merged
 lanes. Decks that select anything off these paths raise at construction
 (``unsupported.py``).
 
+A laser (``lasers.names``) streams its envelope between steps: (n00, nm1),
+complex (nz, NY, NX) tensors on the device, each step's advanced and current
+envelopes becoming the next step's. Under ``hipace.dt = adaptive`` the time
+loop sets dt from the beam's uz moments, which the sweep accumulates on the
+device and which are read back once per step (the initial dt from the first
+beam's initial moments); ``hipace.max_time`` makes the step that reaches it
+land on it exactly and runs one more step with dt = 0 (ref
+Hipace.cpp:424-435).
+
 Output follows the JAX package: the named field diagnostics and each beam
 (from the binned beams before the step's push) go to openPMD files, the
 in-situ moments to reduced-diagnostics files, one per beam. The slice step
@@ -30,13 +39,15 @@ from .. import unsupported
 from ..constants import make_constants
 from ..diagnostics import insitu as ins
 from ..diagnostics.openpmd import BEAM_RECORDS, OpenPMDWriter
+from ..fields import laser as lz
 from ..geometry import Geometry
 from ..parser import Inputs
 from ..particles import beam as bm
 from ..particles import plasma as pl
+from ..utils import adaptive_dt as adt
 from .step import (DIAG_COMPS, THIS_COMPS_PC, DiagConfig, SimConfig,
                    SliceStep, diag_slice_shape, empty_slip, init_field_state,
-                   is_full_interior)
+                   is_full_interior, zero_moments)
 
 
 class Simulation:
@@ -53,7 +64,12 @@ class Simulation:
         depos_order = inputs.query("hipace.depos_order_xy", 2, int)
         self.geom = Geometry.from_inputs(inputs, depos_order)
         self.max_step = inputs.query("max_step", 0, int)
-        self.dt = inputs.query("hipace.dt", 0.0)
+        self.max_time = inputs.query("hipace.max_time", float("inf"))
+        self._has_last_step = False
+        self.adt_cfg = adt.AdaptiveTimeStepConfig.from_inputs(inputs)
+        # adaptive: set from the initial beam moments below
+        self.dt = 0.0 if self.adt_cfg.enabled else inputs.query("hipace.dt",
+                                                                0.0)
         self.time = 0.0
         self.verbose = (verbose if verbose is not None
                         else inputs.query("hipace.verbose", 1, int))
@@ -82,6 +98,24 @@ class Simulation:
                                       self.normalized_units)
             for n in beam_names)
 
+        laser_cfg = lz.LaserConfig.from_inputs(inputs, self.pc)
+        self.laser_cfg = laser_cfg if laser_cfg.use_laser else None
+        self.laser_geom, self.laser_zeta = None, None
+        if self.laser_cfg is not None:
+            self.laser_geom, lz_lo, lz_hi = lz.make_laser_geometry(
+                inputs, self.geom)
+            self.laser_zeta = (lz_lo, lz_hi)
+        # the laser stream (n00, nm1), complex (nz, NY, NX) on the device;
+        # None: zeros, as before the first step
+        self.laser_stream = None
+        if laser_cfg.from_file:
+            env = lz.load_laser_from_file(
+                laser_cfg, self.laser_geom, self.dtype,
+                zeta_lo=self.laser_zeta[0], nz_global=self.geom.nz,
+                clight=self.pc.c, device=self.device)
+            # nm1 is not read at step 0 (two-level scheme): seed it with n00
+            self.laser_stream = (env, env)
+
         self.output_period = inputs.query("diagnostic.output_period", -1, int)
         self.beam_output_period = inputs.query(
             "diagnostic.beam_output_period", self.output_period, int)
@@ -94,6 +128,7 @@ class Simulation:
             self.beam_data = tuple(beam_data)
         self.diags, field_data, dep_rho, dep_rho_ind = self._parse_diags(
             inputs, solver == "explicit", plasma_names)
+        self._insitu_laser = inputs.query("lasers.insitu_period", 0, int)
 
         def period(key, names):
             return max([inputs.query(f"{n}.insitu_period",
@@ -134,7 +169,11 @@ class Simulation:
             insitu_radius=inputs.query("beams.insitu_radius", float("inf")),
             background_density_SI=inputs.query(
                 "hipace.background_density_SI", 0.0),
-            grid_current=self._grid_current_cfg(inputs))
+            grid_current=self._grid_current_cfg(inputs),
+            laser=self.laser_cfg, laser_geom=self.laser_geom,
+            laser_zeta=self.laser_zeta,
+            insitu_laser_period=self._insitu_laser,
+            adaptive_dt=self.adt_cfg.enabled)
         if self.normalized_units and any(
                 b.do_radiation_reaction for b in self.beam_cfgs) \
                 and self.cfg.background_density_SI <= 0.0:
@@ -146,10 +185,10 @@ class Simulation:
         seed = inputs.query("hipace.random_seed", 0, int)
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         if self.beam_cfgs:
-            flat = bm.merge_beams([
-                bm.init_beam(b, self.geom, self.generator, self.device,
-                             self.dtype, self.pc, self.normalized_units)
-                for b in self.beam_cfgs])
+            beams = [bm.init_beam(b, self.geom, self.generator, self.device,
+                                  self.dtype, self.pc, self.normalized_units)
+                     for b in self.beam_cfgs]
+            flat = bm.merge_beams(beams)
             self.beam_cap = bm.plan_capacity(flat, self.geom)
         else:
             flat = {k: torch.zeros(1, dtype=v.dtype, device=self.device)
@@ -157,6 +196,15 @@ class Simulation:
             self.beam_cap = 1
         self.binned = bm.bin_beam(flat, self.geom, self.beam_cap)
         self.slice_step = SliceStep(self.cfg, self.device, self.dtype)
+
+        # the initial adaptive dt from the first beam's initial moments (ref
+        # AdaptiveTimeStep.cpp GatherMinUzSlice(initial=true),
+        # Hipace.cpp:275-281)
+        self.min_uz_mq = float("inf")
+        if self.adt_cfg.enabled and self.beam_cfgs:
+            self.dt, self.min_uz_mq = adt.calculate_from_min_uz(
+                self.adt_cfg, self._initial_beam_moments(beams[0]),
+                self.beam_cfgs[0], self.plasma_cfgs, self.pc, 0.0, 1e30)
 
         # the openPMD writer, where any step can write (a writer asked for
         # h5 raises here if h5py does not import)
@@ -169,21 +217,39 @@ class Simulation:
                                  str)) if writes else None
         self._insitu_writers = {}
 
+    def _initial_beam_moments(self, beam: dict) -> dict:
+        """The first beam's weighted uz moments (in units of c) and its
+        least uz, as floats (read once, at construction)."""
+        v = beam["valid"]
+        w = beam["w"][v].double()
+        uz = beam["uz"][v].double() / self.pc.c
+        if float(w.sum()) == 0.0:
+            return adt.initial_moments(self.beam_cfgs[0])
+        return {"sum_w": float(w.sum()), "sum_w_uz": float((w * uz).sum()),
+                "sum_w_uz2": float((w * uz * uz).sum()),
+                "min_uz": float(uz.min()), "min_acc": 0.0}
+
     def _parse_diags(self, inputs, explicit, plasma_names):
         """The named field diagnostics (ref Diagnostic.cpp; parameter docs
-        parameters.rst:932-1110) on level 0. Returns (diags, the identity
-        diagnostics' union of comps, deposit_rho,
+        parameters.rst:932-1110) on level 0 and, with a laser, on the laser
+        grid (base_geometry = laser, the default of laser_diag). Returns
+        (diags, the identity diagnostics' union of comps, deposit_rho,
         deposit_rho_individual)."""
         g = self.geom
         inf = float("inf")
-        names = inputs.query_list("diagnostic.names", ["lev0"], str)
+        use_laser = self.laser_cfg is not None
+        names = inputs.query_list("diagnostic.names", ["lev0"] + (
+            ["laser_diag"] if use_laser else []), str)
         if names == ["no_field_diag"]:
             names = []
         # field_data=all writes every allocated comp of the solver: chi,
         # Sx and Sy included for the explicit one (matches the reference's
-        # checksum benchmarks)
+        # checksum benchmarks), aabs with a laser (ref Fields.cpp:89,137)
         all_comps = list(DIAG_COMPS if explicit else THIS_COMPS_PC)
         avail = set(all_comps) | {"rho"} | {f"rho_{p}" for p in plasma_names}
+        if use_laser:
+            all_comps.append("aabs")
+            avail |= {"aabs"} | (set() if explicit else {"chi"})
         dd = inputs.prefix("diagnostic")
         dep_rho = inputs.query("hipace.deposit_rho", False, bool)
         dep_rho_ind = inputs.query("hipace.deposit_rho_individual", False,
@@ -205,24 +271,32 @@ class Simulation:
 
             base = q("base_geometry", {"laser_diag": "laser"}.get(
                 name, "level_0"), str)
-            # mesh-refinement levels and the laser grid do not exist here:
-            # their diagnostics are skipped, as the JAX package skips them
-            # when their feature is off
-            if base in ("level_1", "level_2", "laser"):
+            # mesh-refinement levels do not exist here, nor the laser grid
+            # without a laser: their diagnostics are skipped, as the JAX
+            # package skips them when their feature is off
+            if base in ("level_1", "level_2") or (base == "laser"
+                                                  and not use_laser):
                 continue
+            laser_base = base == "laser"
+            dgeom = self.laser_geom if laser_base else g
             period = pp.query("output_period",
                               dd.query("output_period", self.output_period,
                                        int), int)
             comps: list = []
             for tok in pp.query_list("field_data", dd.query_list(
-                    "field_data", ["all"], str), str):
+                    "field_data", ["laserEnvelope"] if laser_base
+                    else ["all"], str), str):
                 if tok == "all":
-                    comps = list(all_comps)
+                    comps = (["laserEnvelope"] if laser_base
+                             else list(all_comps))
                 elif tok == "none":
                     comps = []
                 elif tok.startswith("remove_"):
                     comps = [c for c in comps if c != tok[len("remove_"):]]
-                elif tok != "laserEnvelope":
+                elif tok == "laserEnvelope":
+                    if laser_base:
+                        comps.append(tok)
+                else:
                     if tok == "rho":
                         dep_rho = True
                     if tok.startswith("rho_") and tok[4:] in plasma_names:
@@ -237,6 +311,15 @@ class Simulation:
                                 dd.query_list("patch_lo", [-inf] * 3), float)
             phi = pp.query_list("patch_hi",
                                 dd.query_list("patch_hi", [inf] * 3), float)
+            patch_z = patch_range(plo[2], phi[2], g.prob_lo[2], g.dz, g.nz)
+            if laser_base and dgeom is not g:
+                if any(c != "laserEnvelope" for c in comps):
+                    raise ValueError(f"{name}: a diagnostic on a separate "
+                                     "laser grid writes laserEnvelope only")
+                # the transverse patch in the laser grid; the z range in
+                # field slices, clipped to the laser's zeta span
+                patch_z = (max(patch_z[0], self.laser_zeta[0]),
+                           min(patch_z[1], self.laser_zeta[1]))
             diags.append(DiagConfig(
                 name=name, base=base, diag_type=q("diag_type", "xyz", str),
                 comps=tuple(comps),
@@ -244,13 +327,11 @@ class Simulation:
                     "coarsening", dd.query_list("coarsening", [1, 1, 1],
                                                 int), int)),
                 include_ghosts=bool(q("include_ghost_cells", False, bool)),
-                patch_x=patch_range(plo[0], phi[0], g.prob_lo[0], g.dx,
-                                    g.nx),
-                patch_y=patch_range(plo[1], phi[1], g.prob_lo[1], g.dy,
-                                    g.ny),
-                patch_z=patch_range(plo[2], phi[2], g.prob_lo[2], g.dz,
-                                    g.nz),
-                period=period))
+                patch_x=patch_range(plo[0], phi[0], dgeom.prob_lo[0],
+                                    dgeom.dx, dgeom.nx),
+                patch_y=patch_range(plo[1], phi[1], dgeom.prob_lo[1],
+                                    dgeom.dy, dgeom.ny),
+                patch_z=patch_z, period=period))
 
         # the union served by the full-interior stack (kept for period-0
         # diagnostics too, so the step's "diag" stays available to callers)
@@ -275,11 +356,14 @@ class Simulation:
                 tuple(pp.get_list("position_std")))
 
     # ------------------------------------------------------------------
-    def _time_step(self, binned: dict, time: float, dt: float) -> dict:
+    def _time_step(self, binned: dict, time: float, dt: float,
+                   step: int = 0, laser_stream=None) -> dict:
         """One full time step: plasma re-init, neutralizing background, the
         slice sweep from the head (last slice) to the tail, re-binning.
         mg_cycles, pc_iters and pc_err hold one entry per slice in sweep
-        order, head first."""
+        order, head first; with a laser laser_cycles too, and laser_stream
+        the next step's (n00, nm1); under adaptive dt beam_moments and
+        min_uz, 0-d device tensors."""
         cfg, g = self.cfg, self.geom
         dev = dict(dtype=self.dtype, device=self.device)
         fields = init_field_state(cfg, self.device, self.dtype)
@@ -303,8 +387,24 @@ class Simulation:
 
         carry = {"fields": fields, "plasma": plasmas,
                  "slip": empty_slip(self.device, self.dtype), "dt": dt,
-                 "time": torch.tensor(time, **dev)}
+                 "time": torch.tensor(time, **dev), "step": step}
+        if cfg.adaptive_dt:
+            carry["beam_moments"] = zero_moments(self.device, self.dtype)
+            carry["min_uz"] = torch.full((), math.inf, **dev)
         nz = g.nz
+        lg = self.laser_geom
+        if cfg.use_laser:
+            carry["laser"] = lz.laser_empty_state(lg, self.dtype, self.device)
+            carry["chi_initial"] = lz.initial_chi(
+                self.plasma_cfgs, lg, self.pc, self.pc.c * time, self.dtype,
+                self.device)
+            if laser_stream is None:
+                zc = torch.zeros((nz,) + lg.slice_shape,
+                                 dtype=lz.complex_dtype(self.dtype),
+                                 device=self.device)
+                laser_stream = (zc, zc)
+            new_np1 = torch.empty_like(laser_stream[0])
+            new_n00 = torch.empty_like(laser_stream[0])
         # the sweep's device buffers, one row per slice
         bufs = {}
         if cfg.diag_comps:
@@ -312,12 +412,15 @@ class Simulation:
                                        **dev)
         int_diags = {}
         for dg in cfg.diags:
+            dgeom = lg if dg.base == "laser" else g
+            kw = (dict(dev, dtype=lz.complex_dtype(self.dtype))
+                  if "laserEnvelope" in dg.comps else dev)
             if dg.diag_type == "xy_integrated":
-                int_diags[dg.name] = torch.zeros(diag_slice_shape(dg, g),
-                                                 **dev)
+                int_diags[dg.name] = torch.zeros(diag_slice_shape(dg, dgeom),
+                                                 **kw)
             elif not is_full_interior(dg, g):
                 bufs["diagf_" + dg.name] = torch.empty(
-                    (nz,) + diag_slice_shape(dg, g), **dev)
+                    (nz,) + diag_slice_shape(dg, dgeom), **kw)
         if int_diags:
             carry["diag_int"] = int_diags
         if cfg.insitu_beam_period and cfg.beams:
@@ -329,26 +432,36 @@ class Simulation:
         if cfg.insitu_field_period and cfg.explicit:
             bufs["insitu_field"] = torch.empty(
                 (nz, len(ins.FIELD_NAMES)), **dev)
+        if cfg.use_laser and cfg.insitu_laser_period:
+            bufs["insitu_laser"] = torch.empty((nz, 8), **dev)
 
         beam = {k: binned[k] for k in bm.ALL_ATTRS}
         empty_next = {k: torch.zeros_like(v[0]) for k, v in beam.items()}
         emitted = [None] * nz
-        cycles, pc_iters, pc_err = [], [], []
+        cycles, pc_iters, pc_err, laser_cycles = [], [], [], []
         for islice in range(nz - 1, -1, -1):
             this = {k: v[islice] for k, v in beam.items()}
             nxt = ({k: v[islice - 1] for k, v in beam.items()} if islice
                    else empty_next)
-            carry, out = self.slice_step(carry, islice, this, nxt)
+            rows = ((laser_stream[0][islice], laser_stream[1][islice])
+                    if cfg.use_laser else None)
+            carry, out = self.slice_step(carry, islice, this, nxt, rows)
             emitted[islice] = out["beam_out"]
             for k, buf in bufs.items():
                 buf[islice] = out[k]
             cycles.append(out["mg_cycles"])
             pc_iters.append(out["pc_iters"])
             pc_err.append(out["pc_err"])
+            if cfg.use_laser:
+                new_np1[islice] = out["laser_np1"]
+                new_n00[islice] = out["laser_n00"]
+                laser_cycles.append(out["laser_cycles"])
         # the kernel leaves its V-cycle counts on the device: read them
         # once, after the sweep
         if cycles and torch.is_tensor(cycles[0]):
             cycles = torch.stack(cycles).tolist()
+        if laser_cycles and torch.is_tensor(laser_cycles[0]):
+            laser_cycles = torch.stack(laser_cycles).tolist()
         # merge emitted beam + final slip, re-bin by new z
         flat = {k: torch.cat([e[k] for e in emitted] + [carry["slip"][k]])
                 for k in bm.ALL_ATTRS}
@@ -358,10 +471,23 @@ class Simulation:
         res.update(bufs)
         for name in int_diags:
             res["diag_int_" + name] = carry["diag_int"][name]
+        if cfg.use_laser:
+            # the next step's stream: n00 <- np1, nm1 <- n00
+            res["laser_stream"] = (new_np1, new_n00)
+            res["laser_cycles"] = laser_cycles
+        if cfg.adaptive_dt:
+            res["beam_moments"] = carry["beam_moments"]
+            res["min_uz"] = carry["min_uz"]
         return res
 
     def run_step(self, step: int) -> dict:
-        return self._time_step(self.binned, self.time, self.dt)
+        """One time step from the simulation's state; the laser stream
+        advances with it."""
+        res = self._time_step(self.binned, self.time, self.dt, step,
+                              self.laser_stream)
+        if self.cfg.use_laser:
+            self.laser_stream = res["laser_stream"]
+        return res
 
     def apply_density_table(self) -> None:
         """Give each plasma with a density table the expression for the
@@ -375,10 +501,28 @@ class Simulation:
             self.cfg = dataclasses.replace(self.cfg, plasmas=cfgs)
             self.slice_step.cfg = self.cfg
 
+    def set_dt(self) -> None:
+        """dt before a step: the adaptive phase-advance control, then the
+        landing on hipace.max_time (the step AT max_time runs once with
+        dt = 0 and ends the run; ref Hipace.cpp:424-435)."""
+        if self.adt_cfg.enabled:
+            self.dt = adt.calculate_from_density(
+                self.adt_cfg, self.plasma_cfgs, self.pc, self.time, self.dt,
+                self.min_uz_mq)
+        if self.time == self.max_time:
+            self._has_last_step = True
+            self.dt = 0.0
+        elif ((self.time + self.dt >= self.max_time > self.time)
+              or (self.time + self.dt <= self.max_time < self.time)):
+            self.dt = self.max_time - self.time
+
     def advance(self, step: int, write_output: bool = True) -> dict:
-        """One step of the time loop: the density table's expressions, the
-        step, its output (from the beam as it was before the step's push),
-        the pushed beam and the time."""
+        """One step of the time loop after set_dt: the density table's
+        expressions, the step, its output (from the beam as it was before
+        the step's push), the pushed beam and the time, then, under adaptive
+        dt, the next dt from the step's beam moments (one read of four
+        device scalars; the first beam's mass and charge, as the JAX package
+        takes them, ROADMAP R4)."""
         self.apply_density_table()
         pre_push_binned = self.binned
         res = self.run_step(step)
@@ -386,20 +530,33 @@ class Simulation:
             self.write_output(step, res, pre_push_binned)
         self.binned = res["binned"]
         self.time += self.dt
+        if (self.adt_cfg.enabled and self.beam_cfgs
+                and not self._has_last_step):
+            mom = res["beam_moments"]
+            vals = torch.stack([mom["sum_w"], mom["sum_w_uz"],
+                                mom["sum_w_uz2"], res["min_uz"]]).tolist()
+            self.dt, self.min_uz_mq = adt.calculate_from_min_uz(
+                self.adt_cfg, dict(zip(("sum_w", "sum_w_uz", "sum_w_uz2",
+                                        "min_uz"), vals), min_acc=0.0),
+                self.beam_cfgs[0], self.plasma_cfgs, self.pc, self.time,
+                self.dt)
         return res
 
     def evolve(self, write_output: bool = True):
         """Time loop (ref Hipace.cpp:393-507)."""
         for step in range(self.max_step + 1):
+            self.set_dt()
             if self.verbose >= 1:
                 print(f"Rank 0 started step {step} at time {self.time}"
                       f" with dt {self.dt}")
             self.advance(step, write_output)
+            if self._has_last_step:
+                break
         return self
 
     # ------------------------------------------------------------------
     def _period_hit(self, period: int, step: int) -> bool:
-        last = step == self.max_step
+        last = step == self.max_step or self._has_last_step
         if period < 0:
             return last
         if period == 0:
@@ -444,6 +601,12 @@ class Simulation:
                                    self.normalized_units)
             writer("field", "field", "diags/field_insitu",
                    "fields.insitu_file_prefix").write_record(rec)
+        if "insitu_laser" in res and step % cfg.insitu_laser_period == 0:
+            rec = ins.laser_record(step, self.time,
+                                   res["insitu_laser"].cpu().numpy(), g,
+                                   self.normalized_units)
+            writer("laser", "laser", "diags/laser_insitu",
+                   "lasers.insitu_file_prefix").write_record(rec)
         if "insitu_plasma" in res and step % cfg.insitu_plasma_period == 0:
             moments = res["insitu_plasma"].cpu().numpy()[
                 ..., ins.PLASMA_ORDER]
@@ -470,13 +633,15 @@ class Simulation:
         return arr
 
     def _diag_geometry(self, dg):
-        """(spacing, offset) per written axis, reference layout z, y, x."""
+        """(spacing, offset) per written axis, reference layout z, y, x; a
+        diagnostic on a separate laser grid takes its transverse ones."""
         g = self.geom
+        fg = self.laser_geom if dg.base == "laser" else g
         cx, cy, cz = dg.coarsening
-        return ((g.dz * cz, g.dy * cy, g.dx * cx),
+        return ((g.dz * cz, fg.dy * cy, fg.dx * cx),
                 (g.prob_lo[2] + dg.patch_z[0] * g.dz,
-                 g.prob_lo[1] + dg.patch_y[0] * g.dy,
-                 g.prob_lo[0] + dg.patch_x[0] * g.dx))
+                 fg.prob_lo[1] + dg.patch_y[0] * fg.dy,
+                 fg.prob_lo[0] + dg.patch_x[0] * fg.dx))
 
     def _write_diagnostics(self, step: int, res, pre_binned):
         """Per-diag processing + openPMD write (ref OpenPMDWriter.cpp)."""

@@ -1,6 +1,6 @@
 """The per-slice solve of both Bx/By solvers: the hot loop.
 
-Port of the non-MR, non-laser branches of ``hipace_tpu/pipeline/step.py``
+Port of the non-MR branches of ``hipace_tpu/pipeline/step.py``
 ``make_slice_step`` (ref Hipace::SolveOneSlice, Hipace.cpp:557-728). The
 JAX package scans a jitted slice function; here ``SliceStep`` is called
 once per slice, head to tail, by an eager Python loop.
@@ -32,6 +32,18 @@ raw vector per species, plasma or beam (``diagnostics/insitu.py``).
 The slipped-beam buffer has no fixed capacity: every particle that stopped
 mid-subcycles moves on, in the order the JAX package's stable sort gives,
 so no overflow retry is needed (ref SliceSort.H:16-24).
+
+With a laser (``SimConfig.laser``), on either Bx/By solver: the slice's
+envelope state is assembled from the stream (at step 0 from the pulses'
+initial envelope), |a|^2 goes into the slice's ``aabs`` plane (interpolated
+from a separate laser grid where the laser has one), the plasma deposits and
+pushes take the ponderomotive terms, and after the Psi/Ez/Bz solve the
+envelope advances one step (``fields/laser.py``; K3's complex path under
+the multigrid laser solver) on the plasma's chi, trusted away from the
+field grid's edge and taken from the density profile elsewhere; the laser
+diagnostics and in-situ moments read the slice's envelope. Under adaptive
+dt the beam's weighted uz moments and its minimum uz over the emitted lanes
+accumulate in 0-d device tensors, read once per step.
 """
 
 from __future__ import annotations
@@ -44,6 +56,8 @@ import torch
 from ..constants import PhysConst
 from ..diagnostics import insitu as ins
 from ..fields import slices as sl
+from ..fields.grid_interp import GridInterp, trusted_laser_cells
+from ..fields.laser import (LaserAdvance, envelope_slice, shift_laser_slices)
 from ..fields.multigrid import MultiGrid
 from ..fields.open_boundary import OpenBoundary
 from ..fields.poisson import make_poisson_solver
@@ -205,6 +219,18 @@ class SimConfig:
     # analytic grid current (ref utils/GridCurrent.{H,cpp}): (peak current
     # density, mean (x, y, z), std (x, y, z)) or None
     grid_current: tuple | None = None
+    # the laser (fields.laser.LaserConfig) or None; its own grid (None = the
+    # field grid) and the (zeta_lo, zeta_hi) slices it lives on
+    laser: object = None
+    laser_geom: Geometry | None = None
+    laser_zeta: tuple | None = None
+    insitu_laser_period: int = 0
+    # accumulate the beam's uz moments for the adaptive time step
+    adaptive_dt: bool = False
+
+    @property
+    def use_laser(self) -> bool:
+        return self.laser is not None
 
     def rho_comps(self) -> tuple:
         """The charge densities the plasma deposits besides the currents:
@@ -247,13 +273,15 @@ def init_field_state(cfg: SimConfig, device, dtype) -> dict:
     if cfg.explicit:
         return {
             "This": fs(THIS_COMPS + cfg.rho_comps() + (
-                ("rhomjz_beam",) if cfg.do_beam_jz_minus_rho else ())),
+                ("rhomjz_beam",) if cfg.do_beam_jz_minus_rho else ())
+                + (("aabs",) if cfg.use_laser else ())),
             "Next": fs(("jx_beam", "jy_beam")),
             "Previous": fs(("jx_beam", "jy_beam")),
             "RhomJzIons": fs(("rhomjz",)),
         }
     return {
-        "This": fs(THIS_COMPS_PC + cfg.rho_comps()),
+        "This": fs(THIS_COMPS_PC + cfg.rho_comps()
+                   + (("chi", "aabs") if cfg.use_laser else ())),
         "Next": fs(("jx", "jy")),
         "Previous": fs(("Bx", "By", "jx", "jy")),
         "PCIter": fs(("Bx", "By")),
@@ -390,7 +418,8 @@ def pc_bxby_solve(f: dict, plasmas: list, beam_next: dict, cfg: SimConfig,
         for p, pcfg in zip(plasmas, cfg.plasmas):
             p_tmp = pl.advance_plasma(p, fields_it, g, pcfg, pc, order=order,
                                       temp_slice=True,
-                                      pusher=cfg.plasma_pusher)
+                                      pusher=cfg.plasma_pusher,
+                                      use_laser=cfg.use_laser)
             nxt, _ = pl.deposit_plasma(p_tmp, ["jx", "jy"], nxt, g, pcfg, pc,
                                        order, cfg.normalized_units)
         if cfg.do_beam_jx_jy_deposition and cfg.beams:
@@ -445,12 +474,41 @@ class SliceStep:
         self.beam_consts = bm.beam_constants(cfg.beams, device, dtype)
         self.grid_current = (grid_current_plane(cfg, device, dtype)
                              if cfg.grid_current is not None else None)
+        self.device, self.dtype = device, dtype
+        if cfg.use_laser:
+            lg = cfg.laser_geom if cfg.laser_geom is not None else g
+            self.laser_geom = lg
+            self.laser_zeta = (cfg.laser_zeta if cfg.laser_zeta is not None
+                               else (0, g.nz - 1))
+            self.laser_advance = LaserAdvance(cfg.laser, lg, cfg.pc,
+                                              device=device, dtype=dtype)
+            self.separate_laser_grid = lg != g
+            if self.separate_laser_grid:
+                # field -> laser grid for chi, laser -> field grid for
+                # |a|^2 (ref MultiLaser::InterpolateChi, UpdateLaserAabs)
+                order_l = cfg.laser.interp_order
+                self.f2l = GridInterp(g, lg, dtype, order=order_l,
+                                      device=device)
+                self.l2f = GridInterp(lg, g, dtype, order=order_l,
+                                      valid_only=True, device=device)
+                self.laser_trust = trusted_laser_cells(g, lg, device)
+            else:
+                # the field's chi is trusted 2 guard widths inside the edge
+                G2 = 2 * g.nguards
+                NY, NX = g.slice_shape
+                trust = torch.zeros((NY, NX), dtype=torch.bool, device=device)
+                trust[G2:NY - G2, G2:NX - G2] = True
+                self.laser_trust = trust
 
     def __call__(self, carry: dict, islice: int, beam_this: dict,
-                 beam_next: dict):
+                 beam_next: dict, laser_rows=None):
         """One slice. carry: fields, plasma (list), slip, dt, time (the
-        step's, which the beams' external fields read) and, with
-        xy_integrated diagnostics, diag_int (name -> running sum). Returns
+        step's, which the beams' external fields read), step (the host's
+        step index), with xy_integrated diagnostics diag_int (name ->
+        running sum), with a laser the envelope state (laser) and chi from
+        the density profile (chi_initial), under adaptive dt the beam's
+        moments (beam_moments, min_uz). laser_rows: this slice's (n00, nm1)
+        rows of the laser stream. Returns
         (carry, out) with out = {beam_out: emitted lanes, diag: the
         (len(cfg.diag_comps), ny, nx) stack or None, diagf_<name>: the
         payload of each other written diagnostic, insitu_beam /
@@ -461,7 +519,10 @@ class SliceStep:
         unread 0-d device tensor on the card (0 under the
         predictor-corrector), pc_iters and pc_err: the
         predictor-corrector's iterations (int) and last error (float), 0
-        under the explicit solver}."""
+        under the explicit solver; with a laser laser_np1 and laser_n00,
+        the slice's advanced and current envelope, insitu_laser and
+        laser_cycles, the complex multigrid's V-cycles (0 under the FFT
+        solver)}."""
         cfg = self.cfg
         g, pc, order = cfg.geom, cfg.pc, cfg.depos_order_xy
         f = carry["fields"]
@@ -477,6 +538,26 @@ class SliceStep:
             f = dict(f, Next={c: torch.zeros_like(v)
                               for c, v in f["Next"].items()})
 
+        # ---- the laser: this slice's envelope state and |a|^2 (ref
+        # Hipace.cpp:603 UpdateLaserAabs)
+        if cfg.use_laser:
+            lg = self.laser_geom
+            lz_lo, lz_hi = self.laser_zeta
+            has_laser = lz_lo <= islice <= lz_hi
+            n00_row, nm1_row = laser_rows
+            if carry["step"] == 0 and not cfg.laser.from_file:
+                n00j00 = envelope_slice(
+                    cfg.laser, lg, g.z_pos_offset + islice * g.dz,
+                    self.dtype, self.device)
+            else:
+                n00j00 = n00_row
+            if not has_laser:
+                n00j00 = torch.zeros_like(n00j00)
+            lstate = dict(carry["laser"], n00j00=n00j00, nm1j00=nm1_row)
+            aabs_l = torch.abs(n00j00) ** 2
+            this["aabs"] = (self.l2f.apply(aabs_l)
+                            if self.separate_laser_grid else aabs_l)
+
         # ---- plasma deposits on This (K1): explicit, the currents and the
         # Sx/Sy channels; predictor-corrector, the currents
         plasmas, dgrids_list = [], []
@@ -487,12 +568,15 @@ class SliceStep:
                 this, p, dg = pl.fused_plasma_deposits(
                     p, ["jx", "jy", "chi", "rhomjz"] + rho, this, g, pcfg,
                     pc, order, cfg.normalized_units,
-                    deriv_type=cfg.depos_derivative_type)
+                    deriv_type=cfg.depos_derivative_type,
+                    use_laser=cfg.use_laser)
                 dgrids_list.append(dg)
             else:
                 this, p = pl.deposit_plasma(
-                    p, ["jx", "jy", "jz", "rhomjz"] + rho, this, g, pcfg, pc,
-                    order, cfg.normalized_units)
+                    p, ["jx", "jy", "jz", "rhomjz"]
+                    + (["chi"] if cfg.use_laser else []) + rho, this, g,
+                    pcfg, pc, order, cfg.normalized_units,
+                    use_laser=cfg.use_laser)
             plasmas.append(p)
 
         # ---- beam deposit on This (K1)
@@ -517,6 +601,21 @@ class SliceStep:
         this = solve_psi_ez_bz(this, cfg, self.solver, self.ob)
         f = dict(f, This=this)
 
+        # ---- the envelope advance (ref Hipace.cpp:637 AdvanceSlice) on
+        # chi: the plasma's inside the trusted region, the density
+        # profile's elsewhere (ref MultiLaser.cpp:335-405 InterpolateChi)
+        laser_cycles = 0
+        if cfg.use_laser:
+            chi_src = (self.f2l.apply(this["chi"])
+                       if self.separate_laser_grid else this["chi"])
+            chi_laser = torch.where(self.laser_trust, chi_src,
+                                    carry["chi_initial"])
+            np1j00 = self.laser_advance(lstate, chi_laser, dt, carry["step"])
+            if not has_laser:
+                np1j00 = torch.zeros_like(np1j00)
+            if self.laser_advance.mg is not None:
+                laser_cycles = self.laser_advance.mg.cycles
+
         if cfg.explicit:
             # ---- beam Next jx/jy deposit (K1), Sx/Sy, Bx/By (K3)
             if cfg.do_beam_jx_jy_deposition and cfg.beams:
@@ -526,7 +625,7 @@ class SliceStep:
             f = init_sx_sy_with_beam(f, cfg)
             this = f["This"]
             for dg in dgrids_list:
-                this = pl.combine_explicit_sxsy(this, dg, pc)
+                this = pl.combine_explicit_sxsy(this, dg, pc, g)
             this = explicit_bxby_solve(this, cfg, self.mg)
             pc_err, pc_iters = 0.0, 0
         else:
@@ -542,7 +641,15 @@ class SliceStep:
         for dg in cfg.diags:
             if is_full_interior(dg, g):
                 continue
-            payload = _process_diag_slice([this[c] for c in dg.comps], dg, g)
+            if dg.base == "laser":
+                srcs = [n00j00 if c == "laserEnvelope" else this[c]
+                        for c in dg.comps]
+                if any(torch.is_complex(a) for a in srcs):
+                    srcs = [a.to(n00j00.dtype) for a in srcs]
+                payload = _process_diag_slice(srcs, dg, self.laser_geom)
+            else:
+                payload = _process_diag_slice([this[c] for c in dg.comps],
+                                              dg, g)
             if dg.diag_type == "xy_integrated":
                 di = dict(carry["diag_int"])
                 di[dg.name] = di[dg.name] + payload
@@ -556,10 +663,14 @@ class SliceStep:
             out["insitu_plasma"] = torch.stack([
                 ins.plasma_slice_raw(p, pc, cfg.insitu_radius)
                 for p in plasmas])
+        if cfg.use_laser and cfg.insitu_laser_period:
+            out["insitu_laser"] = ins.laser_slice_moments(n00j00,
+                                                          self.laser_geom)
 
         # ---- push plasma (K2)
         plasmas = [pl.advance_plasma(p, this, g, pcfg, pc, order=order,
-                                     pusher=cfg.plasma_pusher)
+                                     pusher=cfg.plasma_pusher,
+                                     use_laser=cfg.use_laser)
                    for p, pcfg in zip(plasmas, cfg.plasmas)]
 
         # ---- push beam: slipped carry first, then this slice (K2)
@@ -584,8 +695,14 @@ class SliceStep:
             emit_idx = (~incomplete & combined["valid"]).nonzero().squeeze(1)
             slip = {k: v[slip_idx] for k, v in combined.items()}
             emit = {k: v[emit_idx] for k, v in combined.items()}
+            if cfg.adaptive_dt:
+                carry = dict(carry, **beam_uz_moments(
+                    combined, ~incomplete & combined["valid"], carry,
+                    pc.c))
         else:
-            emit = {k: v[combined["valid"]] for k, v in combined.items()}
+            # no beam: the binned lanes are all dead, nothing is emitted
+            # (and nothing read back)
+            emit = {k: v[:0] for k, v in combined.items()}
 
         # ---- ShiftSlices (ref Fields.cpp:588-604)
         if cfg.explicit:
@@ -605,7 +722,36 @@ class SliceStep:
         out.update(beam_out=emit,
                    mg_cycles=self.mg.cycles if cfg.explicit else 0,
                    pc_iters=pc_iters, pc_err=pc_err)
+        if cfg.use_laser:
+            # ShiftLaserSlices (ref MultiLaser.cpp:181-212)
+            carry["laser"] = shift_laser_slices(lstate, np1j00)
+            out.update(laser_np1=np1j00, laser_n00=lstate["n00j00"],
+                       laser_cycles=laser_cycles)
         return carry, out
+
+
+def zero_moments(device, dtype) -> dict:
+    """The adaptive time step's beam moments before the sweep."""
+    z = torch.zeros((), dtype=dtype, device=device)
+    return {"sum_w": z, "sum_w_uz": z, "sum_w_uz2": z}
+
+
+def beam_uz_moments(lanes: dict, emitted, carry: dict, clight: float):
+    """The emitted lanes' weight, weighted uz and uz^2 (in units of c) added
+    to carry's beam_moments, and its min_uz lowered to their least uz (ref
+    AdaptiveTimeStep GatherMinUzSlice, after the push): 0-d device tensors,
+    nothing read back."""
+    c_inv = 1.0 / clight
+    w_v = torch.where(emitted, lanes["w"], torch.zeros_like(lanes["w"]))
+    uz = lanes["uz"]
+    uz_min = torch.where(emitted, uz, torch.full_like(uz, math.inf)).amin()
+    mom = carry["beam_moments"]
+    return {"min_uz": torch.minimum(carry["min_uz"], uz_min * c_inv),
+            "beam_moments": {
+                "sum_w": mom["sum_w"] + torch.sum(w_v),
+                "sum_w_uz": mom["sum_w_uz"] + torch.sum(w_v * uz) * c_inv,
+                "sum_w_uz2": mom["sum_w_uz2"]
+                + torch.sum(w_v * uz ** 2) * c_inv ** 2}}
 
 
 def grid_current_plane(cfg: SimConfig, device, dtype):

@@ -12,15 +12,12 @@ from __future__ import annotations
 
 from .parser import Inputs
 
-ADAPTIVE_DT = "adaptive dt and max_time"
-LASER = "laser"
 IONIZATION = "ionization"
 COLLISIONS = "collisions"
 SALAME = "SALAME"
 MR = "mesh refinement"
 # ROADMAP.md port queue: item title -> item number
-ITEMS = {ADAPTIVE_DT: 4, LASER: 5, IONIZATION: 6,
-         COLLISIONS: 7, SALAME: 8, MR: 9}
+ITEMS = {IONIZATION: 6, COLLISIONS: 7, SALAME: 8, MR: 9}
 
 
 def fail(key: str, item: str):
@@ -29,22 +26,12 @@ def fail(key: str, item: str):
         f"(ROADMAP.md port queue, item {ITEMS[item]} '{item}')")
 
 
-def _names(inputs: Inputs, key: str, none: str) -> list:
-    names = inputs.query_list(key, [], str)
-    return [] if names == [none] else names
-
-
 def check_deck(inputs: Inputs) -> None:
     """Raise for the first deck key that leaves the ported paths. The
-    per-species keys are checked by the plasma and beam configs."""
+    per-species keys are checked by the plasma and beam configs; a laser
+    with mesh refinement or ionization meets their refusals there."""
     q = inputs.query
-    if _names(inputs, "lasers.names", "no_laser"):
-        fail("lasers.names", LASER)
     if q("amr.max_level", 0, int) > 0:
         fail("amr.max_level", MR)
     if q("hipace.collisions", "", str):
         fail("hipace.collisions", COLLISIONS)
-    if inputs.raw("hipace.dt", "") == "adaptive":
-        fail("hipace.dt", ADAPTIVE_DT)
-    if inputs.contains("hipace.max_time"):
-        fail("hipace.max_time", ADAPTIVE_DT)

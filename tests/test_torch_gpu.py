@@ -472,3 +472,73 @@ def test_two_beam_deposit_on_the_card_matches_the_cpu(cuda):
     # the charge it carries (jz)
     err = float((got["rhomjz"].cpu() - ref["rhomjz"]).abs().max())
     assert err < 1e-12 * float(ref["jz"].abs().max())
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("ny,nx", [(255, 255), (63, 31), (96, 64), (32, 32)])
+@pytest.mark.parametrize("acf_kind", ["plane", "plane+scalar"])
+def test_complex_multigrid_kernel(cuda, dtype, ny, nx, acf_kind):
+    """K3's complex path (the laser envelope's solve) against the plain
+    version in both grid conventions: the plain version's V-cycle count and
+    its values (measured bit-equal; held to 1e-12 / 1e-5)."""
+    from hipace_tpu_torch.fields.multigrid import MultiGrid
+    from hipace_tpu_torch.ops.mg_kernel import mg_solve
+    rng = np.random.default_rng(ny * nx)
+    ctype = torch.complex64 if dtype == torch.float32 else torch.complex128
+    mg = MultiGrid(nx, ny, 0.3, 0.4, device=cuda, dtype=dtype)
+
+    def c(scale=1.0):
+        return torch.tensor(scale * (rng.standard_normal((ny, nx)) + 1j
+                                     * rng.standard_normal((ny, nx))),
+                            dtype=ctype, device=cuda)
+    rhs, u0 = c(), c(0.1)
+    acf_r = torch.tensor(20.0 + np.abs(rng.standard_normal((ny, nx))),
+                         dtype=dtype, device=cuda)
+    acf = (torch.complex(acf_r, torch.full_like(acf_r, -15.0))
+           if acf_kind == "plane"
+           else (acf_r, torch.tensor(-15j, dtype=ctype, device=cuda)))
+    before = mg_solve.complex_launches
+    got, cycles, _ = mg_solve(mg, u0, rhs, acf, tol_rel=1e-6)
+    assert mg_solve.complex_launches == before + 1
+    ref = mg.solve_plain(u0, rhs, acf, tol_rel=1e-6)
+    torch.cuda.synchronize()
+    assert got.dtype == ctype and int(cycles) == mg.last_cycles > 0
+    assert _rel(got, ref) <= _tol(dtype, 1e-12, 1e-5)
+
+
+def test_laser_steps_on_the_card_match_the_cpu(cuda):
+    """Two 31^2 x 8 float64 steps of LASER_WAKE: fields and the envelope
+    stream within 1e-8 of the CPU, equal real and complex V-cycles."""
+    from hipace_tpu_torch.decks import laser_wake
+    from hipace_tpu_torch.pipeline.simulation import Simulation
+    sims = [Simulation(laser_wake(31, 8), device=dev, dtype=torch.float64,
+                       verbose=0) for dev in ("cpu", cuda)]
+    for step in range(2):
+        ref, got = (s.advance(step, write_output=False) for s in sims)
+        assert _rel(got["diag"].cpu(), ref["diag"]) < 1e-8
+        assert _rel(got["laser_stream"][0].cpu(),
+                    ref["laser_stream"][0]) < 1e-8
+        assert got["mg_cycles"] == ref["mg_cycles"]
+        assert got["laser_cycles"] == ref["laser_cycles"]
+
+
+def test_adaptive_dt_on_the_card_matches_the_cpu(cuda):
+    """ADAPTIVE_VACUUM at 16^2 x 16 in float64 through the time loop: the
+    same dt sequence, landing on max_time, then a dt = 0 step."""
+    from hipace_tpu_torch.decks import adaptive_vacuum
+    from hipace_tpu_torch.pipeline.simulation import Simulation
+    dts = []
+    for dev in ("cpu", cuda):
+        sim = Simulation(adaptive_vacuum(16, 16), device=dev,
+                         dtype=torch.float64, verbose=0)
+        seq = []
+        for step in range(sim.max_step + 1):
+            sim.set_dt()
+            seq.append(sim.dt)
+            sim.advance(step, write_output=False)
+            if sim._has_last_step:
+                break
+        dts.append(seq)
+        assert sim.time == 80.0
+    assert len(dts[0]) == len(dts[1]) == 20 and dts[1][-1] == 0.0
+    np.testing.assert_allclose(dts[1], dts[0], rtol=1e-12, atol=0.0)

@@ -36,7 +36,8 @@ FORBIDDEN = {"hipace_tpu", "jax", "jaxlib"}
 def _port_sources():
     files = [os.path.join(ROOT, "chip_smoke.py"),
              os.path.join(ROOT, "tools", "profile_torch_step.py"),
-             os.path.join(ROOT, "tools", "time_torch_kernels.py")]
+             os.path.join(ROOT, "tools", "time_torch_kernels.py"),
+             os.path.join(ROOT, "tools", "laser_f32_drift.py")]
     for folder, _, names in os.walk(os.path.join(ROOT, "hipace_tpu_torch")):
         files += [os.path.join(folder, n) for n in names if n.endswith(".py")]
     return sorted(files)

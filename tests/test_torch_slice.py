@@ -218,18 +218,18 @@ def test_tpu_tuning_keys_are_noops():
 
 @pytest.mark.parametrize("extra,item", [
     ("plasma.ionization_product = ions", "ionization"),
-    ("hipace.max_time = 10.", "adaptive dt and max_time"),
-    ("lasers.names = laser", "laser"),
+    ("hipace.max_time = 10.\nhipace.collisions = c1", "collisions"),
+    ("lasers.names = laser\namr.max_level = 1", "mesh refinement"),
     ("amr.max_level = 1", "mesh refinement"),
     ("beam.do_salame = 1", "SALAME"),
     ("plasma.initial_ion_level = 1", "ionization"),
     ("hipace.collisions = c1", "collisions"),
     ("plasma.fine_ppc = 2 2", "mesh refinement"),
-    ("hipace.dt = adaptive", "adaptive dt and max_time"),
+    ("hipace.dt = adaptive\nbeam.do_salame = 1", "SALAME"),
     ("plasma.fine_patch(x,y) = x*x + y*y < 1.", "mesh refinement"),
     ("plasma.fine_transition_cells = 5", "mesh refinement"),
     ("plasma.can_ionize = 1", "ionization"),
-    ("lasers.names = laser1 laser2", "laser"),
+    ("lasers.names = laser1 laser2\nplasma.can_ionize = 1", "ionization"),
 ])
 def test_unsupported_keys_raise(extra, item):
     """Each refusal names its port-queue item by number and title."""

@@ -18,7 +18,9 @@ checkout is absent.
 The reckoning: one step of a slice costs A + B * cells per plasma species
 on one thread in float64, times the predictor-corrector's factor where that
 solver runs (tools/measure_torch_cpu_cost.py: A = 37.76 ms, B = 3.861 us,
-factor 5.24), with a margin of 2 for the machine's variation.
+factor 5.24), times the laser's factor where a laser runs (1.73, the same
+tool's LASER_WAKE against the flagship at 64^2, from a later run), with a
+margin of 2 for the machine's variation.
 """
 
 import json
@@ -37,6 +39,7 @@ torch.set_num_threads(1)
 MAX_CELL_STEPS = 128 * 128 * 256 * 3
 PARTS = 3
 SLICE_S, CELL_S, PC_FACTOR, MARGIN = 37.76e-3, 3.861e-6, 5.24, 2.0
+LASER_FACTOR = 1.73
 ARGS = "name,deck,overrides,rtol,skip_fields,skip_particles"
 
 LIGHT = [c for c in CASES if c[0] not in HEAVY]
@@ -56,6 +59,9 @@ def reckon_seconds(inputs: Inputs) -> float:
     per_slice = SLICE_S + CELL_S * nx * ny * max(species, 1)
     if inputs.query("hipace.bxby_solver", "explicit", str) != "explicit":
         per_slice *= PC_FACTOR
+    if [n for n in inputs.query_list("lasers.names", [], str)
+            if n != "no_laser"]:
+        per_slice *= LASER_FACTOR
     return MARGIN * steps * nz * per_slice
 
 

@@ -1,13 +1,15 @@
 """Where the time of one time step of the PyTorch/CUDA port goes, on a GPU.
 
-    python3 tools/profile_torch_step.py [--deck flagship|pdf|pc|even|witness]
+    python3 tools/profile_torch_step.py
+        [--deck flagship|pdf|pc|even|witness|laser]
         [--insitu] [--xz] [--nxy 1023] [--nz 64] [--steps 2]
 
 Runs a deck of ``hipace_tpu_torch.decks`` (the flagship blowout wake, its
 fixed_weight_pdf variant, its predictor-corrector variant with open
 boundaries, the two-species ION_MOTION_EVEN at an even size, 1024^2 by
-default, with the flagship's beam, or DRIVE_WITNESS, the flagship with a
-second, spin-tracked and radiating witness beam) in float32 on ``cuda``:
+default, with the flagship's beam, DRIVE_WITNESS, the flagship with a
+second, spin-tracked and radiating witness beam, or LASER_WAKE, the
+laser-driven blowout with no beam) in float32 on ``cuda``:
 one warm-up step, ``--steps`` timed steps on the host clock, then one step
 under ``torch.profiler``. It prints the device time and launch count per
 slice of each group of device activities (the port's kernels K1-K3, PyTorch
@@ -18,7 +20,11 @@ per slice. With ``--deck pc`` it prints the predictor-corrector's
 iterations per slice and, per iteration, the launches and device ms of each
 group: the difference between the profiled step and a profiled step of the
 same deck capped at one iteration per slice, over the difference in
-iterations.
+iterations. With ``--deck laser`` the complex K3 solves are a group of their
+own, and the device time of the laser's two named parts is printed apart:
+the envelope advance (every kernel it launches, its complex K3 solve
+included) and the |a|^2 gathers of the plasma deposit and push, with their
+share of the step's device time.
 
 Output: ``--insitu`` turns on the in-situ beam, plasma and field records
 every step, ``--xz`` an xz field diagnostic of every comp and rho every step
@@ -44,6 +50,8 @@ ROOT = Path(__file__).resolve().parents[1]
 GROUPS = [
     ("K1 deposit", ("hipace::deposit_kernel",)),
     ("K2 gather", ("hipace::gather_main_kernel",)),
+    ("K3 multigrid, complex (laser)", ("MgParams<float, true>",
+                                       "MgParams<double, true>")),
     ("K3 multigrid", ("hipace::mg_solve_kernel",)),
     ("FFT (DST)", ("fft", "FFT")),
     ("GEMM (open-boundary moments)", ("gemm", "Gemm", "cutlass")),
@@ -68,8 +76,8 @@ def device_activities(prof):
     per_kernel = defaultdict(lambda: [0.0, 0])
     readbacks = 0
     for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
+        if e.device_type != DeviceType.CUDA or e.name in LASER_RANGES:
+            continue    # the named ranges' device spans are no activity
         dur = e.time_range.elapsed_us() / 1e3
         g = group_of(e.name)
         readbacks += "DtoH" in e.name
@@ -80,10 +88,52 @@ def device_activities(prof):
     return ms, count, per_kernel, readbacks
 
 
+# the laser's parts, named around their calls with --deck laser
+LASER_RANGES = ("laser: envelope advance", "laser: |a|^2 gather")
+
+
+def named(fn, label):
+    """fn inside a profiler range called label."""
+    import torch
+
+    def wrapped(*args, **kwargs):
+        with torch.profiler.record_function(label):
+            return fn(*args, **kwargs)
+    return wrapped
+
+
+def range_ms(prof, labels):
+    """Per named range: the device ms of the activities inside its device
+    spans (the spans of one stream hold exactly the kernels the range
+    launched; the ctypes-launched K3 included), and its calls."""
+    import bisect
+    from torch.autograd import DeviceType
+    spans = {label: [] for label in labels}
+    acts = []
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        if e.name in spans:
+            spans[e.name].append((e.time_range.start, e.time_range.end))
+        else:
+            acts.append((e.time_range.start, e.time_range.elapsed_us()))
+    out = {}
+    for label, sp in spans.items():
+        sp.sort()
+        starts = [a for a, _ in sp]
+        us = 0.0
+        for t0, dur in acts:
+            i = bisect.bisect_right(starts, t0) - 1
+            if i >= 0 and t0 < sp[i][1]:
+                us += dur
+        out[label] = [us / 1e3, len(sp)]
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--deck", choices=("flagship", "pdf", "pc", "even",
-                                       "witness"),
+                                       "witness", "laser"),
                     default="flagship")
     ap.add_argument("--insitu", action="store_true",
                     help="in-situ beam, plasma and field records every step")
@@ -101,7 +151,9 @@ def main() -> int:
         return 3
 
     from hipace_tpu_torch.decks import (blowout_wake, drive_witness,
-                                        ion_motion_even, pc_open, pdf_beam)
+                                        ion_motion_even, laser_wake, pc_open,
+                                        pdf_beam)
+    from hipace_tpu_torch.particles import plasma
     from hipace_tpu_torch.pipeline.simulation import Simulation
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -130,9 +182,17 @@ def main() -> int:
                   "diagnostic.beam_output_period = 0\n")
     deck = {"flagship": blowout_wake, "pdf": pdf_beam,
             "pc": pc_open, "even": ion_motion_even,
-            "witness": drive_witness}[args.deck]
+            "witness": drive_witness, "laser": laser_wake}[args.deck]
+    if args.deck == "laser":
+        npart = 0
     sim = Simulation(deck(args.nxy, args.nz, npart, extra), device="cuda",
                      dtype=torch.float32, verbose=0)
+    if args.deck == "laser":
+        adv = sim.slice_step.laser_advance
+        sim.slice_step.laser_advance = named(adv, LASER_RANGES[0])
+        sim.slice_step.laser_advance.mg = adv.mg
+        plasma.gather_laser_aabs = named(plasma.gather_laser_aabs,
+                                         LASER_RANGES[1])
     write_s = []
 
     def step(sim, profiled=False):
@@ -141,7 +201,9 @@ def main() -> int:
                 torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=acts) if profiled \
                 else contextlib.nullcontext() as prof:
-            res = sim.run_step(0)
+            # the step's index: the laser starts from its initial envelope
+            # at step 0 only
+            res = sim.run_step(len(write_s))
             torch.cuda.synchronize()
         t0 = time.perf_counter()
         sim.write_output(len(write_s), res, pre)
@@ -203,6 +265,15 @@ def main() -> int:
                   f"{(count[g] - count1[g]) / d_it:15.2f}")
         print(f"{'total':<30} {(total - sum(ms1.values())) / d_it:16.4f} "
               f"{(sum(count.values()) - sum(count1.values())) / d_it:15.2f}")
+    if args.deck == "laser":
+        parts = range_ms(prof, LASER_RANGES)
+        laser = sum(t for t, _ in parts.values())
+        for label, (t, n) in parts.items():
+            print(f"{label:<30} {t / nz:16.3f} ms/slice in {n / nz:.2f} "
+                  "calls/slice")
+        print(f"the laser's share of the step's device time: "
+              f"{laser / total:.3f} ({laser / nz:.3f} of {total / nz:.3f} "
+              "ms/slice)")
     print("busiest device activities over the profiled step:")
     top = sorted(per_kernel.items(), key=lambda kv: kv[1][0], reverse=True)
     for name, (t, n) in top[:15]:
