@@ -83,7 +83,28 @@ V-cycles; "adaptive dt, small", ``ADAPTIVE_VACUUM`` at 32^2 x 32 float64
 for 20 steps on the card against the CPU (the dt sequence equal to 1e-12,
 landing on max_time, then a dt = 0 step); and the flagship with
 ``hipace.dt = adaptive`` at 1023^2 x 16, its dt per step and its host reads
-against a fixed-dt step. It imports nothing but the port.
+against a fixed-dt step.
+
+Ionization and collisions: "ionization, small", a 64^2 x 16 float64 step of
+``hipace_tpu_torch.decks.IONIZATION_WAKE`` and of the same under
+LASER_WAKE's pulse, and "collisions, small", one of ``COLLISION_WAKE``, on
+the card against the CPU from the same beam and the same slice draws
+(recorded on the CPU, replayed on the card): fields within 1e-8, equal ion
+levels and electron lanes, spawned positions within 1e-12, momenta within
+1e-10, V-cycles equal; one slice's beam-plasma collision with many beam
+lanes sharing a plasma lane, and the case where the last picker's kick
+must stay (ROADMAP R17), on the card as on the CPU. Then the ionization
+path, IONIZATION_WAKE at 1023^2 x 64 in float32 (K1/K2/K3 against the slice
+structure with one ionization gather per slice, the events per step, no
+charge ahead of the beam, the host's reads, the module's time, K2 on the
+ions' x_prev against its plain version with its bound), and the collision
+path, COLLISION_WAKE at 1023^2 x 64 in float32 (the flagship's launch
+counts, the host's reads, the collisions' time and launches per slice,
+the non-finite lanes that float32 leaves, ROADMAP R19, in the JAX package
+as here, and float32's kicks against float64's on one slice), then one
+float64 step of it at full width, its fields and momenta finite and the
+plasma's energy within 1e-3 of the same step without collisions. It
+imports nothing but the port.
 
 Beside each kernel's time (CUDA events around calls queued behind a device
 sleep) it prints the kernel's bound: the least time the card could take, the
@@ -1709,6 +1730,543 @@ def adaptive_flagship(torch):
         raise AssertionError("adaptive flagship: host reads or dt wrong")
 
 
+# ------------------------------------------------- ionization, collisions
+ION_SMALL = 64
+# LASER_WAKE's pulse (a0 4.5, w0 4 and L0 2 plasma skin depths, at the
+# origin, lambda0 0.8 um) over IONIZATION_WAKE's plasma, in its SI units
+ION_LASER = """
+lasers.names = laser
+lasers.lambda0 = .8e-6
+lasers.solver_type = multigrid
+laser.a0 = 4.5
+laser.position_mean = 0. 0. 0.
+laser.w0 = 4. * kp_inv
+laser.L0 = 2. * kp_inv
+"""
+
+
+def card_and_cpu(torch, deck_fn):
+    """One float64 step of the deck deck_fn() on the CPU plain path and on
+    the kernels, from the CPU simulation's beam and with its slice draws
+    (recorded on the CPU, replayed on the card). Returns (cpu simulation,
+    card simulation, CPU result, card result)."""
+    from hipace_tpu_torch.convert import carry_state
+    from hipace_tpu_torch.pipeline.simulation import Simulation
+    cpu = Simulation(deck_fn(), device="cpu", verbose=0)
+    gpu = Simulation(deck_fn(), device="cuda", dtype=torch.float64,
+                     verbose=0)
+    carry_state(gpu, {k: v.numpy() for k, v in cpu.binned.items()
+                      if torch.is_tensor(v)}, cpu.dt, cpu.time,
+                [b.total_charge for b in cpu.beam_cfgs])
+    drawn, own = [], cpu.slice_step.draws
+
+    def record(name, *shape):
+        drawn.append(own(name, *shape))
+        return drawn[-1]
+
+    cpu.slice_step.draws = record
+    ref = cpu.run_step(0)
+    gpu.slice_step.draws = lambda name, *shape: drawn.pop(0).to("cuda")
+    got = gpu.run_step(0)
+    if drawn:
+        raise AssertionError(f"the card took {len(drawn)} draws fewer")
+    return cpu, gpu, ref, got
+
+
+def rel_err(got, ref):
+    got, ref = got.cpu().double(), ref.cpu().double()
+    scale = float(ref.abs().max())
+    return float((got - ref).abs().max()) / (scale if scale > 0 else 1.0)
+
+
+def a0_sensitivity(torch):
+    """How far the spawned electrons' positions of the laser variant move
+    on the CPU when a0 moves by one unit in the last place: the deck's own
+    sensitivity to roundoff (electrons born at rest inside a pulse of a0
+    4.5 reach |u| ~ 10^5 c)."""
+    from hipace_tpu_torch.decks import ionization_wake
+    from hipace_tpu_torch.pipeline.simulation import Simulation
+    elec = []
+    for a0 in ("4.5", "4.500000000000001"):
+        sim = Simulation(ionization_wake(ION_SMALL, SMALL_NZ, 0, ION_LASER
+                                         .replace("laser.a0 = 4.5",
+                                                  f"laser.a0 = {a0}")),
+                         device="cpu", verbose=0)
+        elec.append(sim.run_step(0)["plasma"][0])
+    live = elec[0]["valid"] & elec[1]["valid"]
+    return max(rel_err(elec[1][k][live], elec[0][k][live])
+               for k in ("x", "y"))
+
+
+@phase("ionization, small")
+def ionization_small_phase(torch):
+    """A 64^2 x 16 float64 step of IONIZATION_WAKE, and of the same with
+    LASER_WAKE's pulse over its plasma, on the kernels against the CPU plain
+    path from the same beam and draws: fields within 1e-8, the ions' levels
+    and the electrons' live lanes equal, V-cycles equal on every slice, the
+    spawned electrons' positions within 1e-12, with the laser within a
+    hundred times the distance a one-ulp change of a0 moves them on the CPU
+    (the kernels' atomics reorder sums on every slice, not once)."""
+    from hipace_tpu_torch.decks import ionization_wake
+    bad = []
+    for label, extra in (("", ""), (", with a laser", ION_LASER)):
+        pos_tol = 100 * a0_sensitivity(torch) if extra else 1e-12
+        _, _, ref, got = card_and_cpu(torch, lambda: ionization_wake(
+            ION_SMALL, SMALL_NZ, 0, extra))
+        rel = rel_err(got["diag"], ref["diag"])
+        (e_ref, i_ref), (e_got, i_got) = ref["plasma"], got["plasma"]
+        same_lev = bool((i_got["ion_lev"].cpu() == i_ref["ion_lev"]).all())
+        live = e_ref["valid"]
+        same_live = bool((e_got["valid"].cpu() == live).all())
+        pos = max(rel_err(e_got[k][live.cuda()], e_ref[k][live])
+                  for k in ("x", "y"))
+        cycles = got["mg_cycles"] == ref["mg_cycles"]
+        events = (int(got["ionized"]), int(ref["ionized"]))
+        ok = (rel < 1e-8 and same_lev and same_live and pos < pos_tol
+              and cycles and events[0] == events[1] > 0)
+        print(f"ionization, small: {ION_SMALL}^2 x {SMALL_NZ} float64 "
+              f"IONIZATION_WAKE{label}, kernels vs CPU plain path: fields max"
+              f" rel err {rel:.3e} (tol 1e-8), ion levels equal {same_lev}, "
+              f"electron lanes equal {same_live} ({int(live.sum())} live), "
+              f"spawned positions {pos:.3e} (tol {pos_tol:.3e}), ionization "
+              f"events "
+              f"{events[0]} (CPU {events[1]}), V-cycles equal {cycles} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            bad.append(label or "no laser")
+    if bad:
+        raise AssertionError(f"ionization small step mismatch: {bad}")
+
+
+def duplicate_partner_case(torch, device, order):
+    """The R17 case: beam lanes A and B in one cell with one plasma lane, A
+    rejecting the plasma lane's kick and B taking it, in the given order.
+    Returns whether the plasma lane moved."""
+    from hipace_tpu_torch.decks import collision_wake
+    from hipace_tpu_torch.particles import collisions as coll
+    from hipace_tpu_torch.pipeline.simulation import Simulation
+    sim = Simulation(collision_wake(16, 4, 100), device="cpu", verbose=0)
+    g, f64 = sim.geom, dict(dtype=torch.float64, device=device)
+    x0, y0 = g.prob_lo[0] + 5.5 * g.dx, g.prob_lo[1] + 7.5 * g.dy
+    lanes = {"A": (0.3, -0.2, 1500., 0.5, 0.9),
+             "B": (-0.1, 0.4, 2500., 0.5, 0.1)}
+    ux, uy, uz, w, r2 = (torch.tensor(v, **f64)
+                         for v in zip(*(lanes[c] for c in order)))
+    beam = {"x": torch.full((2,), x0, **f64), "y": torch.full((2,), y0, **f64),
+            "ux": ux, "uy": uy, "uz": uz, "w": w,
+            "valid": torch.ones(2, dtype=torch.bool, device=device)}
+    plasma = {"x": torch.tensor([x0 + 0.1 * g.dx], **f64),
+              "y": torch.tensor([y0], **f64),
+              "ux": torch.tensor([0.01], **f64),
+              "uy": torch.tensor([-0.02], **f64),
+              "psi": torch.ones(1, **f64), "w": torch.ones(1, **f64),
+              "valid": torch.ones(1, dtype=torch.bool, device=device)}
+    draws = {"sort": torch.tensor([0.5], **f64),
+             "pick": torch.tensor([0.3, 0.6], **f64),
+             "kick": torch.stack([torch.full((2,), 0.4, **f64),
+                                  torch.full((2,), 0.7, **f64),
+                                  torch.zeros(2, **f64), r2])}
+    _, out = coll.beam_plasma_collision(
+        beam, plasma, g, sim.beam_cfgs[0], sim.plasma_cfgs[0], sim.pc, -1.0,
+        1e24, True, draws, 1.0)
+    return bool(out["ux"][0] != plasma["ux"][0])
+
+
+@phase("collisions, small")
+def collisions_small_phase(torch):
+    """A 64^2 x 16 float64 step of COLLISION_WAKE on the kernels against
+    the CPU plain path from the same beam and draws: the plasma's and the
+    beam's momenta within 1e-10, fields within 1e-8. Then the duplicate
+    partners: one slice's beam-plasma collision on the card against the CPU
+    with the same draws, many beam lanes sharing a plasma lane, within
+    1e-10; and the R17 case, where the card must keep the last picker's
+    kick as the CPU does."""
+    from hipace_tpu_torch.decks import collision_wake
+    from hipace_tpu_torch.particles import collisions as coll
+    cap = {}
+    cpu, gpu, ref, got = card_and_cpu(torch, lambda: collision_wake(
+        ION_SMALL, SMALL_NZ, 4000))
+    rel = rel_err(got["diag"], ref["diag"])
+    p_ref, p_got = ref["plasma"][0], got["plasma"][0]
+    prel = max(rel_err(p_got[k], p_ref[k]) for k in ("ux", "uy", "psi"))
+    v = ref["binned"]["valid"]
+    brel = max(rel_err(got["binned"][k][v.cuda()], ref["binned"][k][v])
+               for k in ("ux", "uy", "uz"))
+    cycles = got["mg_cycles"] == ref["mg_cycles"]
+    # one slice's beam-plasma collision from the CPU run's own state
+    orig = cpu.slice_step.collide
+
+    def capture(plasmas, emit, dt):
+        if len(emit["x"]) > len(cap.get("emit", {"x": ()})["x"]):
+            cap.update(plasma=plasmas[0], emit=emit, dt=dt)
+        return orig(plasmas, emit, dt)
+
+    cpu.slice_step.collide = capture
+    cpu.run_step(1)
+    emit, plasma = cap["emit"], cap["plasma"]
+    cells, _ = coll._cell_of(emit["x"], emit["y"], cpu.geom)
+    per_cell = torch.bincount(cells, minlength=cpu.geom.nx * cpu.geom.ny + 1)
+    shared = int((per_cell[:-1] > 1).sum())
+    gen = torch.Generator().manual_seed(5)
+    nb, n = emit["x"].numel(), plasma["x"].numel()
+    draws = {"sort": torch.rand(n, generator=gen, dtype=torch.float64),
+             "pick": torch.rand(nb, generator=gen, dtype=torch.float64),
+             "kick": torch.rand((4, nb), generator=gen, dtype=torch.float64)}
+    args = (cpu.geom, cpu.beam_cfgs[0], cpu.plasma_cfgs[0], cpu.pc, -1.0,
+            1e24, True)
+    b_ref, q_ref = coll.beam_plasma_collision(emit, plasma, *args, draws,
+                                              cap["dt"])
+
+    def on_card(d):
+        return {k: t.cuda() for k, t in d.items()}
+
+    b_got, q_got = coll.beam_plasma_collision(
+        on_card(emit), on_card(plasma), *args, on_card(draws), cap["dt"])
+    drel = max([rel_err(b_got[k], b_ref[k]) for k in ("ux", "uy", "uz")]
+               + [rel_err(q_got[k], q_ref[k]) for k in ("ux", "uy", "psi")])
+    moved = ((q_got["ux"].cpu() != plasma["ux"])
+             == (q_ref["ux"] != plasma["ux"])).all()
+    r17 = {(dev, order): duplicate_partner_case(torch, dev, order)
+           for dev in ("cpu", "cuda") for order in ("AB", "BA")}
+    r17_ok = all(r17[(dev, "AB")] and not r17[(dev, "BA")]
+                 for dev in ("cpu", "cuda"))
+    ok = (rel < 1e-8 and prel < 1e-10 and brel < 1e-10 and cycles
+          and drel < 1e-10 and bool(moved) and r17_ok and shared > 0)
+    print(f"collisions, small: {ION_SMALL}^2 x {SMALL_NZ} float64 "
+          f"COLLISION_WAKE, kernels vs CPU plain path: fields max rel err "
+          f"{rel:.3e} (tol 1e-8), plasma momenta {prel:.3e}, beam momenta "
+          f"{brel:.3e} (tol 1e-10), V-cycles equal {cycles}; one slice's "
+          f"beam-plasma collision ({nb} beam lanes, {shared} cells where "
+          f"several pick the cell's one plasma lane) card vs CPU {drel:.3e} "
+          f"(tol 1e-10), the same plasma lanes kicked {bool(moved)}; R17 "
+          f"case (the plasma lane moves when the accepting lane is last): "
+          f"{r17} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("collision small step mismatch")
+
+
+def counted_ionization(torch):
+    """Count the K2 launches of the ionization modules, and keep the
+    arguments of one call; returns (counts, kept, undo)."""
+    from hipace_tpu_torch.ops.gather import gather_main
+    from hipace_tpu_torch.particles import plasma as pl
+    orig, counts, kept = pl.ionization_module, {"K2": 0, "calls": 0}, {}
+
+    def counted(*args, **kwargs):
+        before = gather_main.launches
+        out = orig(*args, **kwargs)
+        counts["K2"] += gather_main.launches - before
+        # the middle slice of the first step, behind the beam
+        if counts["calls"] == args[3].nz // 2:
+            kept["args"] = args
+        counts["calls"] += 1
+        return out
+
+    pl.ionization_module = counted
+
+    def undo():
+        pl.ionization_module = orig
+    return counts, kept, undo
+
+
+@phase("ionization path")
+def ionization_path(torch, counts, results):
+    """IONIZATION_WAKE at 1023^2 x 64 in float32 with rho deposited: one
+    warm-up step and two timed steps, in the first of which the host's
+    reads of the device are counted; the K1/K2/K3 launches against the slice structure with
+    two species and one ionization gather per slice, finite fields, the
+    beam's lanes conserved, the ionization events per step, no charge ahead
+    of the beam's head (below 1e-3 qe ne, test_ionization.py's bound); then
+    the ionization module's device time per slice and K2 on the path's own
+    ion lanes at x_prev against its plain version, timed, with its bound."""
+    from hipace_tpu_torch.decks import ionization_wake
+    from hipace_tpu_torch.ops import gather as gat
+    from hipace_tpu_torch.ops.deposit import deposit
+    from hipace_tpu_torch.ops.gather import gather_main
+    from hipace_tpu_torch.ops.mg_kernel import mg_solve
+    from hipace_tpu_torch.particles import plasma as pl
+    from hipace_tpu_torch.particles.plasma import cell_positions
+    from hipace_tpu_torch.pipeline.simulation import Simulation
+    sim = Simulation(ionization_wake(NXY, NZ, 0, "diagnostic.field_data = "
+                                     "all rho\n"),
+                     device="cuda", dtype=torch.float32, verbose=0)
+    g = sim.geom
+    n0 = int(sim.binned["valid"].sum())
+    steps = 3
+    for fn in (deposit, gather_main, mg_solve):
+        fn.launches = 0
+    ion_k2, kept, undo = counted_ionization(torch)
+    times, events, copies = [], [], 0
+    try:
+        for step in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if step == 1:
+                # counted after the warm-up's one-time copies (the ADK table)
+                res, copies = sync_counted(torch, lambda: sim.run_step(1))
+            else:
+                res = sim.run_step(step)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            events.append(int(res["ionized"]))
+            sim.binned = res["binned"]
+            sim.time += sim.dt
+    finally:
+        undo()
+    counts.update({"K1": deposit.launches, "K2": gather_main.launches,
+                   "K3": mg_solve.launches, "K2 ionization": ion_k2["K2"]})
+    cfgs = sim.plasma_cfgs
+    per_step = {"K1": sum(int(p.neutralize_background) for p in cfgs)
+                + g.nz * (len(cfgs) + 2),
+                "K2": g.nz * (sum(p.n_subcycles for p in cfgs)
+                              + sim.beam_cfgs[0].n_subcycles + 1),
+                "K3": g.nz, "K2 ionization": g.nz}
+    n = int(sim.binned["valid"].sum())
+    finite = bool(torch.isfinite(res["diag"]).all())
+    comps = sim.cfg.diag_comps
+    rho = res["diag"][:, comps.index("rho")]
+    zeta = g.prob_lo[2] + (torch.arange(g.nz, device="cuda") + 0.5) * g.dz
+    qe, ne = 1.602176634e-19, 1.25e24
+    ahead = float(rho[zeta > 25e-6].abs().max()) / (qe * ne)
+    near = float(rho.abs().max()) / (qe * ne)
+    ion, elec = res["plasma"][1], res["plasma"][0]
+    print(f"ionization path {NXY}^2 x {NZ} float32, species "
+          f"{[p.name for p in cfgs]} with lanes "
+          f"{[int(p['x'].numel()) for p in res['plasma']]}, {n0} beam "
+          f"particles: fields finite {finite}, beam particles {n} (start "
+          f"{n0}), ionization events per step {events}, electrons live "
+          f"{int(elec['valid'].sum())}, ions at level 1 "
+          f"{int((ion['ion_lev'] > 0).sum())}; |rho| ahead of the beam's "
+          f"head {ahead:.3e} qe ne (tol 1e-3), largest {near:.3e} qe ne; "
+          f"{CARD['line']}", flush=True)
+    slices = g.nz * (steps - 1)
+    t_step = sum(times[1:])
+    print(f"ionization path: {slices / t_step:.3f} slices/s, "
+          f"{1e3 * t_step / slices:.3f} ms/slice over {steps - 1} timed steps"
+          f" after 1 warm-up; per timed step "
+          + ", ".join(f"{g.nz / t:.3f}" for t in times[1:])
+          + f"; {CARD['line']}", flush=True)
+    print(f"ionization path device-to-host copies per slice (synchronizing "
+          f"reads, first timed step): {copies / g.nz:.3f} (the flagship's, "
+          f"the beam's two per slice and the step's own four: "
+          f"{(2 * g.nz + 4) / g.nz:.3f})", flush=True)
+    for k, count in counts.items():
+        print(f"ionization path launches {k}: {count} (slice structure "
+              f"predicts {per_step[k] * steps}: per slice two species' "
+              f"deposits and pushes, the beam's {sim.beam_cfgs[0].n_subcycles}"
+              f" subcycles, one ionization gather)", flush=True)
+    # the module and its gather alone, on the kept call's arguments
+    args = kept["args"]
+    draw = torch.rand(args[0]["x"].numel(), device="cuda")
+    mod_ms = cuda_ms(lambda: pl.ionization_module(*args[:-1], draw))
+    print(f"ionization path, the ionization module's device time per slice "
+          f"(one call on the path's state, its K2 gather included): "
+          f"{mod_ms:.4f} ms, {100 * mod_ms / (1e3 * t_step / slices):.1f}% "
+          f"of the wall time per slice; {CARD['line']}", flush=True)
+    ion_state, fields = args[0], args[2]
+    planes = pl.field_planes(fields)
+    ym, xm = cell_positions(ion_state["x_prev"], ion_state["y_prev"],
+                            ion_state["valid"], g)
+    got = gat.gather_main_cuda(planes, ym, xm, 2)
+    ref = gat.gather_main_plain(planes, ym, xm, 2)
+    torch.cuda.synchronize()
+    ok_k2, err, rel, tol = compare("K2", "float32", got, ref)
+    ms = cuda_ms(lambda: gat.gather_main_cuda(planes, ym, xm, 2))
+    plain_ms = cuda_ms(lambda: gat.gather_main_plain(planes, ym, xm, 2))
+    NY, NX = g.slice_shape
+    live = int((ym < 1.5 * NY).sum())
+    print(f"K2 float32 ionization path, ADK gather at the ions' x_prev "
+          f"N={ym.numel()}, {live} live: max abs err {err:.3e}, / max "
+          f"{rel:.3e} (tol {tol:g}) {'ok' if ok_k2 else 'FAIL'}; kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.3f} ms; {CARD['line']}", flush=True)
+    b_ms, by = bound_line("K2 ionization", "float32", ms,
+                          4 * (5 * stencil_cells(torch, ym, xm, NY, NX, 2)
+                               + 8 * ym.numel()), 2 * 6 * 16 * live, 4)
+    results[("K2 ionization", "float32")] = (err, ms, plain_ms, b_ms, by)
+    if (not finite or n != n0 or not ok_k2 or min(events) <= 0
+            or ahead >= 1e-3 or copies > 2 * g.nz + 4
+            or any(c != per_step[k] * steps for k, c in counts.items())):
+        raise AssertionError("ionization path: fields, beam, events, charge "
+                             "ahead of the beam, K2, host reads or launch "
+                             "counts wrong")
+
+
+def plasma_energy(p):
+    """The plasma's weighted kinetic energy sum w (gamma - 1), float64."""
+    v = p["valid"]
+    ux, uy, psi = (p[k][v].double() for k in ("ux", "uy", "psi"))
+    g = (1.0 + ux * ux + uy * uy + psi * psi) / (2.0 * psi)
+    return float((p["w"][v].double() * (g - 1.0)).sum())
+
+
+def nonfinite(res, beam):
+    """Non-finite (plasma lanes, beam lanes, field values) after a step."""
+    import torch
+    p = res["plasma"][0]
+    lanes = (~torch.isfinite(p["ux"]) | ~torch.isfinite(p["psi"])) \
+        & p["valid"]
+    blanes = (~torch.isfinite(beam["uz"]) | ~torch.isfinite(beam["ux"])) \
+        & beam["valid"]
+    return (int(lanes.sum()), int(blanes.sum()),
+            int((~torch.isfinite(res["diag"])).sum()))
+
+
+@phase("collision path")
+def collision_path(torch, counts, results):
+    """COLLISION_WAKE at 1023^2 x 64 in float32: one warm-up step and two
+    timed steps, in the first of which the host's reads of the device are
+    counted; the
+    K1/K2/K3 launches equal to the flagship's (collisions launch none of
+    the three), the collisions' device time and launches per slice on the
+    path's own state, and what float32 does to them (ROADMAP R19: their
+    guards and products leave float32's range, in the JAX package as here,
+    tools/collision_f32.py): the non-finite lanes after each step, and one
+    slice's kicks against float64's. Then one step in float64 at 1023^2 x
+    64 with collisions and one without from the same beam: fields and
+    momenta finite, the plasma's weighted energy within 1e-3 of the step
+    without collisions."""
+    from torch.autograd import DeviceType
+    from hipace_tpu_torch.convert import carry_state
+    from hipace_tpu_torch.decks import blowout_wake, collision_wake
+    from hipace_tpu_torch.ops.deposit import deposit
+    from hipace_tpu_torch.ops.gather import gather_main
+    from hipace_tpu_torch.ops.mg_kernel import mg_solve
+    from hipace_tpu_torch.particles import collisions as coll
+    from hipace_tpu_torch.pipeline.simulation import Simulation
+    sim = Simulation(collision_wake(NXY, NZ, NPART), device="cuda",
+                     dtype=torch.float32, verbose=0)
+    g, st = sim.geom, sim.slice_step
+    orig, kept = st.collide, {"nb": 0}
+
+    def keep(plasmas, emit, dt):
+        # the warm-up step's fullest slice: float32 leaves later steps'
+        # states non-finite (R19)
+        if sim.time == 0.0 and emit["x"].numel() >= kept["nb"]:
+            kept.update(args=(plasmas, emit, dt), nb=emit["x"].numel())
+        return orig(plasmas, emit, dt)
+
+    st.collide = keep
+    steps = 3
+    for fn in (deposit, gather_main, mg_solve):
+        fn.launches = 0
+    times, copies, bad = [], 0, []
+    for step in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if step == 1:
+            res, copies = sync_counted(torch, lambda: sim.run_step(1))
+        else:
+            res = sim.run_step(step)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        bad.append(nonfinite(res, res["binned"]))
+        sim.binned = res["binned"]
+        sim.time += sim.dt
+    st.collide = orig
+    counts.update({"K1": deposit.launches, "K2": gather_main.launches,
+                   "K3": mg_solve.launches})
+    pcfg, bcfg = sim.plasma_cfgs[0], sim.beam_cfgs[0]
+    per_step = {"K1": int(pcfg.neutralize_background) + 3 * g.nz,
+                "K2": g.nz * (pcfg.n_subcycles + bcfg.n_subcycles),
+                "K3": g.nz}
+    slices = g.nz * (steps - 1)
+    t_step = sum(times[1:])
+    print(f"collision path {NXY}^2 x {NZ} float32, {NPART} beam particles, "
+          f"collisions {sim.cfg.collisions}: non-finite (plasma lanes, beam "
+          f"lanes, field values) after each step {bad} (ROADMAP R19); "
+          f"{slices / t_step:.3f} slices/s, {1e3 * t_step / slices:.3f} "
+          f"ms/slice over {steps - 1} timed steps after 1 warm-up; per timed "
+          f"step " + ", ".join(f"{g.nz / t:.3f}" for t in times[1:])
+          + f"; {CARD['line']}", flush=True)
+    print(f"collision path device-to-host copies per slice (synchronizing "
+          f"reads, first timed step): {copies / g.nz:.3f} (the flagship's, "
+          f"the beam's two per slice and the step's own four: "
+          f"{(2 * g.nz + 4) / g.nz:.3f})", flush=True)
+    for k, count in counts.items():
+        print(f"collision path launches {k}: {count} (the flagship's "
+              f"{per_step[k] * steps})", flush=True)
+    # the collisions alone on the warm-up's fullest slice: device time and
+    # launches per call (one call per slice)
+    plasmas, emit, dt = kept["args"]
+    ms = cuda_ms(lambda: st.collide(plasmas, emit, dt))
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        st.collide(plasmas, emit, dt)
+        torch.cuda.synchronize()
+    launches = sum(e.device_type == DeviceType.CUDA for e in prof.events())
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    n, nb = plasmas[0]["x"].numel(), emit["x"].numel()
+    d = {"sort": torch.rand(n, generator=gen, device="cuda"),
+         "pick": torch.rand(nb, generator=gen, device="cuda"),
+         "kick": torch.rand((4, nb), generator=gen, device="cuda")}
+    dpp = {"sort": d["sort"], "kick": torch.rand((4, n), generator=gen,
+                                                 device="cuda"),
+           "wrap kick": torch.rand((4, n), generator=gen, device="cuda")}
+    cfg, kick = sim.cfg, {}
+    # the same-species collision alone: its kicks do not stay (R18)
+    pp_ms = cuda_ms(lambda: coll.plasma_plasma_collision(
+        plasmas[0], None, g, pcfg, pcfg, cfg.pc, -1.0,
+        cfg.background_density_SI, True, dpp, True))
+    print(f"collision path, the collisions of one slice (the warm-up "
+          f"step's fullest slice, {kept['nb']} beam lanes, "
+          f"{plasmas[0]['x'].numel()} plasma lanes): {ms:.4f} ms (CUDA "
+          f"events), {launches} launches, "
+          f"{100 * ms / (1e3 * t_step / slices):.1f}% of the wall time per "
+          f"slice; the same-species collision alone {pp_ms:.4f} ms; "
+          f"{CARD['line']}", flush=True)
+    # float32 against float64 on that state, the same draws
+    for dtype in (torch.float32, torch.float64):
+        def cast(t):
+            return {k: v.to(dtype) if v.is_floating_point() else v
+                    for k, v in t.items()}
+        bo, po = coll.beam_plasma_collision(
+            cast(emit), cast(plasmas[0]), g, bcfg, pcfg, cfg.pc, -1.0,
+            cfg.background_density_SI, True, cast(d), dt)
+        qo, _ = coll.plasma_plasma_collision(
+            cast(plasmas[0]), None, g, pcfg, pcfg, cfg.pc, -1.0,
+            cfg.background_density_SI, True, cast(dpp), True)
+        duz = (bo["uz"].double() - emit["uz"].double()).abs()
+        kick[dtype] = (float(duz.nan_to_num(0.0).max()),
+                       int((~torch.isfinite(bo["uz"])).sum()),
+                       int((~torch.isfinite(qo["ux"])
+                            & plasmas[0]["valid"]).sum()))
+    f32, f64 = kick[torch.float32], kick[torch.float64]
+    print(f"collision path, one slice's collisions in float32 against "
+          f"float64 (the same state and draws): largest finite beam uz kick "
+          f"{f32[0]:.4e} against {f64[0]:.4e}, non-finite beam uz "
+          f"{f32[1]} against {f64[1]} of {nb}, non-finite same-species ux "
+          f"{f32[2]} against {f64[2]} (ROADMAP R19)", flush=True)
+    del res, sim, plasmas, emit, kept, st
+    torch.cuda.empty_cache()
+    # float64 at full width: one step with and one without collisions from
+    # one beam
+    runs = []
+    for fn in (collision_wake, blowout_wake):
+        s64 = Simulation(fn(NXY, NZ, NPART), device="cuda",
+                         dtype=torch.float64, verbose=0)
+        if runs:
+            carry_state(s64, {k: v.cpu().numpy() for k, v in beam.items()
+                              if torch.is_tensor(v)}, s64.dt, s64.time)
+        else:
+            beam = s64.binned
+        r = s64.run_step(0)
+        runs.append((plasma_energy(r["plasma"][0]),
+                     nonfinite(r, r["binned"])))
+        del s64, r
+        torch.cuda.empty_cache()
+    (e_coll, bad64), (e_none, _) = runs
+    rel = abs(e_coll - e_none) / abs(e_none)
+    print(f"collision path in float64, {NXY}^2 x {NZ}, one step: non-finite "
+          f"(plasma lanes, beam lanes, field values) {bad64}; the plasma's "
+          f"weighted energy {e_coll!r} with collisions, {e_none!r} without "
+          f"from the same beam, relative change {rel:.3e} (tol 1e-3); "
+          f"{CARD['line']}", flush=True)
+    if (copies > 2 * g.nz + 4 or rel >= 1e-3 or any(bad64)
+            or any(c != per_step[k] * steps for k, c in counts.items())):
+        raise AssertionError("collision path: host reads, float64 momenta "
+                             "or energy, or launch counts wrong")
+
+
 def read_insitu(path):
     """An in-situ file's records: a JSON dtype header, then the records."""
     import numpy as np
@@ -1984,6 +2542,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     adaptive_small_phase(torch)
     adaptive_flagship(torch)
+    torch.cuda.empty_cache()
+    ionization_small_phase(torch)
+    collisions_small_phase(torch)
+    ion_counts: dict = {}
+    ionization_path(torch, ion_counts, results)
+    torch.cuda.empty_cache()
+    collision_counts: dict = {}
+    collision_path(torch, collision_counts, results)
 
     if failures:
         print(f"chip_smoke FAILED phases: {failures}", file=sys.stderr)
@@ -2009,7 +2575,10 @@ def main() -> int:
                  "subcycles)", witness_counts["K2 beam"]),
                 ("K3", "K3 complex",
                  "K3 mg_solve, laser path (complex envelope, "
-                 "node-centered)", laser_counts["K3 complex"])]
+                 "node-centered)", laser_counts["K3 complex"]),
+                ("K2", "K2 ionization",
+                 "K2 gather_main, ionization path (ADK field gather at the "
+                 "ions' previous positions)", ion_counts["K2 ionization"])]
     for k, key, label, launches in entries:
         _, source, replaces = KERNELS[k]
         err, ms, plain_ms, bound_ms, bound_by = results[(key, "float32")]

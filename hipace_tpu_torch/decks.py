@@ -55,6 +55,24 @@ like the reference's ``adaptive_time_step.1Rank`` case (32^3 cells over
 with four subcycles, an external Ez = z/2, ``plasmas.adaptive_density`` 1,
 nt_per_betatron 89.7597901025655) with ``hipace.max_time``, so that the run
 lands on it and takes one more step with dt = 0.
+
+``IONIZATION_WAKE`` is the JAX package's reduced copy of the reference's
+``examples/blowout_wake/inputs_ionization_SI`` (``tests/test_ionization.py``:
+SI units, ne = 1.25e24 m^-3, a (-20..20 um)^2 x (-30..30 um) box): a fixed_ppc
+flattop beam of density 4 ne, radius kp_inv / 2, 2 kp_inv long behind z =
+25 um, uz = 2000, tunnel-ionizes hydrogen (``ion``: ppc 1 1,
+``initial_ion_level`` 0) whose electrons join ``elec`` (ppc 0 0); neither
+species has a neutralizing background. ``hipace.dt`` is 1e-12 s, the
+``ionization.2Rank`` checksum case's, so the beam moves. It is that test's
+deck on an nxy^2 x nz grid and is not the reference's file. Full width is
+nxy = 1023: 1,046,529 ion lanes and as many electron slots.
+
+``COLLISION_WAKE`` is the flagship with ``hipace.background_density_SI =
+1e24`` and two Coulomb collisions, ``pp`` (plasma with itself) and ``bp``
+(the beam against the plasma): the shape of the ``collisions.SI.1Rank`` and
+``collisions_beam.SI.1Rank`` checksum cases (the reference's
+``examples/blowout_wake/inputs_SI`` with one of the two each) in one deck on
+the flagship's grid, and not those files.
 """
 
 from __future__ import annotations
@@ -290,3 +308,65 @@ def adaptive_vacuum(nxy: int, nz: int, max_step: int = 20,
     max_time, followed by the deck lines in `extra`."""
     return Inputs(ADAPTIVE_VACUUM.format(nxy=nxy, nz=nz, max_step=max_step,
                                          max_time=max_time) + extra)
+
+
+IONIZATION_WAKE = """
+amr.n_cell = {nxy} {nxy} {nz}
+my_constants.ne = 1.25e24
+my_constants.wp = sqrt(ne * q_e^2 / (epsilon0 * m_e))
+my_constants.kp = wp / clight
+my_constants.kp_inv = 1. / kp
+max_step = 0
+hipace.dt = 1e-12
+hipace.depos_order_xy = 2
+boundary.field = Dirichlet
+boundary.particle = Periodic
+geometry.prob_lo = -20.e-6 -20.e-6 -30.e-6
+geometry.prob_hi =  20.e-6  20.e-6  30.e-6
+beams.names = beam
+beam.injection_type = fixed_ppc
+beam.profile = flattop
+beam.zmin = 25.e-6 - 2. * kp_inv
+beam.zmax = 25.e-6
+beam.radius = kp_inv / 2
+beam.density = 4. * ne
+beam.u_mean = 0. 0. 2000
+beam.u_std = 0. 0. 0.
+beam.ppc = 1 1 1
+plasmas.names = elec ion
+elec.density(x,y,z) = ne
+elec.ppc = 0 0
+elec.element = electron
+elec.neutralize_background = false
+ion.density(x,y,z) = ne
+ion.ppc = 1 1
+ion.element = H
+ion.mass_Da = 1.008
+ion.initial_ion_level = 0
+ion.ionization_product = elec
+diagnostic.output_period = 0
+"""
+
+
+def ionization_wake(nxy: int, nz: int, npart: int = 0,
+                    extra: str = "") -> Inputs:
+    """IONIZATION_WAKE on an nxy^2 x nz grid, followed by the deck lines in
+    `extra`; npart is unused (the fixed_ppc beam's count follows the
+    grid), kept so that every deck function takes the same arguments."""
+    return Inputs(IONIZATION_WAKE.format(nxy=nxy, nz=nz) + extra)
+
+
+COLLISION_WAKE = BLOWOUT_WAKE + """\
+hipace.background_density_SI = 1e24
+hipace.collisions = pp bp
+pp.species = plasma plasma
+bp.species = beam plasma
+"""
+
+
+def collision_wake(nxy: int, nz: int, npart: int, extra: str = "") -> Inputs:
+    """COLLISION_WAKE on an nxy^2 x nz grid with an npart-particle beam,
+    followed by the deck lines in `extra`; full width is nxy = 1023 with
+    the flagship's npart."""
+    return Inputs(COLLISION_WAKE.format(nxy=nxy, nz=nz, npart=npart)
+                  + extra)

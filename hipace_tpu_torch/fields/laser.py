@@ -238,6 +238,10 @@ def initial_chi(plasma_cfgs, geom: Geometry, pc: PhysConst, c_t: float,
     chi = torch.zeros((NY, NX), dtype=dtype, device=device)
     for pcfg in plasma_cfgs:
         fac = pcfg.charge ** 2 * pc.mu0 / pcfg.mass
+        if pcfg.can_ionize:
+            # the starting level's square on a charge it already multiplied
+            # (ROADMAP R16); 0 for a neutral gas
+            fac *= pcfg.init_ion_lev ** 2
         dens = pcfg.density_fn()(X, Y, torch.full_like(X, c_t))
         chi = chi + dens * fac
     return chi

@@ -26,12 +26,24 @@ the push's gamma and forces, the deposits' gamma, and the explicit
 deposit's sixth Sx/Sy channel, combined with the grid differences of
 |a|^2.
 
-Not ported: ionization and the MR fine patch.
+Field ionization (ref PlasmaParticleContainer.cpp:263-461): an ionizable
+species carries its lanes' ion level ``ion_lev`` (int32) and a particle
+identity ``pid``; the level scales each lane's charge in the pushes and
+deposits (q_m_c and the charge density by the level, the laser's factor by
+its square), as in the JAX package, on top of a configured charge that
+``initial_ion_level`` >= 1 has already multiplied (ROADMAP R16).
+``ionization_module`` is the ADK step of one slice on given uniforms; its
+field gather is K2. A species that does not ionize has ``ion_lev`` 1 and
+its arithmetic is unchanged.
+
+Not ported: the MR fine patch.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import math
 
 import torch
 
@@ -42,7 +54,8 @@ from ..ops.deposit import deposit
 from ..ops.gather import PLANE_NAMES, gather_laser_aabs, gather_main
 from ..ops.shape import DW_KIND, W_KIND
 from ..parser import Inputs, TorchFunction, deck_function
-from ..utils.atomic_data import ATOMIC_WEIGHTS_DA
+from .. import constants as cst
+from ..utils.atomic_data import ATOMIC_WEIGHTS_DA, IONIZATION_ENERGIES_EV
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,6 +70,14 @@ class PlasmaConfig:
     hollow_core_radius: float = 0.0
     max_qsa_weighting_factor: float = 35.0
     neutralize_background: bool = True
+    # field ionization (ref PlasmaParticleContainer.cpp:380-461): the
+    # species' starting level (-1: not given), the product species' name
+    # and the per-level ADK constants (power, prefactor, exp_prefactor),
+    # which Simulation attaches once dz and the background density are known
+    can_ionize: bool = False
+    init_ion_lev: int = -1
+    ionization_product: str = ""
+    adk: tuple = ()
     u_mean: tuple = (0.0, 0.0, 0.0)
     u_std: tuple = (0.0, 0.0, 0.0)
     min_density: float = 0.0
@@ -85,13 +106,9 @@ class PlasmaConfig:
         def q(key, default, dtype=None):
             return pp.query(key, pa.query(key, default, dtype), dtype)
 
-        for key, what in (("initial_ion_level", unsupported.IONIZATION),
-                          ("can_ionize", unsupported.IONIZATION),
-                          ("ionization_product", unsupported.IONIZATION),
-                          ("fine_ppc", unsupported.MR),
-                          ("fine_transition_cells", unsupported.MR)):
+        for key in ("fine_ppc", "fine_transition_cells"):
             if pp.contains(key):
-                unsupported.fail(f"{name}.{key}", what)
+                unsupported.fail(f"{name}.{key}", unsupported.MR)
         if f"{name}.fine_patch" in inputs._funcs:
             unsupported.fail(f"{name}.fine_patch", unsupported.MR)
 
@@ -110,6 +127,14 @@ class PlasmaConfig:
             mass = pc.m_p * pp.get("mass_Da") / 1.007276466621
         mass = pp.query("mass", mass)
         charge = pp.query("charge", charge)
+        init_ion_lev = pp.query("initial_ion_level", -1, int)
+        can_ionize = pp.query("can_ionize", init_ion_lev >= 0, bool)
+        if init_ion_lev >= 1:
+            # the level multiplies the configured charge here, and the
+            # lanes' ion_lev multiplies it again in the pushes and
+            # deposits, as in the JAX package (ROADMAP R16)
+            charge = (abs(charge) * init_ion_lev if charge > 0
+                      else charge * init_ion_lev)
         dens = deck_function(inputs, (f"{name}.density", "plasmas.density"),
                              ("x", "y", "z"), default="1.")
         table = read_density_table(pp.query("density_table_file", "", str))
@@ -121,7 +146,10 @@ class PlasmaConfig:
             radius=q("radius", float("inf")),
             hollow_core_radius=q("hollow_core_radius", 0.0),
             max_qsa_weighting_factor=q("max_qsa_weighting_factor", 35.0),
-            neutralize_background=q("neutralize_background", True, bool),
+            neutralize_background=q("neutralize_background", not can_ionize,
+                                    bool),
+            can_ionize=can_ionize, init_ion_lev=init_ion_lev,
+            ionization_product=pp.query("ionization_product", "", str),
             u_mean=tuple(pp.query_list("u_mean", [0.0, 0.0, 0.0])),
             u_std=tuple(pp.query_list("u_std", [0.0, 0.0, 0.0])),
             min_density=q("min_density", 0.0),
@@ -194,8 +222,9 @@ def plasma_draws(cfg: PlasmaConfig, geom: Geometry, generator, device,
 
 
 def pad_plasma(st: dict, extra: int) -> dict:
-    """Append `extra` invalid lanes; psi pads with 1 so 1/psi stays
-    finite."""
+    """Append `extra` invalid lanes (an ionization product's slots); psi
+    pads with 1 so 1/psi stays finite, every other attribute (ion_lev and
+    pid included) with 0."""
     if not extra:
         return st
     return {k: torch.cat([v, torch.full(
@@ -210,7 +239,10 @@ def init_plasma(cfg: PlasmaConfig, geom: Geometry, device, dtype,
     PlasmaParticleContainerInit.cpp:17-378). Ordering: ppc slowest, then
     y, then x fastest. A species with a temperature takes its momenta from
     `draws`, plasma_draws' (3, N) normals: u = u_mean + u_std * draw. With
-    ab5 the state holds the AB5 pusher's 25 force-history slots, zero."""
+    ab5 the state holds the AB5 pusher's 25 force-history slots, zero.
+    Every lane has an int32 ion_lev: init_ion_lev for an ionizable species
+    (0 is neutral), else 1; an ionizable species' lanes also carry their
+    index as pid."""
     nx, ny = geom.nx, geom.ny
     px, py = cfg.ppc
     nppc = px * py
@@ -252,9 +284,16 @@ def init_plasma(cfg: PlasmaConfig, geom: Geometry, device, dtype,
     # comes from the dimensionless u first
     if not normalized_units:
         u0, u1 = u0 * SI_c, u1 * SI_c
+    lev0 = cfg.init_ion_lev if cfg.can_ionize else 1
     out = {"x": x, "y": y, "w": w, "ux": u0, "uy": u1, "psi": psi,
            "x_prev": x, "y_prev": y, "ux_half": u0, "uy_half": u1,
-           "psi_half": psi, "valid": valid}
+           "psi_half": psi,
+           "ion_lev": torch.full((x.numel(),), lev0, dtype=torch.int32,
+                                 device=device),
+           "valid": valid}
+    if cfg.can_ionize:
+        out["pid"] = torch.arange(x.numel(), dtype=torch.int32,
+                                  device=device)
     if ab5:
         # ref PlasmaParticleContainer.H:21-46 under HIPACE_USE_AB5_PUSH
         z = torch.zeros_like(x)
@@ -408,6 +447,11 @@ def advance_plasma(p: dict, fields: dict, geom: Geometry, cfg: PlasmaConfig,
     valid, w = p["valid"], p["w"]
     planes = field_planes(fields)
     lnorm = laser_norm(cfg, pc)
+    if cfg.can_ionize:
+        # each lane's charge is its level times the species' (R16)
+        ion = p["ion_lev"].to(x.dtype)
+        q_m_c = q_m_c * ion
+        lnorm = lnorm * ion * ion
     laser = None
     for _ in range(cfg.n_subcycles):
         exmby, eypbx, ez, bx, by, bz = gather_fields(planes, xprev, yprev,
@@ -504,9 +548,15 @@ def deposit_plasma(p: dict, stack_comps, fields: dict, geom: Geometry,
     vy_c = p["uy"] * psi_inv
     q_invvol = charge * invvol * p["w"]
     q_mu0_m = charge * pc.mu0 / cfg.mass
+    lnorm = laser_norm(cfg, pc, charge)
+    if cfg.can_ionize:
+        ion = p["ion_lev"].to(psi_inv.dtype)
+        q_invvol = q_invvol * ion
+        q_mu0_m = q_mu0_m * ion
+        lnorm = lnorm * ion * ion
     if use_laser:
         a2 = gather_laser_aabs(p["x"], p["y"], fields["aabs"], geom,
-                               order)[0] * laser_norm(cfg, pc, charge)
+                               order)[0] * lnorm
         gamma_psi = 0.5 * ((1.0 + 0.5 * a2) * psi_inv * psi_inv
                            + vx_c * vx_c * clight_inv ** 2
                            + vy_c * vy_c * clight_inv ** 2 + 1.0)
@@ -563,9 +613,16 @@ def fused_plasma_deposits(p: dict, stack_comps, fields: dict, geom: Geometry,
     q_invvol = charge * invvol * p["w"]
     q_mu0_m = charge * pc.mu0 / cfg.mass
     q_m = charge / cfg.mass
+    lnorm = laser_norm(cfg, pc)
+    if cfg.can_ionize:
+        ion = p["ion_lev"].to(psi_inv.dtype)
+        q_invvol = q_invvol * ion
+        q_mu0_m = q_mu0_m * ion
+        q_m = q_m * ion
+        lnorm = lnorm * ion * ion
     if use_laser:
         a2 = gather_laser_aabs(p["x"], p["y"], fields["aabs"], geom,
-                               order)[0] * laser_norm(cfg, pc)
+                               order)[0] * lnorm
         gamma_psi = 0.5 * ((1.0 + 0.5 * a2) * psi_inv * psi_inv
                            + vx * vx + vy * vy + 1.0)
     else:
@@ -582,6 +639,8 @@ def fused_plasma_deposits(p: dict, stack_comps, fields: dict, geom: Geometry,
     }
     # explicit Sx/Sy coefficient channels (ref ExplicitDeposition.cpp)
     cd_mu0 = charge * invvol * pc.mu0 * p["w"] * wmask
+    if cfg.can_ionize:
+        cd_mu0 = cd_mu0 * ion
     qm_psi = q_m * psi_inv
     base = cd_mu0 * qm_psi
     chans = [base * vx, base * vy, base * vx * vy * cin,
@@ -661,3 +720,116 @@ def combine_explicit_sxsy(fields: dict, dgrids, pc: PhysConst,
         out["Sx"] = out["Sx"] - a2dx_f * d1[5]
     return out
 
+
+
+# ----------------------------------------------------------------------
+def adk_constants(cfg: PlasmaConfig, dz: float, normalized_units: bool,
+                  background_density_SI: float) -> tuple:
+    """Per-level ADK constants (power, prefactor, exp_prefactor) of the
+    species' element, host arithmetic on floats (ref
+    PlasmaParticleContainer.cpp:415-453, Chen JCP 236 (2013) eq. 2). In
+    normalized units the slice's time step dz / omega_p needs the
+    background density."""
+    energies = IONIZATION_ENERGIES_EV[cfg.element]
+    alpha = 0.0072973525693
+    r_e = 2.8179403227e-15
+    a3 = alpha ** 3
+    a4 = a3 * alpha
+    wa = a3 * cst.SI_c / r_e
+    Ea = cst.SI_m_e * cst.SI_c ** 2 / cst.SI_q_e * a4 / r_e
+    UH = IONIZATION_ENERGIES_EV["H"][0]
+    l_eff = math.sqrt(UH / energies[0]) - 1.0
+    if normalized_units:
+        dt = dz / cst.plasma_frequency_SI(background_density_SI)
+    else:
+        dt = dz / cst.SI_c
+    out = []
+    for i, Uion in enumerate(energies):
+        n_eff = (i + 1) * math.sqrt(UH / Uion)
+        C2 = 2.0 ** (2 * n_eff) / (n_eff * math.gamma(n_eff + l_eff + 1)
+                                   * math.gamma(n_eff - l_eff))
+        power = -(2 * n_eff - 1)
+        prefactor = dt * wa * C2 * (Uion / (2 * UH)) \
+            * (2 * (Uion / UH) ** 1.5 * Ea) ** (2 * n_eff - 1)
+        exp_prefactor = -2.0 / 3.0 * (Uion / UH) ** 1.5 * Ea
+        out.append((power, prefactor, exp_prefactor))
+    return tuple(out)
+
+
+@functools.lru_cache(maxsize=16)
+def _adk_table(adk: tuple, dtype, device) -> torch.Tensor:
+    """The ADK constants as an (nlev, 3) tensor on the device, made once:
+    a copy to the card on every slice would wait for it."""
+    return torch.tensor(adk, dtype=dtype, device=device)
+
+
+def ionization_module(ion: dict, elec: dict, fields: dict, geom: Geometry,
+                      ion_cfg: PlasmaConfig, pc: PhysConst, order: int,
+                      normalized_units: bool, background_density_SI: float,
+                      spawn_base: int, elec_init_ion_lev: int, draw):
+    """ADK field ionization of one slice (ref
+    PlasmaParticleContainer.cpp:263-440), the JAX package's static slot
+    mode. The fields (ExmBy, EypBx, Ez, Bx, By, Bz) are gathered through K2
+    at each ion's previous position (the envelope's field is not part of
+    it, as in the JAX package); with the ADK rate of its level the ion's
+    probability over the slice is 1 - exp(-w dtau), and it ionizes where
+    its uniform `draw` ((n,), in the simulation's dtype; an ionizable
+    species reads it at its pid) lies below. An ionized lane's level rises
+    by one and an electron at rest is written into the product species
+    `elec`, in the slot spawn_base + i * nlev + level that lane i owns
+    for that level. The JAX package takes this mode where the parent's
+    lane order is stable over the slices; the port never reorders plasma
+    lanes, so it always is, every product has its slot and none can be
+    lost. Each attribute of the product is one scatter into n_elec + 1
+    lanes whose last is a drop bucket for the lanes that did not ionize;
+    nothing is read back to the host. Returns (ion, elec)."""
+    nlev = len(ion_cfg.adk)
+    x, y = ion["x_prev"], ion["y_prev"]
+    n = x.numel()
+    dtype, device = x.dtype, x.device
+    exmby, eypbx, ez, bx, by, bz = gather_fields(
+        field_planes(fields), x, y, ion["valid"], geom, order)
+    ex = exmby + by * pc.c
+    ey = eypbx - bx * pc.c
+    if normalized_units:
+        E0 = (cst.plasma_frequency_SI(background_density_SI) * cst.SI_m_e
+              * cst.SI_c / cst.SI_q_e)
+    else:
+        E0 = 1.0
+    Ep = torch.clamp(torch.sqrt(ex * ex + ey * ey + ez * ez) * E0,
+                     min=1e-30)
+    clight_sq = 1.0 / (pc.c * pc.c)
+    psi_h = ion["psi_half"]
+    gammap = (1.0 + ion["ux_half"] ** 2 * clight_sq
+              + ion["uy_half"] ** 2 * clight_sq
+              + psi_h * psi_h) / (2.0 * psi_h)
+    lev = torch.clamp(ion["ion_lev"], 0, nlev - 1).long()
+    table = _adk_table(ion_cfg.adk, dtype, device)[lev]
+    w_dtau = (gammap / psi_h * table[:, 1] * Ep ** table[:, 0]
+              * torch.exp(table[:, 2] / Ep))
+    prob = 1.0 - torch.exp(-w_dtau)
+    if "pid" in ion:
+        draw = draw[ion["pid"].long()]
+    ionized = ion["valid"] & (ion["ion_lev"] < nlev) & (draw < prob)
+
+    new_ion = dict(ion)
+    new_ion["ion_lev"] = ion["ion_lev"] + ionized.to(torch.int32)
+    n_elec = elec["x"].numel()
+    slot = torch.where(ionized, spawn_base + torch.arange(
+        n, device=device) * nlev + lev, torch.full_like(lev, n_elec))
+
+    def put(arr, vals):
+        ext = torch.cat([arr, arr.new_zeros(1)])
+        return ext.index_put_((slot,), vals)[:-1]
+
+    zero, one = torch.zeros_like(x), torch.ones_like(x)
+    new_elec = dict(elec)
+    for k, v in (("x", ion["x"]), ("y", ion["y"]), ("w", ion["w"]),
+                 ("ux", zero), ("uy", zero), ("psi", one),
+                 ("x_prev", x), ("y_prev", y), ("ux_half", zero),
+                 ("uy_half", zero), ("psi_half", one),
+                 ("ion_lev", torch.full((n,), max(elec_init_ion_lev, 1),
+                                        dtype=torch.int32, device=device)),
+                 ("valid", ionized)):
+        new_elec[k] = put(elec[k], v)
+    return new_ion, new_elec

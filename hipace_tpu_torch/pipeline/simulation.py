@@ -20,6 +20,14 @@ beam's initial moments); ``hipace.max_time`` makes the step that reaches it
 land on it exactly and runs one more step with dt = 0 (ref
 Hipace.cpp:424-435).
 
+Field ionization (``<species>.ionization_product``) gives the ion species
+its ADK constants and its product species one spawn slot per ion lane and
+level, padded onto the product's own lanes; Coulomb collisions
+(``hipace.collisions``) are configured per ``<name>.species`` pair. Both
+draw their uniforms on every slice from the simulation's generator
+(``step.UniformDraws``); in normalized units both need
+``hipace.background_density_SI``.
+
 Output follows the JAX package: the named field diagnostics and each beam
 (from the binned beams before the step's push) go to openPMD files, the
 in-situ moments to reduced-diagnostics files, one per beam. The slice step
@@ -46,8 +54,8 @@ from ..particles import beam as bm
 from ..particles import plasma as pl
 from ..utils import adaptive_dt as adt
 from .step import (DIAG_COMPS, THIS_COMPS_PC, DiagConfig, SimConfig,
-                   SliceStep, diag_slice_shape, empty_slip, init_field_state,
-                   is_full_interior, zero_moments)
+                   SliceStep, UniformDraws, diag_slice_shape, empty_slip,
+                   init_field_state, is_full_interior, zero_moments)
 
 
 class Simulation:
@@ -87,9 +95,13 @@ class Simulation:
         plasma_names = inputs.query_list("plasmas.names", [], str)
         if plasma_names == ["no_plasma"]:
             plasma_names = []
-        self.plasma_cfgs = tuple(
+        plasma_cfgs = [
             pl.PlasmaConfig.from_inputs(inputs, n, self.pc, particle_bc)
-            for n in plasma_names)
+            for n in plasma_names]
+        bg_si = inputs.query("hipace.background_density_SI", 0.0)
+        self.ionization_pairs, self.spawn_extra = self._ionization_cfg(
+            plasma_cfgs, plasma_names, bg_si)
+        self.plasma_cfgs = tuple(plasma_cfgs)
         beam_names = inputs.query_list("beams.names", [], str)
         if beam_names == ["no_beam"]:
             beam_names = []
@@ -173,13 +185,18 @@ class Simulation:
             laser=self.laser_cfg, laser_geom=self.laser_geom,
             laser_zeta=self.laser_zeta,
             insitu_laser_period=self._insitu_laser,
-            adaptive_dt=self.adt_cfg.enabled)
-        if self.normalized_units and any(
-                b.do_radiation_reaction for b in self.beam_cfgs) \
-                and self.cfg.background_density_SI <= 0.0:
-            raise ValueError("radiation reaction in normalized units needs "
-                             "hipace.background_density_SI for the plasma "
-                             "frequency")
+            adaptive_dt=self.adt_cfg.enabled,
+            ionization_pairs=self.ionization_pairs,
+            collisions=self._collision_cfg(inputs, plasma_names,
+                                           beam_names))
+        for what, used in (
+                ("radiation reaction", any(b.do_radiation_reaction
+                                           for b in self.beam_cfgs)),
+                ("collisions", bool(self.cfg.collisions))):
+            if used and self.normalized_units and bg_si <= 0.0:
+                raise ValueError(f"{what} in normalized units needs "
+                                 "hipace.background_density_SI for the "
+                                 "plasma frequency")
 
         # ---- beam init (flat) + capacity planning + binning
         seed = inputs.query("hipace.random_seed", 0, int)
@@ -195,7 +212,9 @@ class Simulation:
                     for k, v in empty_slip(self.device, self.dtype).items()}
             self.beam_cap = 1
         self.binned = bm.bin_beam(flat, self.geom, self.beam_cap)
-        self.slice_step = SliceStep(self.cfg, self.device, self.dtype)
+        self.slice_step = SliceStep(
+            self.cfg, self.device, self.dtype,
+            UniformDraws(self.generator, self.device, self.dtype))
 
         # the initial adaptive dt from the first beam's initial moments (ref
         # AdaptiveTimeStep.cpp GatherMinUzSlice(initial=true),
@@ -216,6 +235,51 @@ class Simulation:
             backend=inputs.query("hipace.openpmd_backend", "h5",
                                  str)) if writes else None
         self._insitu_writers = {}
+
+    def _ionization_cfg(self, plasma_cfgs: list, plasma_names, bg_si):
+        """Attach the ADK constants to each ionizing species of plasma_cfgs
+        (a species that can ionize and names its product) and plan its
+        product's spawn slots: the product's own lanes, then one block of
+        (ion lanes x levels) per ionizing parent. Returns (the pairs
+        (ion, product, first spawn slot, the product's initial_ion_level),
+        the extra lanes of each species)."""
+        pairs, extra = [], [0] * len(plasma_cfgs)
+        for i, pcfg in enumerate(plasma_cfgs):
+            if not (pcfg.can_ionize and pcfg.ionization_product):
+                continue
+            if self.normalized_units and bg_si <= 0.0:
+                raise ValueError(f"{pcfg.name}: ionization in normalized "
+                                 "units needs hipace.background_density_SI "
+                                 "for the plasma frequency")
+            adk = pl.adk_constants(pcfg, self.geom.dz, self.normalized_units,
+                                   bg_si)
+            plasma_cfgs[i] = dataclasses.replace(pcfg, adk=adk)
+            j = plasma_names.index(pcfg.ionization_product)
+            spawn_base = pl.plasma_count(plasma_cfgs[j], self.geom) + extra[j]
+            extra[j] += pl.plasma_count(pcfg, self.geom) * len(adk)
+            pairs.append((i, j, spawn_base, plasma_cfgs[j].init_ion_lev))
+        return tuple(pairs), tuple(extra)
+
+    @staticmethod
+    def _collision_cfg(inputs, plasma_names, beam_names) -> tuple:
+        """hipace.collisions and each one's <name>.species (ref
+        CoulombCollision.cpp:8-60): ("bp", beam, plasma, False, Coulomb
+        log) where one species is a beam, else ("pp", plasma, plasma, same
+        species, Coulomb log)."""
+        out = []
+        for cname in inputs.query_list("hipace.collisions", [], str):
+            sp = inputs.get_list(f"{cname}.species", str)
+            clog = inputs.query(f"{cname}.CoulombLog", -1.0)
+            if sp[0] in beam_names:
+                out.append(("bp", beam_names.index(sp[0]),
+                            plasma_names.index(sp[1]), False, clog))
+            elif sp[1] in beam_names:
+                out.append(("bp", beam_names.index(sp[1]),
+                            plasma_names.index(sp[0]), False, clog))
+            else:
+                out.append(("pp", plasma_names.index(sp[0]),
+                            plasma_names.index(sp[1]), sp[0] == sp[1], clog))
+        return tuple(out)
 
     def _initial_beam_moments(self, beam: dict) -> dict:
         """The first beam's weighted uz moments (in units of c) and its
@@ -363,17 +427,20 @@ class Simulation:
         mg_cycles, pc_iters and pc_err hold one entry per slice in sweep
         order, head first; with a laser laser_cycles too, and laser_stream
         the next step's (n00, nm1); under adaptive dt beam_moments and
-        min_uz, 0-d device tensors."""
+        min_uz, 0-d device tensors; plasma, each species' state after the
+        sweep; with ionization ionized, the step's ionization events, a
+        0-d device tensor."""
         cfg, g = self.cfg, self.geom
         dev = dict(dtype=self.dtype, device=self.device)
         fields = init_field_state(cfg, self.device, self.dtype)
         # fresh plasma for this step (ref Hipace.cpp:450)
-        plasmas = [pl.init_plasma(
+        plasmas = [pl.pad_plasma(pl.init_plasma(
             pcfg, g, self.device, self.dtype, self.pc.c * time,
             self.normalized_units,
             draws=pl.plasma_draws(pcfg, g, self.generator, self.device,
                                   self.dtype),
-            ab5=cfg.plasma_pusher == "ab5") for pcfg in self.plasma_cfgs]
+            ab5=cfg.plasma_pusher == "ab5"), extra)
+            for pcfg, extra in zip(self.plasma_cfgs, self.spawn_extra)]
         # neutralizing background (ref Hipace.cpp:455-472)
         rhomjz_ion = fields["RhomJzIons"]["rhomjz"]
         for p, pcfg in zip(plasmas, self.plasma_cfgs):
@@ -478,6 +545,14 @@ class Simulation:
         if cfg.adaptive_dt:
             res["beam_moments"] = carry["beam_moments"]
             res["min_uz"] = carry["min_uz"]
+        if cfg.ionization_pairs:
+            # the step's ionization events: each raised a lane's level by
+            # one from the species' start; a 0-d device tensor
+            res["ionized"] = sum(
+                torch.clamp(carry["plasma"][ip]["ion_lev"]
+                            - self.plasma_cfgs[ip].init_ion_lev, min=0).sum()
+                for ip, *_ in cfg.ionization_pairs)
+        res["plasma"] = carry["plasma"]
         return res
 
     def run_step(self, step: int) -> dict:

@@ -44,6 +44,15 @@ field grid's edge and taken from the density profile elsewhere; the laser
 diagnostics and in-situ moments read the slice's envelope. Under adaptive
 dt the beam's weighted uz moments and its minimum uz over the emitted lanes
 accumulate in 0-d device tensors, read once per step.
+
+Field ionization runs after the slice's diagnostics and before the plasma
+push, one ``ionization_module`` per (ion, product) pair in deck order;
+Coulomb collisions run after the beam push and the slip split, one per
+``hipace.collisions`` entry in deck order, a beam-plasma one on the
+emitted lanes of its beam (``particles/collisions.py``). Their uniforms
+come from ``SliceStep.draws``, a ``UniformDraws`` on the simulation's
+generator unless a caller substitutes another provider: per slice, each
+ionization pair's, then each collision's, in deck order.
 """
 
 from __future__ import annotations
@@ -63,6 +72,7 @@ from ..fields.open_boundary import OpenBoundary
 from ..fields.poisson import make_poisson_solver
 from ..geometry import Geometry
 from ..particles import beam as bm
+from ..particles import collisions as coll
 from ..particles import plasma as pl
 
 
@@ -227,6 +237,13 @@ class SimConfig:
     insitu_laser_period: int = 0
     # accumulate the beam's uz moments for the adaptive time step
     adaptive_dt: bool = False
+    # field ionization: (ion species, product species, the product's first
+    # spawn slot, the product's initial_ion_level) per ionizing species
+    ionization_pairs: tuple = ()
+    # Coulomb collisions (ref CoulombCollision.cpp:8-60): ("pp", plasma,
+    # plasma, same species, Coulomb log) or ("bp", beam, plasma, False,
+    # Coulomb log), in deck order; a Coulomb log <= 0 is computed per pair
+    collisions: tuple = ()
 
     @property
     def use_laser(self) -> bool:
@@ -458,12 +475,31 @@ def pc_bxby_solve(f: dict, plasmas: list, beam_next: dict, cfg: SimConfig,
     return f, err, it
 
 
-class SliceStep:
-    """The per-slice function; holds the field solvers."""
+class UniformDraws:
+    """The uniforms in [0, 1) that a slice's stochastic processes take:
+    drawn from `generator` on its device in the simulation's dtype, as the
+    JAX package's jax.random.uniform draws in the run's dtype. A call
+    names its draw ("ionization"; a collision's "sort", "pick", "kick" or
+    "wrap kick") and its shape; this provider does not read the name. A
+    substitute with the same call (a test's, the smoke run's) may feed
+    other draws: SliceStep asks for them in a fixed order."""
 
-    def __init__(self, cfg: SimConfig, device, dtype):
+    def __init__(self, generator: torch.Generator, device, dtype):
+        self.generator, self.device, self.dtype = generator, device, dtype
+
+    def __call__(self, name: str, *shape: int) -> torch.Tensor:
+        return torch.rand(shape, generator=self.generator,
+                          device=self.device, dtype=self.dtype)
+
+
+class SliceStep:
+    """The per-slice function; holds the field solvers and the provider of
+    the slice's uniforms (draws)."""
+
+    def __init__(self, cfg: SimConfig, device, dtype, draws: UniformDraws):
         g = cfg.geom
         self.cfg = cfg
+        self.draws = draws
         self.solver = make_poisson_solver(cfg.poisson_solver, g, device,
                                           dtype)
         # the explicit solver's Bx/By multigrid
@@ -667,6 +703,14 @@ class SliceStep:
             out["insitu_laser"] = ins.laser_slice_moments(n00j00,
                                                           self.laser_geom)
 
+        # ---- field ionization (ref Hipace.cpp:693-696), K2 for the field
+        for ip, ie, spawn_base, prod_lev in cfg.ionization_pairs:
+            plasmas[ip], plasmas[ie] = pl.ionization_module(
+                plasmas[ip], plasmas[ie], this, g, cfg.plasmas[ip], pc,
+                order, cfg.normalized_units, cfg.background_density_SI,
+                spawn_base, prod_lev,
+                self.draws("ionization", plasmas[ip]["x"].numel()))
+
         # ---- push plasma (K2)
         plasmas = [pl.advance_plasma(p, this, g, pcfg, pc, order=order,
                                      pusher=cfg.plasma_pusher,
@@ -695,14 +739,16 @@ class SliceStep:
             emit_idx = (~incomplete & combined["valid"]).nonzero().squeeze(1)
             slip = {k: v[slip_idx] for k, v in combined.items()}
             emit = {k: v[emit_idx] for k, v in combined.items()}
-            if cfg.adaptive_dt:
-                carry = dict(carry, **beam_uz_moments(
-                    combined, ~incomplete & combined["valid"], carry,
-                    pc.c))
         else:
             # no beam: the binned lanes are all dead, nothing is emitted
             # (and nothing read back)
             emit = {k: v[:0] for k, v in combined.items()}
+
+        # ---- Coulomb collisions (ref Hipace.cpp:712)
+        if cfg.collisions:
+            plasmas, emit = self.collide(plasmas, emit, dt)
+        if cfg.beams and cfg.adaptive_dt:
+            carry = dict(carry, **beam_uz_moments(emit, carry, pc.c))
 
         # ---- ShiftSlices (ref Fields.cpp:588-604)
         if cfg.explicit:
@@ -729,6 +775,44 @@ class SliceStep:
                        laser_cycles=laser_cycles)
         return carry, out
 
+    def collide(self, plasmas: list, emit: dict, dt):
+        """The slice's collisions in deck order, each with its draws from
+        self.draws: a plasma pair after the push, a beam against a plasma
+        on the beam's emitted lanes over the time step dt. Returns
+        (plasmas, emit). As in the JAX package's step, a same-species
+        pair's result is assigned to its species and then overwritten by
+        the function's second return, its unchanged input, so the kicks of
+        a same-species collision do not stay (ROADMAP R18)."""
+        cfg = self.cfg
+        plasmas = list(plasmas)
+        draw = self.draws
+        for kind, i1, i2, same, clog in cfg.collisions:
+            if kind == "pp":
+                n1, n2 = plasmas[i1]["x"].numel(), plasmas[i2]["x"].numel()
+                if same:
+                    d = {"sort": draw("sort", n1),
+                         "kick": draw("kick", 4, n1),
+                         "wrap kick": draw("wrap kick", 4, n1)}
+                else:
+                    d = {"sort": draw("sort", n2), "pick": draw("pick", n1),
+                         "kick": draw("kick", 4, n1)}
+                plasmas[i1], plasmas[i2] = coll.plasma_plasma_collision(
+                    plasmas[i1], plasmas[i2], cfg.geom, cfg.plasmas[i1],
+                    cfg.plasmas[i2], cfg.pc, clog, cfg.background_density_SI,
+                    cfg.normalized_units, d, same)
+                continue
+            n1, n2 = emit["x"].numel(), plasmas[i2]["x"].numel()
+            d = {"sort": draw("sort", n2), "pick": draw("pick", n1),
+                 "kick": draw("kick", 4, n1)}
+            sel = emit["valid"] & (emit["beam_id"] == i1)
+            b_new, plasmas[i2] = coll.beam_plasma_collision(
+                dict(emit, valid=sel), plasmas[i2], cfg.geom, cfg.beams[i1],
+                cfg.plasmas[i2], cfg.pc, clog, cfg.background_density_SI,
+                cfg.normalized_units, d, dt)
+            emit = dict(emit, **{k: torch.where(sel, b_new[k], emit[k])
+                                 for k in ("ux", "uy", "uz")})
+        return plasmas, emit
+
 
 def zero_moments(device, dtype) -> dict:
     """The adaptive time step's beam moments before the sweep."""
@@ -736,15 +820,16 @@ def zero_moments(device, dtype) -> dict:
     return {"sum_w": z, "sum_w_uz": z, "sum_w_uz2": z}
 
 
-def beam_uz_moments(lanes: dict, emitted, carry: dict, clight: float):
+def beam_uz_moments(emit: dict, carry: dict, clight: float):
     """The emitted lanes' weight, weighted uz and uz^2 (in units of c) added
     to carry's beam_moments, and its min_uz lowered to their least uz (ref
-    AdaptiveTimeStep GatherMinUzSlice, after the push): 0-d device tensors,
-    nothing read back."""
+    AdaptiveTimeStep GatherMinUzSlice, after the push and the collisions):
+    0-d device tensors, nothing read back."""
     c_inv = 1.0 / clight
-    w_v = torch.where(emitted, lanes["w"], torch.zeros_like(lanes["w"]))
-    uz = lanes["uz"]
-    uz_min = torch.where(emitted, uz, torch.full_like(uz, math.inf)).amin()
+    w_v, uz = emit["w"], emit["uz"]
+    # a slice may emit no lane
+    uz_min = uz.amin() if uz.numel() else torch.full_like(carry["min_uz"],
+                                                          math.inf)
     mom = carry["beam_moments"]
     return {"min_uz": torch.minimum(carry["min_uz"], uz_min * c_inv),
             "beam_moments": {

@@ -12,12 +12,10 @@ from __future__ import annotations
 
 from .parser import Inputs
 
-IONIZATION = "ionization"
-COLLISIONS = "collisions"
 SALAME = "SALAME"
 MR = "mesh refinement"
 # ROADMAP.md port queue: item title -> item number
-ITEMS = {IONIZATION: 6, COLLISIONS: 7, SALAME: 8, MR: 9}
+ITEMS = {SALAME: 8, MR: 9}
 
 
 def fail(key: str, item: str):
@@ -28,10 +26,8 @@ def fail(key: str, item: str):
 
 def check_deck(inputs: Inputs) -> None:
     """Raise for the first deck key that leaves the ported paths. The
-    per-species keys are checked by the plasma and beam configs; a laser
-    with mesh refinement or ionization meets their refusals there."""
-    q = inputs.query
-    if q("amr.max_level", 0, int) > 0:
+    per-species keys are checked by the plasma and beam configs; a laser,
+    ionization or collisions with mesh refinement meet the refusal of
+    amr.max_level here."""
+    if inputs.query("amr.max_level", 0, int) > 0:
         fail("amr.max_level", MR)
-    if q("hipace.collisions", "", str):
-        fail("hipace.collisions", COLLISIONS)

@@ -542,3 +542,107 @@ def test_adaptive_dt_on_the_card_matches_the_cpu(cuda):
         assert sim.time == 80.0
     assert len(dts[0]) == len(dts[1]) == 20 and dts[1][-1] == 0.0
     np.testing.assert_allclose(dts[1], dts[0], rtol=1e-12, atol=0.0)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_ionization_module_on_the_card_matches_the_cpu(cuda, dtype):
+    """IONIZATION_WAKE's ionization module on one slice's state: its K2
+    field gather at the ions' x_prev against the plain gather, and the
+    module on the card against the CPU with the same draws (equal levels
+    and electron lanes, the electrons' values within the dtype's
+    tolerance)."""
+    from hipace_tpu_torch.decks import ionization_wake
+    from hipace_tpu_torch.ops.gather import gather_main_cuda, gather_main_plain
+    from hipace_tpu_torch.particles import plasma as pl
+    from hipace_tpu_torch.pipeline.simulation import Simulation
+    sim = Simulation(ionization_wake(48, 4), device="cpu", verbose=0)
+    g, (ecfg, icfg) = sim.geom, sim.plasma_cfgs
+    rng = np.random.default_rng(3)
+    ion = pl.init_plasma(icfg, g, "cpu", torch.float64, normalized_units=False)
+    n = ion["x"].numel()
+    ion["x_prev"] = ion["x"] + torch.tensor(rng.uniform(-1e-7, 1e-7, n))
+    elec = pl.pad_plasma(pl.init_plasma(ecfg, g, "cpu", torch.float64,
+                                        normalized_units=False), n)
+    NY, NX = g.slice_shape
+    fields = {c: torch.tensor(rng.standard_normal((NY, NX)) * s) for c, s in (
+        ("Psi", 2e4), ("Ez", 6e10), ("Bx", 60.), ("By", 60.), ("Bz", 5.))}
+    draw = torch.tensor(rng.uniform(size=n))
+
+    def on(dev, d):
+        return {k: (v.to(dev, dtype) if v.is_floating_point() else v.to(dev))
+                for k, v in d.items()}
+
+    args = (g, icfg, sim.pc, 2, False, 0.0, 0, -1)
+    ref_ion, ref_e = pl.ionization_module(on("cpu", ion), on("cpu", elec),
+                                          on("cpu", fields), *args,
+                                          draw.to(dtype))
+    got_ion, got_e = pl.ionization_module(on(cuda, ion), on(cuda, elec),
+                                          on(cuda, fields), *args,
+                                          draw.to(cuda, dtype))
+    assert 0 < int(ref_e["valid"].sum()) < n
+    assert torch.equal(got_ion["ion_lev"].cpu(), ref_ion["ion_lev"])
+    assert torch.equal(got_e["valid"].cpu(), ref_e["valid"])
+    for k in ("x", "y", "w", "x_prev"):
+        assert _rel(got_e[k].cpu(), ref_e[k]) <= _tol(dtype, 1e-14, 1e-6)
+    planes = pl.field_planes(on(cuda, fields))
+    ym, xm = pl.cell_positions(on(cuda, ion)["x_prev"], on(cuda, ion)[
+        "y_prev"], ion["valid"].to(cuda), g)
+    got = gather_main_cuda(planes, ym, xm, 2)
+    ref = gather_main_plain(planes, ym, xm, 2)
+    torch.cuda.synchronize()
+    assert _rel(got, ref) < _tol(dtype, 1e-12, 1e-5)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_collisions_on_the_card_match_the_cpu(cuda, dtype):
+    """The same-species and the beam-plasma collision of one slice's state
+    of COLLISION_WAKE, with the same draws, on the card against the CPU: in
+    float64 within 1e-12; in float32, where their guards and products leave
+    float32's range (ROADMAP R19), the same lanes non-finite and the finite
+    values within 1e-5, so the card reproduces the CPU's float32 result."""
+    from hipace_tpu_torch.decks import collision_wake
+    from hipace_tpu_torch.particles import collisions as coll
+    from hipace_tpu_torch.pipeline.simulation import Simulation
+    sim = Simulation(collision_wake(31, 8, 1000), device="cpu", verbose=0)
+    kept = {}
+    orig = sim.slice_step.collide
+
+    def keep(plasmas, emit, dt):
+        if emit["x"].numel() > kept.get("nb", 0):
+            kept.update(args=(plasmas, emit, dt), nb=emit["x"].numel())
+        return orig(plasmas, emit, dt)
+
+    sim.slice_step.collide = keep
+    sim.run_step(0)
+    plasmas, emit, dt = kept["args"]
+    gen = torch.Generator().manual_seed(4)
+    n, nb = plasmas[0]["x"].numel(), emit["x"].numel()
+    dpp = {"sort": torch.rand(n, generator=gen, dtype=torch.float64),
+           "kick": torch.rand((4, n), generator=gen, dtype=torch.float64),
+           "wrap kick": torch.rand((4, n), generator=gen,
+                                   dtype=torch.float64)}
+    dbp = {"sort": dpp["sort"],
+           "pick": torch.rand(nb, generator=gen, dtype=torch.float64),
+           "kick": torch.rand((4, nb), generator=gen, dtype=torch.float64)}
+    cfg = sim.cfg
+
+    def run(dev):
+        def on(d):
+            return {k: (v.to(dev, dtype) if v.is_floating_point()
+                        else v.to(dev)) for k, v in d.items()}
+        q, _ = coll.plasma_plasma_collision(
+            on(plasmas[0]), None, cfg.geom, cfg.plasmas[0], cfg.plasmas[0],
+            cfg.pc, -1.0, cfg.background_density_SI, True, on(dpp), True)
+        b, p = coll.beam_plasma_collision(
+            on(emit), on(plasmas[0]), cfg.geom, cfg.beams[0], cfg.plasmas[0],
+            cfg.pc, -1.0, cfg.background_density_SI, True, on(dbp), dt)
+        return ([q[k] for k in ("ux", "uy", "psi")]
+                + [b[k] for k in ("ux", "uy", "uz")]
+                + [p[k] for k in ("ux", "uy", "psi")])
+
+    for got, ref in zip(run(cuda), run("cpu")):
+        got = got.cpu()
+        fin = torch.isfinite(ref)
+        assert torch.equal(torch.isfinite(got), fin)
+        if fin.any():
+            assert _rel(got[fin], ref[fin]) <= _tol(dtype, 1e-12, 1e-5)

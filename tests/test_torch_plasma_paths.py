@@ -212,7 +212,7 @@ def test_temperature_transform_matches_jax():
             if any(tcfg.u_std) else None)
         got = tpl.init_plasma(tcfg, tsim.geom, "cpu", torch.float64,
                               draws=draws, ab5=True)
-        assert set(got) == set(ref) - {"ion_lev"}
+        assert set(got) == set(ref)
         for k, v in got.items():
             np.testing.assert_allclose(v.numpy(), np.asarray(ref[k]),
                                        rtol=1e-15, atol=0, err_msg=k)

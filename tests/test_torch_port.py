@@ -19,6 +19,7 @@ from hipace_tpu import constants as jconstants
 from hipace_tpu.geometry import Geometry as JGeometry
 from hipace_tpu.parser import Inputs as JInputs
 from hipace_tpu.utils.atomic_data import ATOMIC_WEIGHTS_DA as JWEIGHTS
+from hipace_tpu.utils.atomic_data import IONIZATION_ENERGIES_EV as JENERGIES
 from hipace_tpu_torch import constants as tconstants
 from hipace_tpu_torch.fields.multigrid import MultiGrid
 from hipace_tpu_torch.geometry import Geometry
@@ -26,7 +27,8 @@ from hipace_tpu_torch.ops import deposit as tdeposit
 from hipace_tpu_torch.ops import mg_kernel
 from hipace_tpu_torch.parser import Inputs, TorchFunction, deck_function
 from hipace_tpu_torch.pipeline.simulation import Simulation
-from hipace_tpu_torch.utils.atomic_data import ATOMIC_WEIGHTS_DA
+from hipace_tpu_torch.utils.atomic_data import (ATOMIC_WEIGHTS_DA,
+                                               IONIZATION_ENERGIES_EV)
 
 torch.set_num_threads(1)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -244,6 +246,11 @@ def test_constants_match_the_jax_package(normalized):
 
 def test_atomic_weights_match_the_jax_package():
     assert ATOMIC_WEIGHTS_DA == JWEIGHTS and len(ATOMIC_WEIGHTS_DA) == 20
+
+
+def test_ionization_energies_match_the_jax_package():
+    assert IONIZATION_ENERGIES_EV == JENERGIES
+    assert len(IONIZATION_ENERGIES_EV) == 20
 
 
 # ------------------------------------------- host side of the K3 launch

@@ -217,19 +217,23 @@ def test_tpu_tuning_keys_are_noops():
 
 
 @pytest.mark.parametrize("extra,item", [
-    ("plasma.ionization_product = ions", "ionization"),
-    ("hipace.max_time = 10.\nhipace.collisions = c1", "collisions"),
+    ("plasma.ionization_product = ions\namr.max_level = 1",
+     "mesh refinement"),
+    ("hipace.max_time = 10.\nhipace.collisions = c1\namr.max_level = 1",
+     "mesh refinement"),
     ("lasers.names = laser\namr.max_level = 1", "mesh refinement"),
     ("amr.max_level = 1", "mesh refinement"),
     ("beam.do_salame = 1", "SALAME"),
-    ("plasma.initial_ion_level = 1", "ionization"),
-    ("hipace.collisions = c1", "collisions"),
+    ("plasma.initial_ion_level = 1\nbeam.do_salame = 1", "SALAME"),
+    ("hipace.collisions = c1\nc1.species = plasma plasma\n"
+     "beam.do_salame = 1", "SALAME"),
     ("plasma.fine_ppc = 2 2", "mesh refinement"),
     ("hipace.dt = adaptive\nbeam.do_salame = 1", "SALAME"),
     ("plasma.fine_patch(x,y) = x*x + y*y < 1.", "mesh refinement"),
     ("plasma.fine_transition_cells = 5", "mesh refinement"),
-    ("plasma.can_ionize = 1", "ionization"),
-    ("lasers.names = laser1 laser2\nplasma.can_ionize = 1", "ionization"),
+    ("plasma.can_ionize = 1\namr.max_level = 1", "mesh refinement"),
+    ("lasers.names = laser1 laser2\nplasma.can_ionize = 1\n"
+     "beam.do_salame = 1", "SALAME"),
 ])
 def test_unsupported_keys_raise(extra, item):
     """Each refusal names its port-queue item by number and title."""

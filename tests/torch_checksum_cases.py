@@ -19,8 +19,12 @@ The reckoning: one step of a slice costs A + B * cells per plasma species
 on one thread in float64, times the predictor-corrector's factor where that
 solver runs (tools/measure_torch_cpu_cost.py: A = 37.76 ms, B = 3.861 us,
 factor 5.24), times the laser's factor where a laser runs (1.73, the same
-tool's LASER_WAKE against the flagship at 64^2, from a later run), with a
-margin of 2 for the machine's variation.
+tool's LASER_WAKE against the flagship at 64^2, from a later run) and the
+collisions' where hipace.collisions is set (1.46, COLLISION_WAKE against
+the flagship at 64^2, from a later run), with a margin of 2 for the
+machine's variation. Field ionization needs no factor: its product's spawn
+slots count as a species, and IONIZATION_WAKE at 64^2 took 1.02 times what
+A + B * cells reckons for its two species (the same run).
 """
 
 import json
@@ -40,6 +44,7 @@ MAX_CELL_STEPS = 128 * 128 * 256 * 3
 PARTS = 3
 SLICE_S, CELL_S, PC_FACTOR, MARGIN = 37.76e-3, 3.861e-6, 5.24, 2.0
 LASER_FACTOR = 1.73
+COLLISION_FACTOR = 1.46
 ARGS = "name,deck,overrides,rtol,skip_fields,skip_particles"
 
 LIGHT = [c for c in CASES if c[0] not in HEAVY]
@@ -62,6 +67,8 @@ def reckon_seconds(inputs: Inputs) -> float:
     if [n for n in inputs.query_list("lasers.names", [], str)
             if n != "no_laser"]:
         per_slice *= LASER_FACTOR
+    if inputs.query_list("hipace.collisions", [], str):
+        per_slice *= COLLISION_FACTOR
     return MARGIN * steps * nz * per_slice
 
 

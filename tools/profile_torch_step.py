@@ -1,15 +1,17 @@
 """Where the time of one time step of the PyTorch/CUDA port goes, on a GPU.
 
     python3 tools/profile_torch_step.py
-        [--deck flagship|pdf|pc|even|witness|laser]
+        [--deck flagship|pdf|pc|even|witness|laser|ionization|collision]
         [--insitu] [--xz] [--nxy 1023] [--nz 64] [--steps 2]
 
 Runs a deck of ``hipace_tpu_torch.decks`` (the flagship blowout wake, its
 fixed_weight_pdf variant, its predictor-corrector variant with open
 boundaries, the two-species ION_MOTION_EVEN at an even size, 1024^2 by
 default, with the flagship's beam, DRIVE_WITNESS, the flagship with a
-second, spin-tracked and radiating witness beam, or LASER_WAKE, the
-laser-driven blowout with no beam) in float32 on ``cuda``:
+second, spin-tracked and radiating witness beam, LASER_WAKE, the
+laser-driven blowout with no beam, IONIZATION_WAKE, a beam ionizing
+hydrogen, or COLLISION_WAKE, the flagship with intra-species and
+beam-plasma collisions) in float32 on ``cuda``:
 one warm-up step, ``--steps`` timed steps on the host clock, then one step
 under ``torch.profiler``. It prints the device time and launch count per
 slice of each group of device activities (the port's kernels K1-K3, PyTorch
@@ -24,7 +26,9 @@ iterations. With ``--deck laser`` the complex K3 solves are a group of their
 own, and the device time of the laser's two named parts is printed apart:
 the envelope advance (every kernel it launches, its complex K3 solve
 included) and the |a|^2 gathers of the plasma deposit and push, with their
-share of the step's device time.
+share of the step's device time. With ``--deck ionization`` the ionization
+module (its K2 field gather included) is such a named range, with
+``--deck collision`` the slice's collisions.
 
 Output: ``--insitu`` turns on the in-situ beam, plasma and field records
 every step, ``--xz`` an xz field diagnostic of every comp and rho every step
@@ -76,7 +80,7 @@ def device_activities(prof):
     per_kernel = defaultdict(lambda: [0.0, 0])
     readbacks = 0
     for e in prof.events():
-        if e.device_type != DeviceType.CUDA or e.name in LASER_RANGES:
+        if e.device_type != DeviceType.CUDA or e.name in ALL_RANGES:
             continue    # the named ranges' device spans are no activity
         dur = e.time_range.elapsed_us() / 1e3
         g = group_of(e.name)
@@ -88,8 +92,11 @@ def device_activities(prof):
     return ms, count, per_kernel, readbacks
 
 
-# the laser's parts, named around their calls with --deck laser
+# the parts named around their calls, per deck
 LASER_RANGES = ("laser: envelope advance", "laser: |a|^2 gather")
+RANGES = {"laser": LASER_RANGES, "ionization": ("ionization module",),
+          "collision": ("collisions",)}
+ALL_RANGES = tuple(r for labels in RANGES.values() for r in labels)
 
 
 def named(fn, label):
@@ -105,7 +112,8 @@ def named(fn, label):
 def range_ms(prof, labels):
     """Per named range: the device ms of the activities inside its device
     spans (the spans of one stream hold exactly the kernels the range
-    launched; the ctypes-launched K3 included), and its calls."""
+    launched; the ctypes-launched K3 included), its calls and those
+    activities' count."""
     import bisect
     from torch.autograd import DeviceType
     spans = {label: [] for label in labels}
@@ -121,19 +129,21 @@ def range_ms(prof, labels):
     for label, sp in spans.items():
         sp.sort()
         starts = [a for a, _ in sp]
-        us = 0.0
+        us, n = 0.0, 0
         for t0, dur in acts:
             i = bisect.bisect_right(starts, t0) - 1
             if i >= 0 and t0 < sp[i][1]:
                 us += dur
-        out[label] = [us / 1e3, len(sp)]
+                n += 1
+        out[label] = [us / 1e3, len(sp), n]
     return out
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--deck", choices=("flagship", "pdf", "pc", "even",
-                                       "witness", "laser"),
+                                       "witness", "laser", "ionization",
+                                       "collision"),
                     default="flagship")
     ap.add_argument("--insitu", action="store_true",
                     help="in-situ beam, plasma and field records every step")
@@ -150,8 +160,9 @@ def main() -> int:
         print("no CUDA device", file=sys.stderr)
         return 3
 
-    from hipace_tpu_torch.decks import (blowout_wake, drive_witness,
-                                        ion_motion_even, laser_wake, pc_open,
+    from hipace_tpu_torch.decks import (blowout_wake, collision_wake,
+                                        drive_witness, ion_motion_even,
+                                        ionization_wake, laser_wake, pc_open,
                                         pdf_beam)
     from hipace_tpu_torch.particles import plasma
     from hipace_tpu_torch.pipeline.simulation import Simulation
@@ -182,9 +193,11 @@ def main() -> int:
                   "diagnostic.beam_output_period = 0\n")
     deck = {"flagship": blowout_wake, "pdf": pdf_beam,
             "pc": pc_open, "even": ion_motion_even,
-            "witness": drive_witness, "laser": laser_wake}[args.deck]
-    if args.deck == "laser":
-        npart = 0
+            "witness": drive_witness, "laser": laser_wake,
+            "ionization": ionization_wake,
+            "collision": collision_wake}[args.deck]
+    if args.deck in ("laser", "ionization"):
+        npart = 0       # no beam, or a fixed_ppc one
     sim = Simulation(deck(args.nxy, args.nz, npart, extra), device="cuda",
                      dtype=torch.float32, verbose=0)
     if args.deck == "laser":
@@ -193,6 +206,12 @@ def main() -> int:
         sim.slice_step.laser_advance.mg = adv.mg
         plasma.gather_laser_aabs = named(plasma.gather_laser_aabs,
                                          LASER_RANGES[1])
+    if args.deck == "ionization":
+        plasma.ionization_module = named(plasma.ionization_module,
+                                         RANGES["ionization"][0])
+    if args.deck == "collision":
+        sim.slice_step.collide = named(sim.slice_step.collide,
+                                       RANGES["collision"][0])
     write_s = []
 
     def step(sim, profiled=False):
@@ -265,15 +284,18 @@ def main() -> int:
                   f"{(count[g] - count1[g]) / d_it:15.2f}")
         print(f"{'total':<30} {(total - sum(ms1.values())) / d_it:16.4f} "
               f"{(sum(count.values()) - sum(count1.values())) / d_it:15.2f}")
-    if args.deck == "laser":
-        parts = range_ms(prof, LASER_RANGES)
-        laser = sum(t for t, _ in parts.values())
-        for label, (t, n) in parts.items():
+    if args.deck in RANGES:
+        parts = range_ms(prof, RANGES[args.deck])
+        part = sum(t for t, _, _ in parts.values())
+        for label, (t, n, acts) in parts.items():
             print(f"{label:<30} {t / nz:16.3f} ms/slice in {n / nz:.2f} "
-                  "calls/slice")
-        print(f"the laser's share of the step's device time: "
-              f"{laser / total:.3f} ({laser / nz:.3f} of {total / nz:.3f} "
+                  f"calls/slice, {acts / nz:.2f} launches/slice")
+        print(f"the {args.deck} part's share of the step's device time: "
+              f"{part / total:.3f} ({part / nz:.3f} of {total / nz:.3f} "
               "ms/slice)")
+    if "ionized" in res:
+        print(f"ionization events in the profiled step: "
+              f"{int(res['ionized'])}")
     print("busiest device activities over the profiled step:")
     top = sorted(per_kernel.items(), key=lambda kv: kv[1][0], reverse=True)
     for name, (t, n) in top[:15]:
