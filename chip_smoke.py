@@ -103,8 +103,29 @@ counts, the host's reads, the collisions' time and launches per slice,
 the non-finite lanes that float32 leaves, ROADMAP R19, in the JAX package
 as here, and float32's kicks against float64's on one slice), then one
 float64 step of it at full width, its fields and momenta finite and the
-plasma's energy within 1e-3 of the same step without collisions. It
-imports nothing but the port.
+plasma's energy within 1e-3 of the same step without collisions.
+
+SALAME and mesh refinement: "SALAME, small", step 0 of
+``hipace_tpu_torch.decks.SALAME_WAKE`` at 32^2 x 64 in float64, alone and
+with a level, on the card against the CPU from the same beams (fields of
+every level within 1e-8, the SALAME slices equal, W within 1e-10, the
+witness's weights within 1e-10, V-cycles equal on every slice); "MR, small",
+the JAX package's MR test deck in float64 on the card against the CPU with
+an even and an odd level, the predictor-corrector, two levels and a laser
+(fields of every level within 1e-8, equal V-cycles and iterations), then in
+float32 the level's Ez against a uniformly fine 128^2 run at the JAX test's
+thresholds; the SALAME path, SALAME_WAKE at 1023^2 x 64 in float32 (a
+warm-up simulation, then a fresh one's step 0 with SALAME and step 1
+without: launches against the slice structure and its SALAME slices, one
+host read more at step 0 than without SALAME, the witness's weights, the
+on-axis Ez spread across the witness below 0.4 of the spread without
+SALAME, K3 on one of SALAME's solves); the MR path, ``MR_WAKE`` at 1023^2 x
+64 in float32 with a 511^2 level (launches against the slice structure and
+the level's 33 slices, the flagship's host reads, the fine on-axis Ez
+within MR_AXIS_BOUND of the coarse, a coupler product on the card against
+the CPU's in float64, and K1, K2 and K3 at the level's shapes against their
+plain versions, with K1's direct-path share). It imports nothing but the
+port.
 
 Beside each kernel's time (CUDA events around calls queued behind a device
 sleep) it prints the kernel's bound: the least time the card could take, the
@@ -2460,6 +2481,583 @@ def pdf_path(torch):
                              "or launch counts wrong")
 
 
+# ------------------------------------------------- SALAME, mesh refinement
+# the JAX package's MR test deck (tests/test_mr.py:15-55): a 32^2 x 24 grid
+# with a 32^2 level over (-2..2)^2 at z -4..0 and an 8 x 8 ppc fine plasma
+# patch; {nx} the coarse width, {extra} the MR lines or none
+MR_TEST_BASE = """
+amr.n_cell = {nx} {nx} 24
+hipace.normalized_units = 1
+max_step = 0
+hipace.dt = 1.0
+boundary.field = Dirichlet
+boundary.particle = Periodic
+geometry.prob_lo = -8. -8. -6.
+geometry.prob_hi =  8.  8.  2.
+beams.names = beam
+beam.injection_type = fixed_weight
+beam.num_particles = 30000
+beam.profile = gaussian
+beam.position_mean = 0. 0. -1.
+beam.position_std = 0.3 0.3 1.0
+beam.zmin = -5.9
+beam.zmax = 1.9
+beam.density = 0.01
+beam.u_mean = 0. 0. 1000.
+beam.u_std = 0. 0. 0.
+plasmas.names = plasma
+plasma.density(x,y,z) = 1.
+plasma.ppc = 2 2
+plasma.element = electron
+diagnostic.output_period = 1
+hipace.openpmd_backend = json
+{extra}
+"""
+MR_TEST_LEVEL = """amr.max_level = 1
+mr_lev1.n_cell = 32 32
+mr_lev1.patch_lo = -2. -2. -4.
+mr_lev1.patch_hi =  2.  2.  0.
+plasma.fine_patch(x,y) = (abs(x)<2.3)*(abs(y)<2.3)
+plasma.fine_ppc = 8 8
+diagnostic.names = lev0 lev1
+lev1.base_geometry = level_1
+lev1.field_data = all
+"""
+# "MR, small": (label, deck lines added to the MR test deck)
+MR_VARIANTS = (
+    ("explicit, even 32^2 level (cell-centered fine K3)", ""),
+    ("explicit, odd 33^2 level (node-centered fine K3)",
+     "mr_lev1.n_cell = 33 33\n"),
+    # 4 x 4 fine ppc: the CPU half of 8 x 8 takes ~1 min
+    ("predictor-corrector, fine ppc 4 x 4",
+     "hipace.bxby_solver = predictor-corrector\nplasma.fine_ppc = 4 4\n"),
+    ("two levels", "amr.max_level = 2\nmr_lev2.n_cell = 32 32\n"
+     "mr_lev2.patch_lo = -0.9 -0.9 -3.\nmr_lev2.patch_hi = 0.9 0.9 -1.\n"
+     "diagnostic.names = lev0 lev1 lev2\nlev2.base_geometry = level_2\n"
+     "lev2.field_data = all\n"),
+    ("laser", "lasers.names = laser\nlasers.lambda0 = .8e-6\n"
+     "lasers.solver_type = multigrid\nlaser.a0 = 1.\n"
+     "laser.position_mean = 0. 0. 0.\nlaser.w0 = 2.\nlaser.L0 = 1.\n"),
+)
+# test_salame_with_mr's level over SALAME_WAKE, with the level's fields
+SALAME_MR = ("amr.max_level = 1\nmr_lev1.n_cell = 32 32\n"
+             "mr_lev1.patch_lo = -2. -2. -7.\nmr_lev1.patch_hi = 2. 2. 5.\n"
+             "plasma.fine_patch(x,y) = (abs(x)<2.3)*(abs(y)<2.3)\n"
+             "plasma.fine_ppc = 4 4\ndiagnostic.names = lev0 lev1\n"
+             "lev1.base_geometry = level_1\nlev1.field_data = all\n"
+             "lev1.output_period = 1\nhipace.openpmd_backend = json\n")
+# the MR path: inside the level, away from its edge (|x| < 1.5), the fine
+# on-axis Ez within this fraction of the coarse on-axis Ez's largest value
+# (PERF.md, written before the first call from CPU runs at 127^2 and 255^2)
+MR_AXIS_BOUND = 0.05
+
+
+def same_cycles(got, ref):
+    """Equal V-cycles (and PC iterations) on every slice, every solve."""
+    keys = [k for k in ref if k in ("mg_cycles", "pc_iters", "salame_cycles")
+            or k.startswith("mg_cycles_lev") or k == "laser_cycles"]
+    return all(got[k] == ref[k] for k in keys), keys
+
+
+def level_errors(got, ref):
+    """rel_err of level 0's fields and of each level's diagnostic."""
+    errs = {"level 0": rel_err(got["diag"], ref["diag"])}
+    for k in ref:
+        if k.startswith("diagf_"):
+            errs[k[6:]] = rel_err(got[k], ref[k])
+    return errs
+
+
+@phase("SALAME, small")
+def salame_small_phase(torch):
+    """SALAME_WAKE at 32^2 x 64 in float64, step 0 on the kernels against
+    the CPU plain path from the same beams, alone and with
+    test_salame_with_mr's level: fields of every level within 1e-8, the
+    SALAME slices equal, W within 1e-10, the witness's weights within 1e-10
+    of their largest, V-cycles equal on every slice (the level-0 solve,
+    SALAME's solves, the level's)."""
+    from hipace_tpu_torch.decks import salame_wake
+    bad = []
+    for label, extra in (("SALAME_WAKE", ""), ("with MR", SALAME_MR)):
+        cpu, gpu, ref, got = card_and_cpu(
+            torch, lambda: salame_wake(32, 64, 30000, extra))
+        errs = level_errors(got, ref)
+        w_err = float((got["salame_W"].cpu() - ref["salame_W"]).abs().max())
+        sal_eq = torch.equal(got["salame_is_sal"].cpu(), ref["salame_is_sal"])
+        b = ref["binned"]
+        wit = b["valid"] & (b["beam_id"] == 1)
+        w_rel = rel_err(got["binned"]["w"].cpu()[wit], b["w"][wit])
+        cyc_eq, _ = same_cycles(got, ref)
+        n_sal = int(ref["salame_is_sal"].sum())
+        sal_cyc = [c for v in ref["salame_cycles"].values() for c in v]
+        ok = (max(errs.values()) < 1e-8 and w_err < 1e-10 and sal_eq
+              and w_rel < 1e-10 and cyc_eq and n_sal > 0)
+        print(f"SALAME, small: 32^2 x 64 float64 {label}, {n_sal} SALAME "
+              f"slices, SALAME's V-cycles {min(sal_cyc)}-{max(sal_cyc)}, "
+              f"kernels vs CPU plain path: fields "
+              + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+              + f" (tol 1e-8), W max abs err {w_err:.3e} (tol 1e-10), "
+              f"SALAME slices equal {sal_eq}, witness weights {w_rel:.3e} "
+              f"(tol 1e-10), V-cycles per slice equal {cyc_eq} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            bad.append(label)
+    if bad:
+        raise AssertionError(f"SALAME small step mismatch: {bad}")
+
+
+@phase("MR, small")
+def mr_small_phase(torch):
+    """The JAX package's MR test deck in float64 on the kernels against the
+    CPU plain path from the same beam, in each MR_VARIANTS form: fields of
+    every level within 1e-8, each level's diagnostic of the CPU's shape,
+    V-cycles and PC iterations equal on every slice. Then in float32 on the
+    card, the level's Ez against a uniformly fine 128^2 run at slices 14
+    and 7, at the JAX test's thresholds (test_mr.py:81-86): within 0.10 of
+    the truth's largest value and within 0.35 of the coarse run's error."""
+    from hipace_tpu_torch.parser import Inputs
+    from hipace_tpu_torch.pipeline.simulation import Simulation
+    bad = []
+    for label, extra in MR_VARIANTS:
+        deck = MR_TEST_BASE.format(nx=32, extra=MR_TEST_LEVEL + extra)
+        t0 = time.perf_counter()
+        cpu, gpu, ref, got = card_and_cpu(torch, lambda: Inputs(deck))
+        errs = level_errors(got, ref)
+        shapes = all(got[k].shape == ref[k].shape for k in ref
+                     if k.startswith("diagf_"))
+        cyc_eq, keys = same_cycles(got, ref)
+        ok = max(errs.values()) < 1e-8 and shapes and cyc_eq
+        print(f"MR, small: {label}, levels "
+              f"{[lv.geom.n_cell[:2] for lv in gpu.mr_levels]} float64, "
+              f"kernels vs CPU plain path: fields "
+              + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+              + f" (tol 1e-8), diagnostic shapes equal {shapes}, {keys} "
+              f"equal on every slice {cyc_eq}, PC iterations "
+              f"{sum(ref['pc_iters'])}; {time.perf_counter() - t0:.1f} s "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            bad.append(label)
+    # float32 on the card: the level against a uniformly fine truth
+    runs = {}
+    for name, nx, extra in (("mr", 32, MR_TEST_LEVEL), ("truth", 128, ""),
+                            ("coarse", 32, "")):
+        sim = Simulation(Inputs(MR_TEST_BASE.format(nx=nx, extra=extra)),
+                         device="cuda", dtype=torch.float32, verbose=0)
+        runs[name] = (sim, sim.run_step(0))
+    s_mr, r_mr = runs["mr"]
+    gf = s_mr.mr_levels[0].geom
+    xt = (torch.arange(gf.nx, dtype=torch.float64) + 0.5) * gf.dx \
+        + gf.prob_lo[0]
+    it = torch.round((xt + 8.0) / 0.125 - 0.5).long()
+    itc = torch.round((xt + 8.0) / 0.5 - 0.5).long()
+    errs32 = []
+    for z in (14, 7):
+        fine = r_mr["diagf_lev1"][z, s_mr.cfg.diags[1].comps.index("Ez")]
+        fine = fine.double().cpu()
+        tr = runs["truth"][1]["diag"][z, runs["truth"][0].cfg.diag_comps
+                                      .index("Ez")].double().cpu()
+        co = runs["coarse"][1]["diag"][z, runs["coarse"][0].cfg.diag_comps
+                                       .index("Ez")].double().cpu()
+        truth = tr[it][:, it]
+        coarse = co[itc][:, itc]
+        den = float(truth.abs().max())
+        e_f = float((fine - truth).abs().max()) / den
+        e_c = float((coarse - truth).abs().max()) / den
+        errs32.append((z, e_f, e_c))
+    ok32 = all(e_f < 0.10 and e_f < 0.35 * e_c for _, e_f, e_c in errs32)
+    print("MR, small: float32 on the card, the level's Ez against a "
+          "uniformly fine 128^2 run: "
+          + "; ".join(f"slice {z}: fine {e_f:.4f} (tol 0.10), coarse "
+                      f"{e_c:.4f}, ratio {e_f / e_c:.3f} (tol 0.35)"
+                      for z, e_f, e_c in errs32)
+          + f" {'ok' if ok32 else 'FAIL'}; {CARD['line']}", flush=True)
+    if not ok32:
+        bad.append("float32 fine vs truth")
+    if bad:
+        raise AssertionError(f"MR small mismatch: {bad}")
+
+
+class CallKeeper:
+    """Counts the calls of module.name for which want(args, kwargs) holds,
+    adds up the launches that the kernel wrapper `counter` counts inside
+    those calls, and keeps the arguments of the keep-th such call; undo()
+    restores the function."""
+
+    def __init__(self, module, name, want, counter, keep=0):
+        self.module, self.name = module, name
+        self.orig = getattr(module, name)
+        self.calls, self.launches, self.kept = 0, 0, None
+
+        def counted(*args, **kwargs):
+            if not want(args, kwargs):
+                return self.orig(*args, **kwargs)
+            if self.calls == keep:
+                self.kept = (args, kwargs)
+            self.calls += 1
+            before = counter.launches
+            out = self.orig(*args, **kwargs)
+            self.launches += counter.launches - before
+            return out
+
+        setattr(module, name, counted)
+
+    def undo(self):
+        setattr(self.module, self.name, self.orig)
+
+
+def k3_entry(torch, key, mg, args, kwargs, results):
+    """K3 on a kept solve: against its plain version, timed, its bound."""
+    from hipace_tpu_torch.ops.mg_kernel import mg_solve
+    u0, rhs, acf = args
+    got, cycles, _ = mg_solve(mg, u0, rhs, acf, **kwargs)
+    ref = mg.solve_plain(u0, rhs, acf, **kwargs)
+    torch.cuda.synchronize()
+    ok, err, rel, tol = compare("K3", "float32", got, ref)
+    cycles = int(cycles)
+    same = cycles == mg.last_cycles
+    ms = cuda_ms(lambda: mg_solve(mg, u0, rhs, acf, **kwargs), reps=5)
+    plain_ms = cuda_ms(lambda: mg.solve_plain(u0, rhs, acf, **kwargs),
+                       reps=2)
+    C, ny, nx = rhs.shape
+    print(f"K3 float32 {key} ({C} channels on {ny}x{nx}, "
+          f"{'cell' if mg.cell_centered else 'node'}-centered, "
+          f"{mg.nlevels} levels): V-cycles {cycles} (plain {mg.last_cycles})"
+          f"; max abs err {err:.3e}, / max {rel:.3e} (tol {tol:g}) "
+          f"{'ok' if ok and same else 'FAIL'}; kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.3f} ms; {CARD['line']}", flush=True)
+    size = got.element_size()
+    cells = sum(h * w for h, w in mg.shapes)
+    b_ms, by = bound_line(key, "float32", ms, size * (3 * C + 1) * ny * nx,
+                          max(cycles, 1) * C * cells * (7 * 4 + 9 + 5), size)
+    results[(key, "float32")] = (err, ms, plain_ms, b_ms, by)
+    return ok and same
+
+
+def on_axis_ez(res, sim):
+    """Level 0's Ez along the x axis (the middle row) per slice."""
+    g = sim.geom
+    ez = res["diag"][:, sim.cfg.diag_comps.index("Ez")]
+    mid = g.ny // 2
+    line = ez[:, mid, :] if g.ny % 2 else 0.5 * (ez[:, mid - 1, :]
+                                                 + ez[:, mid, :])
+    return line.double().cpu()
+
+
+@phase("SALAME path")
+def salame_path(torch, counts, results):
+    """SALAME_WAKE at 1023^2 x 64 in float32 (a 669,778-particle drive and a
+    223,259-particle witness with do_salame): a first simulation's step 0
+    warms the kernels; a fresh one's step 0 (SALAME) and step 1 (none) are
+    timed apart, their host reads counted, their K1/K2/K3 launches held to
+    the slice structure with the step's SALAME slices; the witness's
+    weights finite and not all zero, the drive's unchanged; the on-axis Ez
+    spread across the witness below 0.4 of the same deck's with
+    witness.do_salame = 0 (test_salame.py:69-91), whose step 0 takes one
+    host read fewer; then K3 on one of SALAME's solves against its plain
+    version, timed, with its bound."""
+    from hipace_tpu_torch.decks import salame_wake
+    from hipace_tpu_torch.ops.deposit import deposit
+    from hipace_tpu_torch.ops.gather import gather_main
+    from hipace_tpu_torch.ops.mg_kernel import mg_solve
+    from hipace_tpu_torch.pipeline import step as stp
+    from hipace_tpu_torch.pipeline.simulation import Simulation
+
+    def make(extra=""):
+        return Simulation(salame_wake(NXY, NZ, NPART, extra), device="cuda",
+                          dtype=torch.float32, verbose=0)
+
+    warm = make()
+    warm.run_step(0)
+    del warm
+    # the debug mode's first switch in a process is itself counted
+    sync_counted(torch, lambda: None)
+    sim = make()
+    g = sim.geom
+    w0 = sim.binned["w"].clone()
+    valid0, bid0 = sim.binned["valid"], sim.binned["beam_id"]
+    fns = {"K1": deposit, "K2": gather_main, "K3": mg_solve}
+    # one SALAME solve kept: the first of the third SALAME slice
+    keep = {"slices": 0, "mg": None, "K3": 0}
+    orig_sal, orig_solve = stp.salame_slice, sim.slice_step.mg.solve
+
+    def sal(*args, **kwargs):
+        keep["slices"] += 1
+        before = mg_solve.launches
+        out = orig_sal(*args, **kwargs)
+        keep["K3"] += mg_solve.launches - before
+        return out
+
+    def solve(*args, **kwargs):
+        if keep["slices"] == 3 and keep["mg"] is None:
+            keep["mg"] = (args, kwargs)
+        return orig_solve(*args, **kwargs)
+
+    stp.salame_slice, sim.slice_step.mg.solve = sal, solve
+    res, times, copies, per_step = [], [], [], []
+    try:
+        for step in range(2):
+            for f in fns.values():
+                f.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r, c = sync_counted(torch, lambda: sim.run_step(step))
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            copies.append(c)
+            per_step.append({k: f.launches for k, f in fns.items()})
+            res.append(r)
+            sim.binned = r["binned"]
+            sim.time += sim.dt
+    finally:
+        stp.salame_slice = orig_sal
+        del sim.slice_step.mg.solve
+    nos = make("witness.do_salame = 0\n")
+    r_n, copies_n = sync_counted(torch, lambda: nos.run_step(0))
+    n_sal = int(res[0]["salame_is_sal"].sum())
+    n_sal1 = int(res[1]["salame_is_sal"].sum())
+    sub = sum(b.n_subcycles for b in sim.beam_cfgs)
+    pcfg = sim.plasma_cfgs[0]
+    it = sim.cfg.salame_n_iter
+    base = {"K1": int(pcfg.neutralize_background) + 3 * g.nz,
+            "K2": g.nz * (pcfg.n_subcycles + sub), "K3": g.nz}
+    # per SALAME slice and iteration: K1 the trial jx/jy, SALAME's jz, the
+    # plasma's response, the jz redeposit; K2 the trial push and SALAME's
+    # B gather; K3 two solves
+    extra = {"K1": 4 * it, "K2": 2 * it, "K3": 2 * it}
+    want = [{k: base[k] + extra[k] * n for k in base} for n in (n_sal, 0)]
+    counts.update({k: per_step[0][k] + per_step[1][k] for k in fns})
+    # K3's own count inside SALAME's calls, both steps
+    counts["K3 SALAME"] = keep["K3"]
+    zeta = g.prob_lo[2] + (torch.arange(g.nz, dtype=torch.float64) + 0.5) \
+        * g.dz
+    inside = (zeta > -2.35) & (zeta < -1.5)
+    mid = g.nx // 2
+    spread_s = float(on_axis_ez(res[0], sim)[inside, mid].max()
+                     - on_axis_ez(res[0], sim)[inside, mid].min())
+    spread_n = float(on_axis_ez(r_n, nos)[inside, mid].max()
+                     - on_axis_ez(r_n, nos)[inside, mid].min())
+    b = res[0]["binned"]
+    wit = b["valid"] & (b["beam_id"] == 1)
+    drv = b["valid"] & (b["beam_id"] == 0)
+    ww = b["w"][wit].double()
+    w_ok = bool(torch.isfinite(ww).all()) and float(ww.sum()) > 0 \
+        and float(ww.std() / ww.mean()) > 0.01
+    drive_ok = bool((b["w"][drv] == w0[valid0 & (bid0 == 0)][0]).all())
+    finite = all(bool(torch.isfinite(r["diag"]).all()) for r in res)
+    sal_cyc = [c for v in res[0]["salame_cycles"].values() for c in v]
+    print(f"SALAME path {NXY}^2 x {NZ} float32, beams "
+          f"{[int((valid0 & (bid0 == i)).sum()) for i in range(2)]} "
+          f"particles: {n_sal} SALAME slices at step 0 ({n_sal1} at step 1),"
+          f" fields finite {finite}, witness weights finite, not all zero "
+          f"and adapted {w_ok} (std/mean {float(ww.std() / ww.mean()):.4f}),"
+          f" drive weights unchanged {drive_ok}; on-axis Ez spread across "
+          f"the witness {spread_s:.5e} against {spread_n:.5e} without SALAME"
+          f", ratio {spread_s / spread_n:.4f} (tol 0.4); SALAME's K3 "
+          f"V-cycles {min(sal_cyc)}-{max(sal_cyc)} over {len(sal_cyc)} "
+          f"solves, K3 launches inside salame_slice {keep['K3']} (predicted"
+          f" {extra['K3'] * n_sal}); {CARD['line']}", flush=True)
+    print(f"SALAME path: step 0 (SALAME) {g.nz / times[0]:.3f} slices/s, "
+          f"{1e3 * times[0] / g.nz:.3f} ms/slice; step 1 "
+          f"{g.nz / times[1]:.3f} slices/s, {1e3 * times[1] / g.nz:.3f} "
+          f"ms/slice (a first simulation's step 0 warmed the kernels); "
+          f"{CARD['line']}", flush=True)
+    print(f"SALAME path host reads of the device (synchronizing copies): "
+          f"step 0 {copies[0]}, step 1 {copies[1]}, step 0 of the same deck "
+          f"without SALAME {copies_n}", flush=True)
+    for i, (got, exp) in enumerate(zip(per_step, want)):
+        print(f"SALAME path launches step {i}: {got} (slice structure "
+              f"predicts {exp}: per slice {base['K1'] // g.nz} / "
+              f"{pcfg.n_subcycles} + {sub} / 1, per SALAME slice "
+              f"{extra['K1']} / {extra['K2']} / {extra['K3']} more)",
+              flush=True)
+    ok_k3 = k3_entry(torch, "K3 SALAME", orig_solve.__self__,
+                     *keep["mg"], results)
+    if (not finite or not w_ok or not drive_ok or n_sal == 0 or n_sal1
+            or spread_s >= 0.4 * spread_n or copies[0] != copies_n + 1
+            or copies[1] > copies_n or per_step != want or not ok_k3
+            or keep["K3"] != extra["K3"] * n_sal):
+        raise AssertionError("SALAME path: fields, weights, Ez flattening, "
+                             "host reads, launch counts or K3 wrong")
+
+
+@phase("MR path")
+def mr_path(torch, counts, results):
+    """MR_WAKE at 1023^2 x 64 in float32 with a 511^2 level (4,186,116
+    plasma slots), one warm-up and two timed steps, the host's reads
+    counted in the first timed one: finite fields on both levels, the
+    beam's lanes conserved, the K1/K2/K3 launches against the slice
+    structure and the level's active slices, the fine on-axis Ez inside the
+    level within MR_AXIS_BOUND of the coarse; a coupler product on the card
+    against the CPU's in float64 (full float32, no TF32); K1's direct-path
+    share on a fine-level plasma deposit; then K1, K2 and K3 at the level's
+    shapes against their plain versions, timed, with their bounds."""
+    from hipace_tpu_torch.decks import mr_wake
+    from hipace_tpu_torch.fields.mr import LevelCoupler
+    from hipace_tpu_torch.ops import deposit as dep
+    from hipace_tpu_torch.ops import gather as gat
+    from hipace_tpu_torch.ops.mg_kernel import mg_solve
+    from hipace_tpu_torch.particles import plasma as pl
+    from hipace_tpu_torch.pipeline.simulation import Simulation
+    sim = Simulation(mr_wake(NXY, NZ, NPART, NXY // 2), device="cuda",
+                     dtype=torch.float32, verbose=0)
+    g, lv = sim.geom, sim.mr_levels[0]
+    fg = lv.geom
+    n_act = lv.zeta_hi - lv.zeta_lo + 1
+    n0 = int(sim.binned["valid"].sum())
+    fine_shape = fg.slice_shape
+
+    def on_fine(planes):
+        return tuple(planes[0].shape) == fine_shape
+
+    # the level's K1 plasma deposit (13 channels), K2 gathers and K3 solve;
+    # each kept at the middle active slice of the first timed step
+    middle = n_act + n_act // 2
+    k1 = CallKeeper(pl, "deposit", lambda a, k: tuple(a[0].shape[1:])
+                    == fine_shape and a[0].shape[0] == 13, dep.deposit,
+                    keep=middle)
+    # every fine gather (the plasma push's first in a slice, then the
+    # beam's subcycles) goes through plasma.gather_fields
+    per_slice_k2 = sim.plasma_cfgs[0].n_subcycles \
+        + sim.beam_cfgs[0].n_subcycles
+    k2p = CallKeeper(pl, "gather_main", lambda a, k: on_fine(a[0]),
+                     gat.gather_main, keep=middle * per_slice_k2)
+    k3 = CallKeeper(sim.slice_step.fine_mgs[0], "solve",
+                    lambda a, k: True, mg_solve, keep=middle)
+    for f in (dep.deposit, gat.gather_main, mg_solve):
+        f.launches = 0
+    steps, times, copies = 3, [], 0
+    try:
+        for step in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if step == 1:
+                res, copies = sync_counted(torch, lambda: sim.run_step(1))
+            else:
+                res = sim.run_step(step)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            sim.binned = res["binned"]
+            sim.time += sim.dt
+    finally:
+        for k in (k1, k2p, k3):
+            k.undo()
+    counts.update({"K1": dep.deposit.launches, "K2": gat.gather_main.launches,
+                   "K3": mg_solve.launches})
+    # the kernels' own counts inside the level's calls
+    counts["K1 fine"] = k1.launches
+    counts["K2 fine"] = k2p.launches
+    counts["K3 fine"] = k3.launches
+    pcfg, bcfg = sim.plasma_cfgs[0], sim.beam_cfgs[0]
+    per_step = {"K1": 2 * int(pcfg.neutralize_background) + 3 * (g.nz + n_act),
+                "K2": (g.nz + n_act) * (pcfg.n_subcycles + bcfg.n_subcycles),
+                "K3": g.nz + n_act, "K1 fine": n_act,
+                "K2 fine": n_act * (pcfg.n_subcycles + bcfg.n_subcycles),
+                "K3 fine": n_act}
+    n = int(sim.binned["valid"].sum())
+    rows = slice(lv.zeta_lo, lv.zeta_hi + 1)
+    fine_line = res["diagf_lev1"][rows, 0].double().cpu()
+    finite = (bool(torch.isfinite(res["diag"]).all())
+              and bool(torch.isfinite(fine_line).all()))
+    # the fine on-axis Ez against the coarse one at the fine cell centres
+    x0 = g.prob_lo[0] + (torch.arange(g.nx, dtype=torch.float64) + 0.5) \
+        * g.dx
+    xf = fg.prob_lo[0] + (torch.arange(fg.nx, dtype=torch.float64) + 0.5) \
+        * fg.dx
+    inside = xf.abs() < 1.5
+    coarse = on_axis_ez(res, sim)[rows]
+    i = torch.clamp(torch.searchsorted(x0, xf[inside]) - 1, 0, g.nx - 2)
+    t = (xf[inside] - x0[i]) / g.dx
+    coarse_f = coarse[:, i] * (1 - t) + coarse[:, i + 1] * t
+    axis_err = float((fine_line[:, inside] - coarse_f).abs().max()
+                     / coarse_f.abs().max())
+    slices = g.nz * (steps - 1)
+    t_step = sum(times[1:])
+    print(f"MR path {NXY}^2 x {NZ} float32 with a {fg.nx}^2 level over "
+          f"slices {lv.zeta_lo}-{lv.zeta_hi} ({n_act} active), "
+          f"{pl.plasma_count(pcfg, g)} plasma slots, {n0} beam particles: "
+          f"fields finite on both levels {finite}, beam particles {n} (start "
+          f"{n0}); fine on-axis Ez inside |x| < 1.5 within {axis_err:.4f} of "
+          f"the coarse's largest (bound {MR_AXIS_BOUND}); {CARD['line']}",
+          flush=True)
+    print(f"MR path: {slices / t_step:.3f} slices/s, "
+          f"{1e3 * t_step / slices:.3f} ms/slice over {steps - 1} timed steps"
+          f" after 1 warm-up; per timed step "
+          + ", ".join(f"{g.nz / t:.3f}" for t in times[1:])
+          + f"; {CARD['line']}", flush=True)
+    print(f"MR path device-to-host copies per slice (synchronizing reads, "
+          f"first timed step): {copies / g.nz:.3f} (the flagship's: "
+          f"{(2 * g.nz + 4) / g.nz:.3f})", flush=True)
+    for k, count in counts.items():
+        print(f"MR path launches {k}: {count} (slice structure predicts "
+              f"{per_step[k] * steps}: per slice 3 / "
+              f"{pcfg.n_subcycles} + {bcfg.n_subcycles} / 1 on each running "
+              f"level, one background deposit per level and step)",
+              flush=True)
+    # a coupler product on the card against the CPU's in float64
+    coup = sim.slice_step.couplers[0]
+    c_gpu = res["diag"][g.nz // 2].new_zeros(g.slice_shape)
+    c_gpu[2:-2, 2:-2] = res["diag"][lv.zeta_lo + n_act // 2,
+                                    sim.cfg.diag_comps.index("Ez")]
+    cpu_coup = LevelCoupler(g, fg, torch.float64, "cpu")
+    up_err = rel_err(coup.up_full(c_gpu), cpu_coup.up_full(c_gpu.double()
+                                                            .cpu()))
+    up_ms = cuda_ms(lambda: coup.up_full(c_gpu))
+    print(f"MR path coupler up_full on the card (float32 matmuls, TF32 "
+          f"{torch.backends.cuda.matmul.allow_tf32}) against the CPU's in "
+          f"float64: {up_err:.3e} of the largest (tol 1e-6), "
+          f"{up_ms:.4f} ms per product; {CARD['line']}", flush=True)
+    # K1 at the level's plasma deposit: plain, timed, direct-path share
+    (fields, ym, xm, values, order), kw = k1.kept
+    got = dep.deposit_cuda(fields.clone(), ym, xm, values, order, **kw)
+    ref = dep.deposit_plain(fields.clone(), ym, xm, values, order,
+                            kw.get("deriv_type", -1), kw.get("blocks"))
+    torch.cuda.synchronize()
+    ok1, err1, rel1, tol1 = compare("K1", "float32", got, ref)
+    dep.reset_block_counts()
+    dep.deposit_cuda(fields.clone(), ym, xm, values, order, **kw)
+    direct, blocks = dep.direct_block_count("cuda"), dep.deposit.blocks
+    ms1 = cuda_ms(lambda: dep.deposit_cuda(fields.clone(), ym, xm, values,
+                                           order, **kw))
+    plain1 = cuda_ms(lambda: dep.deposit_plain(
+        fields.clone(), ym, xm, values, order, kw.get("deriv_type", -1),
+        kw.get("blocks")), reps=2)
+    C, NYf, NXf = fields.shape
+    live = int((ym < 1.5 * NYf).sum())
+    print(f"K1 float32 MR fine level: C={C} on {NYf}x{NXf}, {ym.numel()} "
+          f"lanes ({live} live, the rest masked to the dead row): max abs err"
+          f" {err1:.3e}, / max {rel1:.3e} (tol {tol1:g}) "
+          f"{'ok' if ok1 else 'FAIL'}; blocks on the direct path {direct} of "
+          f"{blocks} ({100 * direct / blocks:.2f}%); kernel {ms1:.4f} ms, "
+          f"plain {plain1:.3f} ms; {CARD['line']}", flush=True)
+    b1 = bound_line("K1 MR fine", "float32", ms1,
+                    4 * (2 * fields.numel() + 2 * ym.numel() + C * live),
+                    2 * C * 9 * live, 4)
+    results[("K1 MR fine", "float32")] = (err1, ms1, plain1) + b1
+    # K2 at the level's plasma gather
+    (planes, gym, gxm, gorder), _ = k2p.kept
+    got = gat.gather_main_cuda(planes, gym, gxm, gorder)
+    ref = gat.gather_main_plain(planes, gym, gxm, gorder)
+    torch.cuda.synchronize()
+    ok2, err2, rel2, tol2 = compare("K2", "float32", got, ref)
+    ms2 = cuda_ms(lambda: gat.gather_main_cuda(planes, gym, gxm, gorder))
+    plain2 = cuda_ms(lambda: gat.gather_main_plain(planes, gym, gxm, gorder))
+    live2 = int((gym < 1.5 * NYf).sum())
+    print(f"K2 float32 MR fine level: plasma gather on {NYf}x{NXf}, "
+          f"{gym.numel()} lanes ({live2} live): max abs err {err2:.3e}, / max"
+          f" {rel2:.3e} (tol {tol2:g}) {'ok' if ok2 else 'FAIL'}; kernel "
+          f"{ms2:.4f} ms, plain {plain2:.3f} ms; {CARD['line']}", flush=True)
+    b2 = bound_line("K2 MR fine", "float32", ms2,
+                    4 * (5 * stencil_cells(torch, gym, gxm, NYf, NXf, 2)
+                         + 8 * gym.numel()), 2 * 6 * 16 * live2, 4)
+    results[("K2 MR fine", "float32")] = (err2, ms2, plain2) + b2
+    ok3 = k3_entry(torch, "K3 MR fine", k3.orig.__self__, *k3.kept, results)
+    if (not finite or n != n0 or axis_err >= MR_AXIS_BOUND or up_err >= 1e-6
+            or not (ok1 and ok2 and ok3) or copies > 2 * g.nz + 4
+            or any(c != per_step[k] * steps for k, c in counts.items())):
+        raise AssertionError("MR path: fields, beam, on-axis Ez, coupler, "
+                             "kernels, host reads or launch counts wrong")
+
+
 def main() -> int:
     if not (ROOT / "hipace_tpu_torch" / "csrc").is_dir():
         print("chip_smoke.py must run from a checkout of the repository",
@@ -2482,6 +3080,9 @@ def main() -> int:
     kind = torch.cuda.get_device_name(0)
     print(f"torch.cuda.get_device_name: {kind}; torch {torch.__version__}, "
           f"CUDA {torch.version.cuda}")
+    # the port never turns TF32 on: the MR couplers' matmuls need full f32
+    print(f"torch's default matmul TF32: "
+          f"{torch.backends.cuda.matmul.allow_tf32}")
     torch.backends.cuda.matmul.allow_tf32 = False    # full f32 plain matmuls
     torch.backends.cudnn.allow_tf32 = False
 
@@ -2550,6 +3151,14 @@ def main() -> int:
     torch.cuda.empty_cache()
     collision_counts: dict = {}
     collision_path(torch, collision_counts, results)
+    torch.cuda.empty_cache()
+    salame_small_phase(torch)
+    mr_small_phase(torch)
+    salame_counts: dict = {}
+    salame_path(torch, salame_counts, results)
+    torch.cuda.empty_cache()
+    mr_counts: dict = {}
+    mr_path(torch, mr_counts, results)
 
     if failures:
         print(f"chip_smoke FAILED phases: {failures}", file=sys.stderr)
@@ -2578,7 +3187,18 @@ def main() -> int:
                  "node-centered)", laser_counts["K3 complex"]),
                 ("K2", "K2 ionization",
                  "K2 gather_main, ionization path (ADK field gather at the "
-                 "ions' previous positions)", ion_counts["K2 ionization"])]
+                 "ions' previous positions)", ion_counts["K2 ionization"]),
+                ("K1", "K1 MR fine",
+                 "K1 deposit, MR fine level (C = 13, masked lanes, 511^2)",
+                 mr_counts["K1 fine"]),
+                ("K2", "K2 MR fine", "K2 gather_main, MR fine level",
+                 mr_counts["K2 fine"]),
+                ("K3", "K3 MR fine",
+                 "K3, MR fine Bx/By (511^2, C = 2, Dirichlet data from the "
+                 "parent)", mr_counts["K3 fine"]),
+                ("K3", "K3 SALAME",
+                 "K3, SALAME Bx/By (1023^2, C = 2, max_iters 40)",
+                 salame_counts["K3 SALAME"])]
     for k, key, label, launches in entries:
         _, source, replaces = KERNELS[k]
         err, ms, plain_ms, bound_ms, bound_by = results[(key, "float32")]

@@ -73,6 +73,23 @@ nxy = 1023: 1,046,529 ion lanes and as many electron slots.
 ``collisions_beam.SI.1Rank`` checksum cases (the reference's
 ``examples/blowout_wake/inputs_SI`` with one of the two each) in one deck on
 the flagship's grid, and not those files.
+
+``SALAME_WAKE`` is the deck of the JAX package's SALAME test
+(``tests/test_salame.py:11-51``), not a reference file: a fixed_weight
+gaussian drive (z = 2, sigma_z 1.0, density 2, uz = 2000) and behind it a
+``can`` witness (z -2.4..-1.4, radius 0.8, density 0.4, uz = 1000) with
+``do_salame``, through a 1 ppc electron plasma in a (-8..8)^2 x (-7..5) box,
+with four SALAME iterations. At full width (1023^2) the drive has the
+flagship's 669,778 particles and the witness a third of that, the test's
+3:1.
+
+``MR_WAKE`` is the flagship with one mesh-refinement level around the
+drive's core: an nfine^2 patch over (-2..2)^2 at z -4..0, and a fine plasma
+patch of 2 x 2 ppc over (-2.3..2.3)^2 (the form of the JAX package's
+``test_salame_with_mr``), with the level's on-axis Ez written as an xz
+diagnostic in json (the GPU machine has no h5py). At full width nxy = 1023 and nfine = 511 (odd, the
+node-centered multigrid): 2x refinement, 4,186,116 plasma slots, and the
+level active on 33 of 64 slices (16-48).
 """
 
 from __future__ import annotations
@@ -369,4 +386,79 @@ def collision_wake(nxy: int, nz: int, npart: int, extra: str = "") -> Inputs:
     followed by the deck lines in `extra`; full width is nxy = 1023 with
     the flagship's npart."""
     return Inputs(COLLISION_WAKE.format(nxy=nxy, nz=nz, npart=npart)
+                  + extra)
+
+
+SALAME_WAKE = """
+amr.n_cell = {nxy} {nxy} {nz}
+hipace.normalized_units = 1
+max_step = 0
+hipace.dt = 0.
+hipace.depos_order_xy = 2
+hipace.salame_n_iter = 4
+boundary.field = Dirichlet
+boundary.particle = Periodic
+geometry.prob_lo = -8. -8. -7.
+geometry.prob_hi =  8.  8.  5.
+beams.names = drive witness
+drive.injection_type = fixed_weight
+drive.num_particles = {npart}
+drive.profile = gaussian
+drive.position_mean = 0. 0. 2.
+drive.position_std = 0.3 0.3 1.0
+drive.zmin = -1.
+drive.zmax = 4.9
+drive.density = 2.
+drive.u_mean = 0. 0. 2000.
+drive.u_std = 0. 0. 0.
+witness.injection_type = fixed_weight
+witness.num_particles = {nwitness}
+witness.profile = can
+witness.zmin = -2.4
+witness.zmax = -1.4
+witness.radius = 0.8
+witness.position_mean = 0. 0. 0.
+witness.position_std = 0.2 0.2 1.
+witness.density = 0.4
+witness.u_mean = 0. 0. 1000.
+witness.u_std = 0. 0. 0.
+witness.do_salame = 1
+plasmas.names = plasma
+plasma.density(x,y,z) = 1.
+plasma.ppc = 1 1
+plasma.element = electron
+diagnostic.output_period = 0
+diagnostic.field_data = Ez
+"""
+
+
+def salame_wake(nxy: int, nz: int, npart: int, extra: str = "") -> Inputs:
+    """SALAME_WAKE on an nxy^2 x nz grid with an npart-particle drive and a
+    witness of npart // 3 particles, followed by the deck lines in
+    `extra`."""
+    return Inputs(SALAME_WAKE.format(nxy=nxy, nz=nz, npart=npart,
+                                     nwitness=npart // 3) + extra)
+
+
+MR_WAKE = BLOWOUT_WAKE + """\
+amr.max_level = 1
+mr_lev1.n_cell = {nfine} {nfine}
+mr_lev1.patch_lo = -2. -2. -4.
+mr_lev1.patch_hi =  2.  2.  0.
+plasma.fine_patch(x,y) = (abs(x)<2.3)*(abs(y)<2.3)
+plasma.fine_ppc = 2 2
+diagnostic.names = lev0 lev1
+lev1.base_geometry = level_1
+lev1.field_data = Ez
+lev1.diag_type = xz
+lev1.output_period = 1
+hipace.openpmd_backend = json
+"""
+
+
+def mr_wake(nxy: int, nz: int, npart: int, nfine: int,
+            extra: str = "") -> Inputs:
+    """MR_WAKE on an nxy^2 x nz grid with an npart-particle beam and an
+    nfine^2 level, followed by the deck lines in `extra`."""
+    return Inputs(MR_WAKE.format(nxy=nxy, nz=nz, npart=npart, nfine=nfine)
                   + extra)

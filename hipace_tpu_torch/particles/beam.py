@@ -16,7 +16,11 @@ fixed_weight_pdf init is split into its random draws (``pdf_draws``, from
 the simulation's generator) and the transform of those draws
 (``init_fixed_weight_pdf``), so that the transform can be fed any draws.
 
-Not ported: SALAME.
+SALAME (``pipeline/salame.py``) reweights the lanes of the beams with
+``do_salame``; its deposits take those lanes alone (``only_salame``). Under
+mesh refinement a fine level's deposits take the lanes inside it
+(``extra_mask``) at the level-0 density (``geom0``), and the push gathers
+each lane's fields from the finest active level that holds it.
 """
 
 from __future__ import annotations
@@ -27,15 +31,15 @@ import math
 import numpy as np
 import torch
 
-from .. import unsupported
 from .. import constants as cst
 from ..constants import PhysConst
 from ..diagnostics.openpmd import read_beam
+from ..fields.mr import in_level_bounds
 from ..geometry import Geometry
 from ..ops.deposit import deposit
 from ..parser import Inputs, TorchFunction
-from .plasma import (cell_positions, enforce_particle_bc, field_planes,
-                     gather_fields)
+from .plasma import (cell_positions, deposit_invvol, enforce_particle_bc,
+                     field_planes, gather_fields)
 
 # spin components are carried (zero without spin tracking) so the per-slice
 # layout is the same for every species
@@ -97,6 +101,8 @@ class BeamConfig:
     external_fields_expr: tuple = ("0", "0", "0", "0", "0", "0")
     do_radiation_reaction: bool = False
     do_spin_tracking: bool = False
+    # SALAME beam loading (ref Salame.cpp): this beam's weights are adapted
+    do_salame: bool = False
     initial_spin: tuple = (0.0, 0.0, 1.0)
     spin_anom: float = 0.00115965218128   # electron anomalous moment
 
@@ -112,8 +118,6 @@ class BeamConfig:
         injection = pp.get("injection_type", str)
         if injection not in INJECTION_TYPES:
             raise NotImplementedError(f"injection_type {injection}")
-        if pp.query("do_salame", False, bool):
-            unsupported.fail(f"{name}.do_salame", unsupported.SALAME)
         # a fixed_weight beam of any profile but can is drawn as gaussian,
         # as the JAX package draws it; fixed_ppc knows three profiles
         profile = pp.query("profile", "gaussian", str)
@@ -227,6 +231,7 @@ class BeamConfig:
             + (b3 or ("0", "0", "0")),
             do_radiation_reaction=q("do_radiation_reaction", False, bool),
             do_spin_tracking=q("do_spin_tracking", False, bool),
+            do_salame=pp.query("do_salame", False, bool),
             initial_spin=tuple(pp.query_list("initial_spin",
                                              [0.0, 0.0, 1.0])),
             spin_anom=q("spin_anom", 0.00115965218128),
@@ -538,12 +543,12 @@ def beam_constants(cfgs, device, dtype) -> dict:
 def advance_all_beams(bp: dict, fields: dict, geom: Geometry, cfgs,
                       pc: PhysConst, dt, min_z, order: int = 2, time=0.0,
                       background_density_SI: float = 0.0,
-                      external=None):
+                      external=None, fine_levels=()):
     """Push every beam species of the merged slice lanes: one masked pass
     per species with its own subcycles, charge and mass (ref
     BeamParticleAdvance.cpp, one call per container). `external` holds each
     species' external field functions (beam_constants), evaluated at
-    `time`."""
+    `time`; fine_levels as in advance_beam_slice."""
     if external is None:
         external = tuple(b.external_field_fns() for b in cfgs)
     out = bp
@@ -552,7 +557,8 @@ def advance_all_beams(bp: dict, fields: dict, geom: Geometry, cfgs,
         out = advance_beam_slice(
             out, fields, geom, cfg, pc, dt, min_z, order=order,
             external_fields=external[b], time=time,
-            background_density_SI=background_density_SI, species_mask=mask)
+            background_density_SI=background_density_SI, species_mask=mask,
+            fine_levels=fine_levels)
     return out
 
 
@@ -560,14 +566,18 @@ def advance_beam_slice(bp: dict, fields: dict, geom: Geometry,
                        cfg: BeamConfig, pc: PhysConst, dt, min_z,
                        order: int = 2, external_fields=None, time=0.0,
                        background_density_SI: float = 0.0,
-                       species_mask=None):
+                       species_mask=None, fine_levels=()):
     """Push the beam particles of one slice forward by dt in n_subcycles
     (ref BeamParticleAdvance.cpp:19-336), with the external fields (six
     functions of x, y, z, t) added to the gathered ones, TBMT spin
     precession (:218-241) and Tamburini radiation reaction (:244-299) where
     the species asks for them. Particles that slip below min_z stop; their
     remaining subcycles run on their new slice (resume counter 'nsub').
-    With species_mask only those lanes move, and only they are gathered."""
+    With species_mask only those lanes move, and only they are gathered.
+    fine_levels: (fields, geometry) of each fine level active on this slice,
+    level 1 first; a lane inside a level gathers from it (K2 on the level's
+    grid), the finest such level winning (ref
+    BeamParticleAdvance.cpp:165-186)."""
     n_sub = cfg.n_subcycles
     dt = dt / n_sub
     clight = pc.c
@@ -594,6 +604,7 @@ def advance_beam_slice(bp: dict, fields: dict, geom: Geometry,
     stopped = torch.zeros_like(valid)
     nsub_out = nsub0
     planes = field_planes(fields)
+    fine_planes = [field_planes(ff) for ff, _ in fine_levels]
     for i in range(n_sub):
         slipped = z < min_z
         active = valid & (nsub0 <= i) & ~stopped & ~slipped
@@ -608,10 +619,15 @@ def advance_beam_slice(bp: dict, fields: dict, geom: Geometry,
         xh, yh, ux_b, uy_b, w_b, val_b = enforce_particle_bc(
             xh, yh, ux, uy, w, valid, geom, cfg.particle_boundary,
             bounds=cfg.particle_bounds)
-        exmby, eypbx, ez, bx, by, bz = gather_fields(
-            planes, xh, yh,
-            val_b if species_mask is None else val_b & species_mask,
-            geom, order)
+        gmask = val_b if species_mask is None else val_b & species_mask
+        exmby, eypbx, ez, bx, by, bz = gather_fields(planes, xh, yh, gmask,
+                                                     geom, order)
+        for fp, (_, fg) in zip(fine_planes, fine_levels):
+            inb = in_level_bounds(xh, yh, fg)
+            fine = gather_fields(fp, xh, yh, gmask & inb, fg, order)
+            exmby, eypbx, ez, bx, by, bz = (
+                torch.where(inb, f, c) for f, c in zip(
+                    fine, (exmby, eypbx, ez, bx, by, bz)))
         if external_fields is not None:
             ex_e, ey_e, ez_e, bx_e, by_e, bz_e = (
                 f(xh, yh, z, time) for f in external_fields)
@@ -726,16 +742,36 @@ def advance_beam_slice(bp: dict, fields: dict, geom: Geometry,
     return out
 
 
+def salame_lanes(bp, cfgs):
+    """The lanes of the beams with do_salame."""
+    if len(cfgs) == 1:
+        return bp["valid"] if cfgs[0].do_salame else torch.zeros_like(
+            bp["valid"])
+    flags = [b.do_salame for b in cfgs]
+    if all(flags):
+        return bp["valid"]
+    bid = bp["beam_id"]
+    sel = torch.zeros_like(bp["valid"])
+    for b, flag in enumerate(flags):
+        if flag:
+            sel = sel | (bid == b)
+    return bp["valid"] & sel
+
+
 def _beam_deposit_values(bp, quantities, cfgs, pc: PhysConst, invvol,
-                         charges=None):
+                         charges=None, only_salame: bool = False,
+                         extra_mask=None):
     """Per-lane deposit values and the deposit mask. With several beams
     each lane's charge is `charges` (beam_constants' table) at its
-    beam_id."""
+    beam_id. only_salame keeps the lanes of the beams with do_salame;
+    extra_mask, where given, joins the mask."""
     clight_sq = 1.0 / (pc.c * pc.c)
     ux, uy, uz = bp["ux"], bp["uy"], bp["uz"]
     gam_inv = 1.0 / torch.sqrt(1.0 + (ux * ux + uy * uy + uz * uz)
                                * clight_sq)
-    mask = bp["valid"]
+    mask = salame_lanes(bp, cfgs) if only_salame else bp["valid"]
+    if extra_mask is not None:
+        mask = mask & extra_mask
     charge = (cfgs[0].charge if len(cfgs) == 1 else
               charges[bp["beam_id"].clamp(0, len(cfgs) - 1).long()])
     wq = torch.where(mask, charge * bp["w"] * invvol, torch.zeros_like(ux))
@@ -747,14 +783,18 @@ def _beam_deposit_values(bp, quantities, cfgs, pc: PhysConst, invvol,
 
 def deposit_beam_slice(bp: dict, comp_map: dict, fields: dict,
                        geom: Geometry, cfgs, pc: PhysConst, order: int,
-                       normalized_units: bool, charges=None):
+                       normalized_units: bool, charges=None,
+                       only_salame: bool = False, extra_mask=None,
+                       geom0: Geometry | None = None):
     """Deposit the merged beams' currents in one K1 call (ref
     BeamDepositCurrent.cpp:60-200). comp_map maps quantity (jx, jy, jz,
-    rhomjz) to field name; charges as in _beam_deposit_values."""
-    invvol = 1.0 if normalized_units else 1.0 / (geom.dx * geom.dy * geom.dz)
+    rhomjz) to field name; charges, only_salame and extra_mask as in
+    _beam_deposit_values. On a fine level (geom, with level 0's geom0) the
+    normalized density is level 0's (ref BeamDepositCurrent.cpp:72-81)."""
+    invvol = deposit_invvol(geom, geom0, normalized_units)
     quantities = list(comp_map)
     vals, mask = _beam_deposit_values(bp, quantities, cfgs, pc, invvol,
-                                      charges)
+                                      charges, only_salame, extra_mask)
     stack = torch.stack([fields[comp_map[q]] for q in quantities])
     ym, xm = cell_positions(bp["x"], bp["y"], mask, geom)
     deposit(stack, ym, xm, torch.stack(vals), order)

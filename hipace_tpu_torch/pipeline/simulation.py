@@ -8,8 +8,7 @@ simulation's generator; the density table's expression for c*t, chosen by
 head to tail through ``SliceStep`` and re-bins the pushed beams. Every beam
 of the deck is drawn in deck order from the simulation's generator, merged
 (a ``beam_id`` per lane) and binned with one capacity planned on the merged
-lanes. Decks that select anything off these paths raise at construction
-(``unsupported.py``).
+lanes.
 
 A laser (``lasers.names``) streams its envelope between steps: (n00, nm1),
 complex (nz, NY, NX) tensors on the device, each step's advanced and current
@@ -28,6 +27,13 @@ draw their uniforms on every slice from the simulation's generator
 (``step.UniformDraws``); in normalized units both need
 ``hipace.background_density_SI``.
 
+SALAME (``<beam>.do_salame``, explicit solver only) runs at step 0 on the
+slices that hold a SALAME lane, found from the binned beam with one read of
+the device. Mesh refinement (``amr.max_level``) builds each level's coupler,
+Poisson solver and multigrid once; each step deposits the levels'
+neutralizing background (or interpolates it from the parent level), and the
+levels' diagnostics are written on their own grids.
+
 Output follows the JAX package: the named field diagnostics and each beam
 (from the binned beams before the step's push) go to openPMD files, the
 in-situ moments to reduced-diagnostics files, one per beam. The slice step
@@ -39,23 +45,46 @@ from __future__ import annotations
 
 import dataclasses
 import math
+import sys
 
 import torch
 
 from .. import device as dev_policy
-from .. import unsupported
 from ..constants import make_constants
 from ..diagnostics import insitu as ins
 from ..diagnostics.openpmd import BEAM_RECORDS, OpenPMDWriter
 from ..fields import laser as lz
+from ..fields.mr import in_level_bounds, parse_mr_levels
 from ..geometry import Geometry
-from ..parser import Inputs
+from ..parser import Inputs, deck_function
 from ..particles import beam as bm
 from ..particles import plasma as pl
 from ..utils import adaptive_dt as adt
+from .salame import empty_salame_state
 from .step import (DIAG_COMPS, THIS_COMPS_PC, DiagConfig, SimConfig,
                    SliceStep, UniformDraws, diag_slice_shape, empty_slip,
                    init_field_state, is_full_interior, zero_moments)
+
+
+def _read_counts(*groups) -> None:
+    """Replace the counts in each group (a list, or a dict of counts or of
+    lists of counts) by ints: on the card they are 0-d device tensors, all
+    read in one copy."""
+    slots = []
+    for grp in groups:
+        for k in (range(len(grp)) if isinstance(grp, list) else list(grp)):
+            if isinstance(grp[k], list):
+                slots += [(grp[k], j) for j in range(len(grp[k]))]
+            else:
+                slots.append((grp, k))
+    vals = [c[k] for c, k in slots]
+    dev = next((v.device for v in vals if torch.is_tensor(v)), None)
+    if dev is None:
+        return
+    read = torch.stack([torch.as_tensor(v, device=dev).reshape(())
+                        .to(torch.int64) for v in vals]).tolist()
+    for (c, k), v in zip(slots, read):
+        c[k] = v
 
 
 class Simulation:
@@ -64,13 +93,13 @@ class Simulation:
     def __init__(self, inputs: Inputs, device=None, dtype=None,
                  verbose: int | None = None):
         self.device, self.dtype = dev_policy.resolve(device, dtype)
-        unsupported.check_deck(inputs)
         self.inputs = inputs
         self.normalized_units = inputs.query("hipace.normalized_units",
                                              False, bool)
         self.pc = make_constants(self.normalized_units)
         depos_order = inputs.query("hipace.depos_order_xy", 2, int)
         self.geom = Geometry.from_inputs(inputs, depos_order)
+        self.mr_levels = parse_mr_levels(inputs, self.geom)
         self.max_step = inputs.query("max_step", 0, int)
         self.max_time = inputs.query("hipace.max_time", float("inf"))
         self._has_last_step = False
@@ -102,6 +131,19 @@ class Simulation:
         self.ionization_pairs, self.spawn_extra = self._ionization_cfg(
             plasma_cfgs, plasma_names, bg_si)
         self.plasma_cfgs = tuple(plasma_cfgs)
+        if self.mr_levels and self.plasma_cfgs and not any(
+                p.fine_patch_expr for p in self.plasma_cfgs):
+            # as the JAX package warns: one coarse ppc over ratio^2 fine
+            # cells aliases the fine level's charge
+            ratio = self.geom.dx / min(lv.geom.dx for lv in self.mr_levels)
+            if ratio >= 2.0:
+                print("WARNING: mesh refinement at >=2x without any "
+                      "plasma.fine_patch/fine_ppc: the fine-level plasma "
+                      "charge will be aliased (1 coarse ppc per "
+                      f"~{ratio * ratio:.0f} fine cells) and in-patch "
+                      "fields unreliable. Define <plasma>.fine_patch(x,y) "
+                      "and <plasma>.fine_ppc covering the patch.",
+                      file=sys.stderr)
         beam_names = inputs.query_list("beams.names", [], str)
         if beam_names == ["no_beam"]:
             beam_names = []
@@ -188,7 +230,20 @@ class Simulation:
             adaptive_dt=self.adt_cfg.enabled,
             ionization_pairs=self.ionization_pairs,
             collisions=self._collision_cfg(inputs, plasma_names,
-                                           beam_names))
+                                           beam_names),
+            mr_levels=self.mr_levels,
+            salame_n_iter=inputs.query("hipace.salame_n_iter", 3, int),
+            salame_do_advance=inputs.query("hipace.salame_do_advance", True,
+                                           bool),
+            salame_tolerance=inputs.query("hipace.salame_relative_tolerance",
+                                          1e-4),
+            salame_target_expr=deck_function(
+                inputs, ("hipace.salame_Ez_target",),
+                ("zeta", "zeta_initial", "Ez_initial"),
+                default="Ez_initial").expr,
+            salame_consts=tuple(sorted(
+                (k, float(v)) for k, v in inputs.my_constants.items()
+                if isinstance(v, (int, float)))))
         for what, used in (
                 ("radiation reaction", any(b.do_radiation_reaction
                                            for b in self.beam_cfgs)),
@@ -335,14 +390,16 @@ class Simulation:
 
             base = q("base_geometry", {"laser_diag": "laser"}.get(
                 name, "level_0"), str)
-            # mesh-refinement levels do not exist here, nor the laser grid
+            # a fine level that the deck does not have, or the laser grid
             # without a laser: their diagnostics are skipped, as the JAX
-            # package skips them when their feature is off
-            if base in ("level_1", "level_2") or (base == "laser"
-                                                  and not use_laser):
+            # package skips them
+            lev = int(base[-1]) if base in ("level_1", "level_2") else 0
+            if lev > len(self.mr_levels) or (base == "laser"
+                                             and not use_laser):
                 continue
             laser_base = base == "laser"
-            dgeom = self.laser_geom if laser_base else g
+            dgeom = (self.laser_geom if laser_base
+                     else self.mr_levels[lev - 1].geom if lev else g)
             period = pp.query("output_period",
                               dd.query("output_period", self.output_period,
                                        int), int)
@@ -384,6 +441,11 @@ class Simulation:
                 # field slices, clipped to the laser's zeta span
                 patch_z = (max(patch_z[0], self.laser_zeta[0]),
                            min(patch_z[1], self.laser_zeta[1]))
+            if lev:
+                # the z range clipped to the level's slices
+                lv = self.mr_levels[lev - 1]
+                patch_z = (max(patch_z[0], lv.zeta_lo),
+                           min(patch_z[1], lv.zeta_hi))
             diags.append(DiagConfig(
                 name=name, base=base, diag_type=q("diag_type", "xyz", str),
                 comps=tuple(comps),
@@ -420,6 +482,41 @@ class Simulation:
                 tuple(pp.get_list("position_std")))
 
     # ------------------------------------------------------------------
+    def _fine_background(self, fields: dict, plasmas: list) -> None:
+        """The fine levels' neutralizing background (ref
+        Hipace.cpp:455-471), into fields' mr<level> sets: each level's own
+        K1 deposit of the lanes inside it at the level-0 density or, with
+        hipace.interpolate_neutralizing_background, its parent's
+        interpolated."""
+        cfg = self.cfg
+        interp = self.inputs.query(
+            "hipace.interpolate_neutralizing_background", False, bool)
+        parent_rhom = fields["RhomJzIons"]["rhomjz"]
+        for i, lv in enumerate(cfg.mr_levels):
+            fion = fields[f"mr{i + 1}"]["RhomJzIons"]["rhomjz"]
+            if interp:
+                fion = self.slice_step.couplers[i].up_full(parent_rhom)
+            else:
+                for p, pcfg in zip(plasmas, self.plasma_cfgs):
+                    if pcfg.neutralize_background:
+                        fion = pl.deposit_plasma(
+                            p, ["rhomjz"], {"rhomjz": fion}, lv.geom, pcfg,
+                            self.pc, cfg.depos_order_xy,
+                            cfg.normalized_units, flip_charge=True,
+                            extra_mask=in_level_bounds(p["x"], p["y"],
+                                                       lv.geom),
+                            geom0=self.geom)[0]["rhomjz"]
+            fields[f"mr{i + 1}"]["RhomJzIons"] = {"rhomjz": fion}
+            parent_rhom = fion
+
+    def _diag_base_geom(self, dg) -> Geometry:
+        """The grid of a diagnostic's base geometry."""
+        if dg.base == "laser":
+            return self.laser_geom
+        if dg.base != "level_0":
+            return self.mr_levels[int(dg.base[-1]) - 1].geom
+        return self.geom
+
     def _time_step(self, binned: dict, time: float, dt: float,
                    step: int = 0, laser_stream=None) -> dict:
         """One full time step: plasma re-init, neutralizing background, the
@@ -429,7 +526,10 @@ class Simulation:
         the next step's (n00, nm1); under adaptive dt beam_moments and
         min_uz, 0-d device tensors; plasma, each species' state after the
         sweep; with ionization ionized, the step's ionization events, a
-        0-d device tensor."""
+        0-d device tensor; with SALAME salame_W and salame_dbg per slice,
+        salame_is_sal (which slices ran it) and salame_cycles (per SALAME
+        slice); with mesh refinement mg_cycles_lev<N> (per slice the level
+        runs, explicit solver)."""
         cfg, g = self.cfg, self.geom
         dev = dict(dtype=self.dtype, device=self.device)
         fields = init_field_state(cfg, self.device, self.dtype)
@@ -451,6 +551,7 @@ class Simulation:
                     flip_charge=True)
                 rhomjz_ion = tmp["rhomjz"]
         fields["RhomJzIons"] = {"rhomjz": rhomjz_ion}
+        self._fine_background(fields, plasmas)
 
         carry = {"fields": fields, "plasma": plasmas,
                  "slip": empty_slip(self.device, self.dtype), "dt": dt,
@@ -472,21 +573,37 @@ class Simulation:
                 laser_stream = (zc, zc)
             new_np1 = torch.empty_like(laser_stream[0])
             new_n00 = torch.empty_like(laser_stream[0])
+        if cfg.salame_active:
+            carry["salame"] = empty_salame_state(g, self.device, self.dtype)
+            # the slices SALAME runs on: step 0's that hold a SALAME lane,
+            # one read of the device at step 0 (the JAX package decides each
+            # slice on the device)
+            is_sal = torch.zeros(nz, dtype=torch.bool, device=self.device)
+            if step == 0:
+                is_sal = bm.salame_lanes(binned, self.beam_cfgs).any(dim=1)
+                carry["salame_slices"] = is_sal.tolist()
+            else:
+                carry["salame_slices"] = [False] * nz
         # the sweep's device buffers, one row per slice
         bufs = {}
+        if cfg.salame_active:
+            bufs["salame_W"] = torch.zeros(nz, **dev)
+            bufs["salame_dbg"] = torch.zeros((nz, 4), **dev)
         if cfg.diag_comps:
             bufs["diag"] = torch.empty((nz, len(cfg.diag_comps), g.ny, g.nx),
                                        **dev)
         int_diags = {}
         for dg in cfg.diags:
-            dgeom = lg if dg.base == "laser" else g
+            dgeom = self._diag_base_geom(dg)
             kw = (dict(dev, dtype=lz.complex_dtype(self.dtype))
                   if "laserEnvelope" in dg.comps else dev)
             if dg.diag_type == "xy_integrated":
                 int_diags[dg.name] = torch.zeros(diag_slice_shape(dg, dgeom),
                                                  **kw)
             elif not is_full_interior(dg, g):
-                bufs["diagf_" + dg.name] = torch.empty(
+                # a fine level's rows stay zero on the slices it does not
+                # run (outside its z range, which its output never reads)
+                bufs["diagf_" + dg.name] = torch.zeros(
                     (nz,) + diag_slice_shape(dg, dgeom), **kw)
         if int_diags:
             carry["diag_int"] = int_diags
@@ -506,6 +623,9 @@ class Simulation:
         empty_next = {k: torch.zeros_like(v[0]) for k, v in beam.items()}
         emitted = [None] * nz
         cycles, pc_iters, pc_err, laser_cycles = [], [], [], []
+        # V-cycles of the other K3 solves: SALAME's per SALAME slice, each
+        # fine level's per slice it runs, keyed by slice
+        extra_cycles = {}
         for islice in range(nz - 1, -1, -1):
             this = {k: v[islice] for k, v in beam.items()}
             nxt = ({k: v[islice - 1] for k, v in beam.items()} if islice
@@ -515,7 +635,11 @@ class Simulation:
             carry, out = self.slice_step(carry, islice, this, nxt, rows)
             emitted[islice] = out["beam_out"]
             for k, buf in bufs.items():
-                buf[islice] = out[k]
+                if k in out:
+                    buf[islice] = out[k]
+            for k, v in out.items():
+                if k == "salame_cycles" or k.startswith("mg_cycles_lev"):
+                    extra_cycles.setdefault(k, {})[islice] = v
             cycles.append(out["mg_cycles"])
             pc_iters.append(out["pc_iters"])
             pc_err.append(out["pc_err"])
@@ -523,12 +647,9 @@ class Simulation:
                 new_np1[islice] = out["laser_np1"]
                 new_n00[islice] = out["laser_n00"]
                 laser_cycles.append(out["laser_cycles"])
-        # the kernel leaves its V-cycle counts on the device: read them
+        # the kernels leave their V-cycle counts on the device: read them
         # once, after the sweep
-        if cycles and torch.is_tensor(cycles[0]):
-            cycles = torch.stack(cycles).tolist()
-        if laser_cycles and torch.is_tensor(laser_cycles[0]):
-            laser_cycles = torch.stack(laser_cycles).tolist()
+        _read_counts(cycles, laser_cycles, *extra_cycles.values())
         # merge emitted beam + final slip, re-bin by new z
         flat = {k: torch.cat([e[k] for e in emitted] + [carry["slip"][k]])
                 for k in bm.ALL_ATTRS}
@@ -536,6 +657,9 @@ class Simulation:
                "diag": bufs.pop("diag", torch.empty((nz, 0), **dev)),
                "mg_cycles": cycles, "pc_iters": pc_iters, "pc_err": pc_err}
         res.update(bufs)
+        res.update(extra_cycles)
+        if cfg.salame_active:
+            res["salame_is_sal"] = is_sal
         for name in int_diags:
             res["diag_int_" + name] = carry["diag_int"][name]
         if cfg.use_laser:
@@ -709,9 +833,10 @@ class Simulation:
 
     def _diag_geometry(self, dg):
         """(spacing, offset) per written axis, reference layout z, y, x; a
-        diagnostic on a separate laser grid takes its transverse ones."""
+        diagnostic on a separate laser grid or a fine level takes its
+        transverse ones."""
         g = self.geom
-        fg = self.laser_geom if dg.base == "laser" else g
+        fg = self._diag_base_geom(dg)
         cx, cy, cz = dg.coarsening
         return ((g.dz * cz, fg.dy * cy, fg.dx * cx),
                 (g.prob_lo[2] + dg.patch_z[0] * g.dz,

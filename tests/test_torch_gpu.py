@@ -646,3 +646,171 @@ def test_collisions_on_the_card_match_the_cpu(cuda, dtype):
         assert torch.equal(torch.isfinite(got), fin)
         if fin.any():
             assert _rel(got[fin], ref[fin]) <= _tol(dtype, 1e-12, 1e-5)
+
+
+# ------------------------------------------------- SALAME, mesh refinement
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_fine_level_lanes_far_outside(cuda, dtype):
+    """K1 and K2 on a fine level's grid with the lanes of a whole species:
+    most of them tens to hundreds of fine cells outside the grid on every
+    side, some at rows >= 1.5 NY (dead to both kernels), some negative.
+    Against the plain versions; every gathered value finite (a caller
+    discards those lanes' values by a select, never a 0/1 product)."""
+    from hipace_tpu_torch.ops.deposit import deposit_cuda, deposit_plain
+    from hipace_tpu_torch.ops.gather import (gather_main_cuda,
+                                             gather_main_plain)
+    rng = np.random.default_rng(17)
+    NY, NX, N = 67, 67, 60000
+    ym = rng.uniform(-300.0, NY + 300.0, N)
+    xm = rng.uniform(-300.0, NX + 300.0, N)
+    ym[:5000] = rng.uniform(2.0, NY - 2.0, 5000)      # inside
+    xm[:5000] = rng.uniform(2.0, NX - 2.0, 5000)
+    ym[5000:6000] = 2.0 * NY                             # the dead row
+    ym, xm = (torch.tensor(a, dtype=dtype, device=cuda) for a in (ym, xm))
+    vals = torch.tensor(rng.standard_normal((13, N)), dtype=dtype,
+                        device=cuda)
+    zero = torch.zeros((13, NY, NX), dtype=dtype, device=cuda)
+    got = deposit_cuda(zero.clone(), ym, xm, vals, 2, 2,
+                       lattice_width=1023)
+    ref = deposit_plain(zero.clone(), ym, xm, vals, 2, 2)
+    torch.cuda.synchronize()
+    assert _rel(got, ref) < _tol(dtype, 1e-12, 1e-5)
+    planes = torch.tensor(rng.standard_normal((5, NY, NX)), dtype=dtype,
+                          device=cuda)
+    out = gather_main_cuda(planes, ym, xm, 2)
+    want = gather_main_plain(planes, ym, xm, 2)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out).all())
+    assert _rel(out, want) < _tol(dtype, 1e-12, 1e-5)
+    assert not out[:, 5000:6000].any()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_level_coupler_on_the_card(cuda, dtype):
+    """A coupler's up_full and apply_bc in the card's matmuls (full float32:
+    no TF32) against the CPU's in float64."""
+    from hipace_tpu_torch.decks import mr_wake
+    from hipace_tpu_torch.fields.mr import LevelCoupler, parse_mr_levels
+    from hipace_tpu_torch.geometry import Geometry
+    assert not torch.backends.cuda.matmul.allow_tf32
+    inputs = mr_wake(255, 16, 1000, 127)
+    g0 = Geometry.from_inputs(inputs)
+    fg = parse_mr_levels(inputs, g0)[0].geom
+    rng = np.random.default_rng(18)
+    c = rng.standard_normal(g0.slice_shape)
+    rhs = rng.standard_normal((fg.ny, fg.nx))
+    ref = LevelCoupler(g0, fg, torch.float64, "cpu")
+    got = LevelCoupler(g0, fg, dtype, cuda)
+    tc = torch.tensor(c, dtype=dtype, device=cuda)
+    tol = _tol(dtype, 1e-12, 1e-6)
+    assert _rel(got.up_full(tc).cpu().double(),
+                ref.up_full(torch.tensor(c))) < tol
+    for off, fac in ((1.0, 1.0), (0.5, 8.0 / 3.0)):
+        assert _rel(got.apply_bc(torch.tensor(rhs, dtype=dtype, device=cuda),
+                                 tc, off, fac).cpu().double(),
+                    ref.apply_bc(torch.tensor(rhs), torch.tensor(c), off,
+                                 fac)) < tol
+
+
+def test_salame_slice_on_the_card(cuda):
+    """One salame_slice of a 32^2 x 64 SALAME_WAKE step on the card against
+    the same call on the CPU, in float64: the fields it writes, the new
+    weights, the state, and the V-cycles of its eight solves."""
+    from hipace_tpu_torch.decks import salame_wake
+    from hipace_tpu_torch.fields.multigrid import MultiGrid
+    from hipace_tpu_torch.fields.poisson import make_poisson_solver
+    from hipace_tpu_torch.pipeline import step as stp
+    from hipace_tpu_torch.pipeline.simulation import Simulation
+    sim = Simulation(salame_wake(32, 64, 30000), device="cpu", verbose=0)
+    kept, orig = [], stp.salame_slice
+
+    def keep(*args):
+        if not kept:
+            kept.append(args)
+        return orig(*args)
+
+    stp.salame_slice = keep
+    try:
+        sim.run_step(0)
+    finally:
+        stp.salame_slice = orig
+    (cfg, this, f_next, f_prev, plasmas, dgrids, beam, state, islice, _, _,
+     target, charges) = kept[0]
+
+    def on(x):
+        if torch.is_tensor(x):
+            return x.to(cuda)
+        if isinstance(x, dict):
+            return {k: on(v) for k, v in x.items()}
+        if isinstance(x, (list, tuple)):
+            return type(x)(on(v) for v in x)
+        return x
+
+    g = cfg.geom
+    ref = orig(cfg, this, f_next, f_prev, plasmas, dgrids, beam, state,
+               islice, make_poisson_solver(cfg.poisson_solver, g, "cpu",
+                                           torch.float64),
+               MultiGrid(g.nx, g.ny, g.dx, g.dy, device="cpu",
+                         dtype=torch.float64), target, charges)
+    got = orig(cfg, on(this), on(f_next), on(f_prev), on(plasmas),
+               on(dgrids), on(beam), on(state), islice,
+               make_poisson_solver(cfg.poisson_solver, g, cuda,
+                                   torch.float64),
+               MultiGrid(g.nx, g.ny, g.dx, g.dy, device=cuda,
+                         dtype=torch.float64), target, on(charges))
+    torch.cuda.synchronize()
+    for c in ("Bx", "By", "Sx", "Sy", "jz_beam"):
+        assert _rel(got[0][c].cpu(), ref[0][c]) < 1e-9, c
+    assert _rel(got[1]["w"].cpu(), ref[1]["w"]) < 1e-12
+    for k in ("W_last", "dbg", "ez_target", "zeta_initial"):
+        assert _rel(got[2][k].cpu(), ref[2][k]) < 1e-9, k
+    assert [int(c) for c in got[3]] == [int(c) for c in ref[3]]
+
+
+@pytest.mark.parametrize("deck_name", ["ionization", "collision"])
+def test_mr_step_with_draws_on_the_card(cuda, deck_name):
+    """A 32^2 x 16 float64 step with a mesh-refinement level and a fine
+    plasma patch, with field ionization or collisions, on the card against
+    the CPU from the same beam and the CPU's recorded slice draws: both
+    levels' fields within 1e-8."""
+    from hipace_tpu_torch import decks
+    from hipace_tpu_torch.convert import carry_state
+    from hipace_tpu_torch.parser import Inputs
+    from hipace_tpu_torch.pipeline.simulation import Simulation
+    if deck_name == "ionization":
+        text = decks.IONIZATION_WAKE.format(nxy=32, nz=16) + (
+            "amr.max_level = 1\nmr_lev1.n_cell = 32 32\n"
+            "mr_lev1.patch_lo = -6.e-6 -6.e-6 -10.e-6\n"
+            "mr_lev1.patch_hi = 6.e-6 6.e-6 20.e-6\n"
+            "ion.fine_patch(x,y) = (abs(x)<7.e-6)*(abs(y)<7.e-6)\n"
+            "ion.fine_ppc = 2 2\n")
+    else:
+        text = decks.COLLISION_WAKE.format(nxy=32, nz=16, npart=2000) + (
+            "amr.max_level = 1\nmr_lev1.n_cell = 32 32\n"
+            "mr_lev1.patch_lo = -2. -2. -4.\nmr_lev1.patch_hi = 2. 2. 0.\n"
+            "plasma.fine_patch(x,y) = (abs(x)<2.3)*(abs(y)<2.3)\n"
+            "plasma.fine_ppc = 2 2\n")
+    text += ("diagnostic.names = lev0 lev1\nlev1.base_geometry = level_1\n"
+             "lev1.field_data = all\nlev1.output_period = 1\n"
+             "hipace.openpmd_backend = json\n")
+    cpu = Simulation(Inputs(text), device="cpu", verbose=0)
+    gpu = Simulation(Inputs(text), device=cuda, dtype=torch.float64,
+                     verbose=0)
+    carry_state(gpu, {k: v.numpy() for k, v in cpu.binned.items()
+                      if torch.is_tensor(v)}, cpu.dt, cpu.time,
+                [b.total_charge for b in cpu.beam_cfgs])
+    drawn, own = [], cpu.slice_step.draws
+
+    def record(name, *shape):
+        drawn.append(own(name, *shape))
+        return drawn[-1]
+
+    cpu.slice_step.draws = record
+    ref = cpu.run_step(0)
+    gpu.slice_step.draws = lambda name, *shape: drawn.pop(0).to(cuda)
+    got = gpu.run_step(0)
+    assert not drawn
+    lv = gpu.mr_levels[0]
+    rows = slice(lv.zeta_lo, lv.zeta_hi + 1)
+    assert _rel(got["diag"].cpu(), ref["diag"]) < 1e-8
+    assert _rel(got["diagf_lev1"][rows].cpu(), ref["diagf_lev1"][rows]) < 1e-8

@@ -1,7 +1,8 @@
 """Where the time of one time step of the PyTorch/CUDA port goes, on a GPU.
 
     python3 tools/profile_torch_step.py
-        [--deck flagship|pdf|pc|even|witness|laser|ionization|collision]
+        [--deck flagship|pdf|pc|even|witness|laser|ionization|collision|
+                salame|mr]
         [--insitu] [--xz] [--nxy 1023] [--nz 64] [--steps 2]
 
 Runs a deck of ``hipace_tpu_torch.decks`` (the flagship blowout wake, its
@@ -28,7 +29,14 @@ the envelope advance (every kernel it launches, its complex K3 solve
 included) and the |a|^2 gathers of the plasma deposit and push, with their
 share of the step's device time. With ``--deck ionization`` the ionization
 module (its K2 field gather included) is such a named range, with
-``--deck collision`` the slice's collisions.
+``--deck collision`` the slice's collisions. ``--deck salame`` runs
+SALAME_WAKE, whose SALAME runs at step 0 only: the profiled step is a fresh
+simulation's step 0, after the warm-up and timed steps of another, and its
+named range is SALAME's work per SALAME slice. ``--deck mr`` runs MR_WAKE
+(a 511^2 level at full width, half the grid's width), whose named ranges
+are the level's parts (its initialization, deposits, Psi/Ez/Bz and Bx/By
+solves and the pushes' gathers from it) with the coupler products apart:
+the level's device ms and launches per active slice.
 
 Output: ``--insitu`` turns on the in-situ beam, plasma and field records
 every step, ``--xz`` an xz field diagnostic of every comp and rho every step
@@ -58,7 +66,8 @@ GROUPS = [
                                        "MgParams<double, true>")),
     ("K3 multigrid", ("hipace::mg_solve_kernel",)),
     ("FFT (DST)", ("fft", "FFT")),
-    ("GEMM (open-boundary moments)", ("gemm", "Gemm", "cutlass")),
+    ("GEMM (open-boundary moments, MR couplers)", ("gemm", "Gemm",
+                                                   "cutlass", "xmma")),
     ("cat / copy / memcpy / memset", ("Cat", "copy", "Memcpy", "Memset")),
     ("elementwise", ("elementwise_kernel",)),
 ]
@@ -94,7 +103,11 @@ def device_activities(prof):
 
 # the parts named around their calls, per deck
 LASER_RANGES = ("laser: envelope advance", "laser: |a|^2 gather")
+MR_RANGES = ("MR: level init", "MR: level deposits", "MR: level Psi/Ez/Bz",
+             "MR: level Bx/By", "MR: level gathers")
 RANGES = {"laser": LASER_RANGES, "ionization": ("ionization module",),
+          "salame": ("SALAME",),
+          "mr": MR_RANGES + ("MR: coupler products (inside the above)",),
           "collision": ("collisions",)}
 ALL_RANGES = tuple(r for labels in RANGES.values() for r in labels)
 
@@ -107,6 +120,40 @@ def named(fn, label):
         with torch.profiler.record_function(label):
             return fn(*args, **kwargs)
     return wrapped
+
+
+def name_mr_ranges(sim, plasma, stp):
+    """Put the mesh-refinement level's parts of the slice step into named
+    ranges: its InitializeSlices, deposits (the calls on its geometry), its
+    two solves, the pushes' gathers on its grid; the coupler products in a
+    range of their own, nested in those."""
+    import torch
+
+    from hipace_tpu_torch.fields import mr
+    ss, fg = sim.slice_step, sim.mr_levels[0].geom
+    ss._init_fine = named(ss._init_fine, MR_RANGES[0])
+    ss._fine_explicit_bxby = named(ss._fine_explicit_bxby, MR_RANGES[3])
+    stp.solve_fine_psi_ez_bz = named(stp.solve_fine_psi_ez_bz, MR_RANGES[2])
+
+    def on_level(fn, label, geom_at):
+        def wrapped(*args, **kwargs):
+            if geom_at(args, kwargs) == fg:
+                with torch.profiler.record_function(label):
+                    return fn(*args, **kwargs)
+            return fn(*args, **kwargs)
+        return wrapped
+
+    for mod, name in ((plasma, "fused_plasma_deposits"),
+                      (plasma, "deposit_plasma"),
+                      (stp.bm, "deposit_beam_slice")):
+        setattr(mod, name, on_level(getattr(mod, name), MR_RANGES[1],
+                                    lambda a, k: a[3]))
+    plasma.gather_fields = on_level(plasma.gather_fields, MR_RANGES[4],
+                                    lambda a, k: a[4])
+    stp.bm.gather_fields = plasma.gather_fields
+    for meth in ("up_full", "bc_values"):
+        setattr(mr.LevelCoupler, meth, named(getattr(mr.LevelCoupler, meth),
+                                             RANGES["mr"][-1]))
 
 
 def range_ms(prof, labels):
@@ -143,7 +190,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--deck", choices=("flagship", "pdf", "pc", "even",
                                        "witness", "laser", "ionization",
-                                       "collision"),
+                                       "collision", "salame", "mr"),
                     default="flagship")
     ap.add_argument("--insitu", action="store_true",
                     help="in-situ beam, plasma and field records every step")
@@ -162,9 +209,10 @@ def main() -> int:
 
     from hipace_tpu_torch.decks import (blowout_wake, collision_wake,
                                         drive_witness, ion_motion_even,
-                                        ionization_wake, laser_wake, pc_open,
-                                        pdf_beam)
+                                        ionization_wake, laser_wake, mr_wake,
+                                        pc_open, pdf_beam, salame_wake)
     from hipace_tpu_torch.particles import plasma
+    from hipace_tpu_torch.pipeline import step as stp
     from hipace_tpu_torch.pipeline.simulation import Simulation
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -195,7 +243,9 @@ def main() -> int:
             "pc": pc_open, "even": ion_motion_even,
             "witness": drive_witness, "laser": laser_wake,
             "ionization": ionization_wake,
-            "collision": collision_wake}[args.deck]
+            "collision": collision_wake, "salame": salame_wake,
+            "mr": lambda nxy, nz, n, e: mr_wake(nxy, nz, n, nxy // 2, e)
+            }[args.deck]
     if args.deck in ("laser", "ionization"):
         npart = 0       # no beam, or a fixed_ppc one
     sim = Simulation(deck(args.nxy, args.nz, npart, extra), device="cuda",
@@ -212,6 +262,10 @@ def main() -> int:
     if args.deck == "collision":
         sim.slice_step.collide = named(sim.slice_step.collide,
                                        RANGES["collision"][0])
+    if args.deck == "salame":
+        stp.salame_slice = named(stp.salame_slice, RANGES["salame"][0])
+    if args.deck == "mr":
+        name_mr_ranges(sim, plasma, stp)
     write_s = []
 
     def step(sim, profiled=False):
@@ -241,6 +295,11 @@ def main() -> int:
     wall_ms = 1e3 * sweep_s / (args.steps * args.nz)
 
     pre = sim.binned
+    if args.deck == "salame":
+        # SALAME runs at step 0 only: profile a fresh simulation's step 0
+        sim = Simulation(deck(args.nxy, args.nz, npart, extra),
+                         device="cuda", dtype=torch.float32, verbose=0)
+        write_s.clear()
     prof, res = step(sim, profiled=True)
     ms, count, per_kernel, readbacks = device_activities(prof)
     total = sum(ms.values())
@@ -293,6 +352,22 @@ def main() -> int:
         print(f"the {args.deck} part's share of the step's device time: "
               f"{part / total:.3f} ({part / nz:.3f} of {total / nz:.3f} "
               "ms/slice)")
+    if args.deck == "salame":
+        n_sal = int(res["salame_is_sal"].sum())
+        t = parts["SALAME"][0]
+        cyc = [c for v in res["salame_cycles"].values() for c in v]
+        print(f"SALAME slices in the profiled step: {n_sal}; SALAME's device "
+              f"ms per SALAME slice {t / max(n_sal, 1):.3f}; its K3 V-cycles "
+              f"{min(cyc)}-{max(cyc)} over {len(cyc)} solves")
+    if args.deck == "mr":
+        lv = sim.mr_levels[0]
+        n_act = lv.zeta_hi - lv.zeta_lo + 1
+        lev = [parts[r] for r in MR_RANGES]
+        t = sum(p[0] for p in lev)
+        print(f"the level ({lv.geom.nx}^2 on {n_act} of {nz} slices): "
+              f"{t / n_act:.3f} device ms and {sum(p[2] for p in lev) / n_act:.2f}"
+              f" launches per active slice; the coupler products "
+              f"{parts[RANGES['mr'][-1]][0] / t:.3f} of it")
     if "ionized" in res:
         print(f"ionization events in the profiled step: "
               f"{int(res['ionized'])}")
