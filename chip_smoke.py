@@ -124,8 +124,23 @@ SALAME, K3 on one of SALAME's solves); the MR path, ``MR_WAKE`` at 1023^2 x
 the level's 33 slices, the flagship's host reads, the fine on-axis Ez
 within MR_AXIS_BOUND of the coarse, a coupler product on the card against
 the CPU's in float64, and K1, K2 and K3 at the level's shapes against their
-plain versions, with K1's direct-path share). It imports nothing but the
-port.
+plain versions, with K1's direct-path share).
+
+The pipeline: "pipeline, small", the flagship at 63^2 x 16 in float64
+through ``Simulation.evolve_pipelined`` with two stages on cuda:0 (one
+window, then the serial tail) against the same on the CPU and against the
+card's serial loop from the same beam (fields and the final beam within
+1e-8, equal V-cycles on every slice of every stage, every per-step openPMD
+and in-situ file within 1e-8); then the pipeline path, the flagship at
+1023^2 x 64 in float32 with two stages on cuda:0: a warm-up window in
+which the host's reads of the device are counted (at most two per slice,
+one per tick and five more), two timed windows whose
+K1/K2/K3 launches must equal the serial slice structure's for their 4
+steps, finite fields on every stage, a conserved beam, the peak memory, and
+the serial loop's 4 steps from the same beam twice: its slices/s and peak
+memory, the pipelined final beam against the serial one within
+PIPE_F32_TOL, beside the spread of the two serial runs. Each phase prints
+its seconds. It imports nothing but the port.
 
 Beside each kernel's time (CUDA events around calls queued behind a device
 sleep) it prints the kernel's bound: the least time the card could take, the
@@ -227,15 +242,20 @@ CARD = {"line": "not read"}
 
 
 def phase(name):
-    """Run a phase; record and print a failure instead of raising."""
+    """Run a phase; record and print a failure instead of raising, and print
+    the phase's seconds on the host clock."""
     def wrap(fn):
         def run(*args, **kwargs):
+            t0 = time.perf_counter()
             try:
                 return fn(*args, **kwargs)
             except Exception:
                 failures.append(name)
                 print(f"FAIL {name}:\n{traceback.format_exc()}", flush=True)
                 return None
+            finally:
+                print(f"phase {name}: {time.perf_counter() - t0:.1f} s",
+                      flush=True)
         return run
     return wrap
 
@@ -3058,6 +3078,282 @@ def mr_path(torch, counts, results):
                              "kernels, host reads or launch counts wrong")
 
 
+# ------------------------------------------------------------ the pipeline
+PIPE_STAGES = 2
+# the pipelined flagship's final beam against the serial loop's in float32:
+# the two runs give the same lanes to every kernel call in the same order
+# and differ by the order of float32 atomic adds, which moves two serial
+# runs' ux by ~7e-5 of its largest value (NVIDIA H100 80GB HBM3, 700 W)
+PIPE_F32_TOL = 5e-4
+# a window and the serial tail, every kind of per-step output but the named
+# diagnostics (the output phase's)
+PIPE_OUTPUT = """
+max_step = 2
+hipace.openpmd_backend = json
+diagnostic.output_period = 1
+beams.insitu_period = 1
+plasmas.insitu_period = 1
+fields.insitu_period = 1
+"""
+
+
+class StepKeeper:
+    """Keeps, per time step of a simulation's time loop in step order, its
+    V-cycles per slice, with fields=True its fields on the host, else a
+    device flag of their finiteness: from sim.run_step (the serial loop)
+    and from each stage of every pipelined window; undo() restores both."""
+
+    def __init__(self, torch, sim, fields):
+        from hipace_tpu_torch.parallel import pipeline as pp
+        self.pp, self.sim, self.steps = pp, sim, []
+        self.window = pp.pipelined_window
+        run = sim.run_step
+
+        def keep(res):
+            diag = res["diag"]
+            # slice by slice: isfinite on the whole stack would hold a copy
+            # of it and add to the peak memory the path reports
+            finite = torch.stack([torch.isfinite(d).all() for d in diag])
+            self.steps.append({"mg_cycles": res["mg_cycles"],
+                               "diag": diag.cpu() if fields else None,
+                               "finite": finite.all()})
+
+        def run_step(step):
+            res = run(step)
+            keep(res)
+            return res
+
+        def window(*args, **kwargs):
+            win = self.window(*args, **kwargs)
+            for res in win["stages"]:
+                keep(res)
+            return win
+        sim.run_step = run_step
+        pp.pipelined_window = window
+
+    def undo(self):
+        self.pp.pipelined_window = self.window
+        del self.sim.run_step
+
+
+def beam_rel(torch, got, ref, sort=False):
+    """(max|got - ref| / max|ref|, its attribute), the largest over x, y, z,
+    ux, uy and uz of the valid lanes of two binned beams (each attribute
+    sorted with sort=True); raises where the valid lane counts differ."""
+    gv, rv = got["valid"].cpu(), ref["valid"].cpu()
+    if int(gv.sum()) != int(rv.sum()):
+        raise AssertionError(f"valid lanes {int(gv.sum())} != "
+                             f"{int(rv.sum())}")
+    worst = (0.0, "")
+    for k in ("x", "y", "z", "ux", "uy", "uz"):
+        a = got[k].cpu()[gv].double()
+        b = ref[k].cpu()[rv].double()
+        if sort:
+            a, b = a.sort().values, b.sort().values
+        worst = max(worst, (float((a - b).abs().max() / b.abs().max()), k))
+    return worst
+
+
+@phase("pipeline, small")
+def pipeline_small_phase(torch):
+    """The flagship at 63^2 x 16 in float64, two pipeline stages on cuda:0
+    (one window, then the serial tail) against the same on the CPU and
+    against the card's serial loop, from the same beam: fields and the beam
+    at the end within 1e-8, equal V-cycles on every slice of every stage,
+    and every per-step openPMD and in-situ file within 1e-8."""
+    import shutil
+    from hipace_tpu_torch.convert import carry_state
+    from hipace_tpu_torch.decks import blowout_wake
+    from hipace_tpu_torch.pipeline.simulation import Simulation
+    runs = {}
+    for name, dev, piped in (("cpu", "cpu", True), ("card", "cuda", True),
+                             ("serial", "cuda", False)):
+        folder = OUT / f"pipe_{name}"
+        shutil.rmtree(folder, ignore_errors=True)
+        sim = Simulation(output_deck(blowout_wake, SMALL_NXY, SMALL_NZ,
+                                     4000, PIPE_OUTPUT, folder),
+                         device=dev, dtype=torch.float64, verbose=0)
+        if runs:
+            cpu = runs["cpu"][0]
+            carry_state(sim, {k: v.numpy() for k, v in cpu.binned0.items()
+                              if torch.is_tensor(v)}, cpu.dt, 0.0)
+        sim.binned0 = sim.binned
+        keeper = StepKeeper(torch, sim, fields=True)
+        try:
+            if piped:
+                sim.evolve_pipelined(devices=[torch.device(dev)]
+                                     * PIPE_STAGES)
+            else:
+                sim.evolve()
+        finally:
+            keeper.undo()
+        runs[name] = (sim, keeper.steps, output_files(folder))
+    ref_sim, ref_steps, ref_files = runs["card"]
+    lines, ok = [], len(ref_steps) == 3
+    for name in ("cpu", "serial"):
+        sim, steps, files = runs[name]
+        fields = max(float((a["diag"] - b["diag"]).abs().max()
+                           / b["diag"].abs().max())
+                     for a, b in zip(ref_steps, steps))
+        same_cycles = [a["mg_cycles"] for a in ref_steps] == [
+            b["mg_cycles"] for b in steps]
+        beam = beam_rel(torch, ref_sim.binned, sim.binned)[0]
+        worst = [0.0, ""]
+        if [f.name for f in files] != [f.name for f in ref_files] or \
+                not all(f.exists() for f in files):
+            raise AssertionError(f"the runs wrote different files: {files}")
+        for got, ref in zip(ref_files, files):
+            if got.suffix == ".json":
+                compare_tree(json.loads(got.read_text()),
+                             json.loads(ref.read_text()), got.name, worst)
+            else:
+                compare_tree(read_insitu(got), read_insitu(ref), got.name,
+                             worst)
+        ok &= (fields < 1e-8 and beam < 1e-8 and worst[0] < 1e-8
+               and same_cycles and len(steps) == 3)
+        lines.append(f"against the {name} run: fields {fields:.3e}, beam "
+                     f"{beam:.3e}, worst file dataset {worst[0]:.3e} "
+                     f"({worst[1]}) over {len(files)} files, V-cycles equal "
+                     f"on every slice of every stage {same_cycles}")
+    print(f"pipeline, small: {SMALL_NXY}^2 x {SMALL_NZ} float64 flagship, "
+          f"{PIPE_STAGES} stages on cuda:0 (steps 0-1 in one window, step 2 "
+          "serial): " + "; ".join(lines) + f" (tol 1e-8) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("small pipelined run mismatch")
+
+
+@phase("pipeline path")
+def pipeline_path(torch, counts):
+    """The flagship at 1023^2 x 64 in float32 through evolve_pipelined with
+    two stages on cuda:0: one warm-up window, in which the host's reads of
+    the device are counted (the stages built before it), then two timed
+    windows (4 steps) from the same beam: the K1/K2/K3 launches against the
+    serial slice structure, the slices per second over all stages' slices,
+    finite fields on every stage, a conserved beam and the peak memory; then
+    the serial loop's 4 steps from the same beam, twice, timed, with their
+    peak memory: the pipelined final beam held to the serial one, beside the
+    spread between the two serial runs."""
+    from hipace_tpu_torch.decks import blowout_wake
+    from hipace_tpu_torch.ops.deposit import deposit
+    from hipace_tpu_torch.ops.gather import gather_main
+    from hipace_tpu_torch.ops.mg_kernel import mg_solve
+    from hipace_tpu_torch.pipeline.simulation import Simulation
+    devices = [torch.device("cuda:0")] * PIPE_STAGES
+    steps = 2 * PIPE_STAGES
+
+    def flagship(max_step):
+        return Simulation(blowout_wake(NXY, NZ, NPART,
+                                       f"max_step = {max_step}\n"),
+                          device="cuda", dtype=torch.float32, verbose=0)
+
+    def from_start(sim, max_step):
+        sim.binned = {k: v.clone() if torch.is_tensor(v) else v
+                      for k, v in beam0.items()}
+        sim.time, sim.dt, sim.max_step = 0.0, dt0, max_step
+
+    # the stages built first, then a warm-up window in which the host's
+    # reads are counted, then the timed windows from the same beam
+    sim = flagship(PIPE_STAGES - 1)
+    g = sim.geom
+    beam0 = {k: v.clone() if torch.is_tensor(v) else v
+             for k, v in sim.binned.items()}
+    dt0, n0 = sim.dt, int(beam0["valid"].sum())
+    sim.stage_slice_steps(devices)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, reads = sync_counted(torch, lambda: sim.evolve_pipelined(
+        devices=devices, write_output=False))
+    torch.cuda.synchronize()
+    t_warm = time.perf_counter() - t0
+    from_start(sim, steps - 1)
+    keeper = StepKeeper(torch, sim, fields=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()
+    for fn in (deposit, gather_main, mg_solve):
+        fn.launches = 0
+    t0 = time.perf_counter()
+    try:
+        sim.evolve_pipelined(devices=devices, write_output=False)
+        torch.cuda.synchronize()
+        t_pipe = time.perf_counter() - t0
+        counts.update({"K1": deposit.launches, "K2": gather_main.launches,
+                       "K3": mg_solve.launches})
+    finally:
+        keeper.undo()
+    peak_pipe = torch.cuda.max_memory_allocated()
+    finite = all(bool(s["finite"]) for s in keeper.steps)
+    cycles = [c for s in keeper.steps for c in s["mg_cycles"]]
+    n = int(sim.binned["valid"].sum())
+    pipe_binned = sim.binned
+    pcfg, bcfg = sim.plasma_cfgs[0], sim.beam_cfgs[0]
+    del sim
+    torch.cuda.empty_cache()
+
+    # the serial loop twice from the same beam: its time and peak memory,
+    # and how far f32 atomics alone move the final beam
+    finals = []
+    for _ in range(2):
+        serial = flagship(steps - 1)
+        serial.binned = {k: v.clone() if torch.is_tensor(v) else v
+                         for k, v in beam0.items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        serial.evolve(write_output=False)
+        torch.cuda.synchronize()
+        t_serial = time.perf_counter() - t0
+        peak_serial = torch.cuda.max_memory_allocated()
+        finals.append(serial.binned)
+        del serial
+        torch.cuda.empty_cache()
+    diff = beam_rel(torch, pipe_binned, finals[0], sort=True)
+    spread = beam_rel(torch, finals[1], finals[0], sort=True)
+
+    per_step = {"K1": int(pcfg.neutralize_background) + 3 * g.nz,
+                "K2": g.nz * (pcfg.n_subcycles + bcfg.n_subcycles),
+                "K3": g.nz}
+    slices = g.nz * steps
+    print(f"pipeline path {NXY}^2 x {NZ} float32, {NPART} beam particles, "
+          f"{PIPE_STAGES} stages on one card: {slices / t_pipe:.3f} slices/s"
+          f" over {steps} steps in {steps // PIPE_STAGES} timed windows "
+          f"(every stage's slices; {1e3 * t_pipe / slices:.3f} ms/slice); "
+          f"the serial loop from the same beam {slices / t_serial:.3f} "
+          f"slices/s; warm-up window {t_warm:.3f} s; "
+          f"{CARD['line']}",
+          flush=True)
+    # the serial structure (two lane counts per slice, at the beam push),
+    # one receive-row binning per tick and a few per window
+    read_bound = (2 * PIPE_STAGES * g.nz + g.nz + 2 * (PIPE_STAGES - 1)
+                  + 5)
+    print(f"pipeline path host reads of the device per slice (the warm-up "
+          f"window, all stages' slices): "
+          f"{reads / (PIPE_STAGES * g.nz):.3f} "
+          f"({reads} reads over {PIPE_STAGES * g.nz} slices; bound "
+          f"{read_bound})", flush=True)
+    print(f"pipeline path peak memory: {peak_pipe / 2 ** 30:.3f} GiB with "
+          f"{PIPE_STAGES} stages ({held / 2 ** 30:.3f} GiB held before the "
+          f"timed windows), {peak_serial / 2 ** 30:.3f} GiB serial (ratio "
+          f"{peak_pipe / peak_serial:.3f})", flush=True)
+    print(f"pipeline path: fields finite on every stage {finite}, V-cycles "
+          f"per slice {min(cycles)}-{max(cycles)} over {len(keeper.steps)} "
+          f"steps, beam particles {n} (start {n0}); final beam against the "
+          f"serial loop's, each attribute sorted: max rel err {diff[0]:.3e} "
+          f"({diff[1]}; tol {PIPE_F32_TOL:g}); the serial loop against "
+          f"itself {spread[0]:.3e} ({spread[1]}: float32 atomics alone)",
+          flush=True)
+    ok = finite and n == n0 and len(keeper.steps) == steps \
+        and diff[0] <= PIPE_F32_TOL and reads <= read_bound
+    for k, (fn_name, _, _) in KERNELS.items():
+        want = per_step[k] * steps
+        print(f"pipeline path launches {k} {fn_name}: {counts[k]} (the "
+              f"serial slice structure predicts {want})", flush=True)
+        ok &= counts[k] == want
+    if not ok:
+        raise AssertionError("pipeline path failed its checks")
+
+
 def main() -> int:
     if not (ROOT / "hipace_tpu_torch" / "csrc").is_dir():
         print("chip_smoke.py must run from a checkout of the repository",
@@ -3159,6 +3455,10 @@ def main() -> int:
     torch.cuda.empty_cache()
     mr_counts: dict = {}
     mr_path(torch, mr_counts, results)
+    torch.cuda.empty_cache()
+    pipeline_small_phase(torch)
+    pipe_counts: dict = {}
+    pipeline_path(torch, pipe_counts)
 
     if failures:
         print(f"chip_smoke FAILED phases: {failures}", file=sys.stderr)
@@ -3199,6 +3499,11 @@ def main() -> int:
                 ("K3", "K3 SALAME",
                  "K3, SALAME Bx/By (1023^2, C = 2, max_iters 40)",
                  salame_counts["K3 SALAME"])]
+    # the pipelined flagship runs the flagship's calls: their times, the
+    # pipeline path's counts
+    entries += [(k, k, f"{k} {fn}, pipelined flagship ({PIPE_STAGES} stages "
+                 "on one card)", pipe_counts[k])
+                for k, (fn, _, _) in KERNELS.items()]
     for k, key, label, launches in entries:
         _, source, replaces = KERNELS[k]
         err, ms, plain_ms, bound_ms, bound_by = results[(key, "float32")]

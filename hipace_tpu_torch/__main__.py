@@ -5,6 +5,9 @@ overrides, running InitData + Evolve (ref main.cpp:15-25) and writing the
 deck's openPMD and in-situ output. Without ``--device`` the run is on the
 GPU, float32, through the port's kernels, and raises where there is no GPU;
 ``--device cpu`` asks for the float64 run on the plain PyTorch versions.
+With more than one GPU the time loop is a pipeline, one rank per GPU
+(``Simulation.evolve_pipelined``; the reference's ``mpiexec -n N`` mode,
+ref Hipace.cpp:400-401), unless the deck sets ``hipace.pipeline = 0``.
 """
 
 from __future__ import annotations
@@ -44,13 +47,19 @@ def main(argv=None):
     inputs = Inputs.from_file(rest[0], overrides=rest[1:])
     t0 = time.perf_counter()
     sim = Simulation(inputs, device=device)
-    sim.evolve()
+    n_ranks = (torch.cuda.device_count() if sim.device.type == "cuda"
+               and inputs.query("hipace.pipeline", True, bool) else 1)
+    if n_ranks > 1:
+        sim.evolve_pipelined()
+    else:
+        sim.evolve()
     if sim.device.type == "cuda":
         torch.cuda.synchronize(sim.device)
     wall = time.perf_counter() - t0
     g = sim.geom
     n_steps = sim.max_step + 1
-    print(f"Finished Evolve after {wall:.6g} seconds on {sim.device}")
+    print(f"Finished Evolve after {wall:.6g} seconds using {n_ranks} rank"
+          f"{'s' if n_ranks > 1 else ''} on {sim.device}")
     n_plasma = sum(p.ppc[0] * p.ppc[1] * max(1, p.n_subcycles)
                    for p in sim.plasma_cfgs) * g.nx * g.ny
     pushes = (n_plasma * g.nz + sum(b.num_particles * max(1, b.n_subcycles)

@@ -157,6 +157,14 @@ def check(err: int, what: str) -> None:
         raise RuntimeError(f"CUDA kernel {what} failed with cudaError {err}")
 
 
+def launch(fn, tensor, *args, what: str) -> None:
+    """Call the launcher fn(*args) with tensor's card as the current device
+    (a launcher runs on the current device, and the stream it is given
+    belongs to tensor's) and check its error."""
+    with torch.cuda.device(tensor.device):
+        check(fn(*args), what)
+
+
 def stream_ptr(tensor) -> int:
     return torch.cuda.current_stream(tensor.device).cuda_stream
 

@@ -144,11 +144,11 @@ def deposit_cuda(fields, ym, xm, values, order, deriv_type=-1, blocks=None,
     else:
         grid = _ceil_div(N, PATCH * PATCH)
     fn = cuda_lib.library().fn("hipace_deposit", dt)
-    cuda_lib.check(fn(fields.data_ptr(), ym.data_ptr(), xm.data_ptr(),
-                      values.data_ptr(), C, N, NY, NX, order, deriv_type,
-                      ymask, xmask, lattice_w, grid,
-                      _direct_counter(fields.device).data_ptr(),
-                      cuda_lib.stream_ptr(fields)), "deposit")
+    cuda_lib.launch(fn, fields, fields.data_ptr(), ym.data_ptr(),
+                    xm.data_ptr(), values.data_ptr(), C, N, NY, NX, order,
+                    deriv_type, ymask, xmask, lattice_w, grid,
+                    _direct_counter(fields.device).data_ptr(),
+                    cuda_lib.stream_ptr(fields), what="deposit")
     deposit.launches += 1
     deposit.blocks += grid
     return fields

@@ -120,8 +120,9 @@ def gather_main_cuda(planes, ym, xm, order):
     if N == 0:
         return out
     fn = cuda_lib.library().fn("hipace_gather_main", dt)
-    cuda_lib.check(fn(out.data_ptr(), *ptrs, ym.data_ptr(), xm.data_ptr(), N,
-                      NY, NX, order, cuda_lib.stream_ptr(ym)), "gather_main")
+    cuda_lib.launch(fn, ym, out.data_ptr(), *ptrs, ym.data_ptr(),
+                    xm.data_ptr(), N, NY, NX, order, cuda_lib.stream_ptr(ym),
+                    what="gather_main")
     gather_main.launches += 1
     return out
 

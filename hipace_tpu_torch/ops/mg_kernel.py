@@ -199,14 +199,13 @@ def mg_solve(mg, u0, rhs, acf, tol_rel=1e-4, tol_abs=0.0, max_iters=40,
     cycles_at = stats.data_ptr() + 8 * (max_iters + 2)
 
     fn = cuda_lib.library().fn("hipace_mg_solve", dt)
-    cuda_lib.check(fn(
-        u0.data_ptr(), table.ctypes.data, lay.ny.ctypes.data,
+    cuda_lib.launch(
+        fn, u0, u0.data_ptr(), table.ctypes.data, lay.ny.ctypes.data,
         lay.nx.ctypes.data, lay.facx.ctypes.data, lay.facy.ctypes.data, C,
         mg.nlevels, lay.Lc, nu1, nu2, COARSE_SWEEPS, lay.halo, max_iters,
         tol_rel, tol_abs, int(acf_plane is None),
         0.0 if acf_plane is not None else float(acf), int(mg.cell_centered), int(cplx), stats.data_ptr(), cycles_at,
-        cycles_at + 8, lay.smem, cuda_lib.stream_ptr(u0)),
-        "mg_solve")
+        cycles_at + 8, lay.smem, cuda_lib.stream_ptr(u0), what="mg_solve")
     cycles = stats[max_iters + 2:max_iters + 3].view(torch.int32)[0]
     resnorm = stats[max_iters + 3:].view(dt)[0]
     if cplx:

@@ -814,3 +814,65 @@ def test_mr_step_with_draws_on_the_card(cuda, deck_name):
     rows = slice(lv.zeta_lo, lv.zeta_hi + 1)
     assert _rel(got["diag"].cpu(), ref["diag"]) < 1e-8
     assert _rel(got["diagf_lev1"][rows].cpu(), ref["diagf_lev1"][rows]) < 1e-8
+
+
+def test_pipelined_window_on_the_card_matches_the_cpu(cuda, monkeypatch):
+    """evolve_pipelined with two stages on one card in float64, a 32^2 x 16
+    flagship from the CPU run's beam: every stage's fields within 1e-8 of
+    the same two stages on the CPU, equal V-cycles on every slice of every
+    stage, the beam after the window within 1e-8."""
+    from hipace_tpu_torch.convert import carry_state
+    from hipace_tpu_torch.decks import blowout_wake
+    from hipace_tpu_torch.parallel import pipeline as pp
+    from hipace_tpu_torch.pipeline.simulation import Simulation
+    wins, window = [], pp.pipelined_window
+    monkeypatch.setattr(pp, "pipelined_window",
+                        lambda *a, **k: wins.append(window(*a, **k))
+                        or wins[-1])
+    sims = []
+    for dev in ("cpu", cuda):
+        sim = Simulation(blowout_wake(32, 16, 2000, "max_step = 1\n"),
+                         device=dev, dtype=torch.float64, verbose=0)
+        if sims:
+            cpu = sims[0]
+            carry_state(sim, {k: v.numpy() for k, v in cpu.binned0.items()
+                              if torch.is_tensor(v)}, cpu.dt, 0.0)
+        sim.binned0 = sim.binned
+        sim.evolve_pipelined(devices=[torch.device(dev)] * 2,
+                             write_output=False)
+        sims.append(sim)
+    assert len(wins) == 2
+    for ref, got in zip(*(w["stages"] for w in wins)):
+        assert _rel(got["diag"].cpu(), ref["diag"]) < 1e-8
+        assert got["mg_cycles"] == ref["mg_cycles"]
+    ref, got = sims[0].binned, sims[1].binned
+    v = ref["valid"]
+    assert torch.equal(got["valid"].cpu(), v) and int(v.sum()) > 1900
+    for k in ("x", "y", "z", "ux", "uy", "uz"):
+        assert _rel(got[k].cpu()[v], ref[k][v]) < 1e-8, k
+
+
+def test_pipelined_window_on_distinct_cards_matches_one_card(cuda):
+    """Two stages on cuda:0 and cuda:1 against the same two stages sharing
+    cuda:0, in float64 on a 32^2 x 16 flagship
+    from one beam: every stage's fields within 1e-8, equal V-cycles, the
+    beam after the window within 1e-8. Needs two cards."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    from hipace_tpu_torch.decks import blowout_wake
+    from hipace_tpu_torch.parallel import pipeline as pp
+    from hipace_tpu_torch.pipeline.simulation import Simulation
+    sim = Simulation(blowout_wake(32, 16, 2000, "max_step = 1\n"),
+                     device="cuda:0", dtype=torch.float64, verbose=0)
+    wins = [pp.pipelined_window(sim, sim.binned, [sim.dt] * 2,
+                                [0.0, sim.dt], 0,
+                                [torch.device(f"cuda:{i}") for i in ids])
+            for ids in ((0, 0), (0, 1))]
+    for ref, got in zip(*(w["stages"] for w in wins)):
+        assert _rel(got["diag"].cpu(), ref["diag"].cpu()) < 1e-8
+        assert got["mg_cycles"] == ref["mg_cycles"]
+    ref, got = (w["beam"] for w in wins)
+    v = ref["valid"].cpu()
+    assert torch.equal(got["valid"].cpu(), v) and int(v.sum()) > 1900
+    for k in ("x", "y", "z", "ux", "uy", "uz"):
+        assert _rel(got[k].cpu()[v], ref[k].cpu()[v]) < 1e-8, k
