@@ -139,8 +139,21 @@ K1/K2/K3 launches must equal the serial slice structure's for their 4
 steps, finite fields on every stage, a conserved beam, the peak memory, and
 the serial loop's 4 steps from the same beam twice: its slices/s and peak
 memory, the pipelined final beam against the serial one within
-PIPE_F32_TOL, beside the spread of the two serial runs. Each phase prints
-its seconds. It imports nothing but the port.
+PIPE_F32_TOL, beside the spread of the two serial runs.
+
+The bench and the physics gate: "bench" runs the port's bench
+(``hipace_tpu_torch.bench``) on its pdf deck at 1023^2 x 64, one warm-up
+step and three runs of two measured steps, and prints its JSON line;
+"physics gate" runs ``hipace_tpu_torch.gpu_check``: the first seven of its
+nine decks (GATE_CASES) at small size for two steps on the CPU in float64,
+on the card in float64 and on the card in float32 from one beam and one
+set of draws, held by the checksum method's sums (card f64 within 1e-8 of
+the CPU, card f32 within each case's pinned tolerance of card f64), and the
+flagship at 1023^2 x 64 in float32 against float64 on the card, with K1, K2
+and K3 counted over the phase; its record goes to
+``build/chip_smoke/gpu_check.json``; its reference leg does not run (it
+runs only on a reference checkout named to the gate). Each phase prints its
+seconds. It imports nothing but the port.
 
 Beside each kernel's time (CUDA events around calls queued behind a device
 sleep) it prints the kernel's bound: the least time the card could take, the
@@ -157,6 +170,7 @@ script, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import io
 import json
 import re
 import subprocess
@@ -231,6 +245,11 @@ KERNELS = {
 # NVIDIA H100 SXM data sheet: HBM3 bytes/s, non-tensor FLOP/s by itemsize
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {4: 67e12, 8: 34e12}
+
+# the physics gate's ladder cases run here, cut from the end to keep the two
+# last phases near 90 s: salame_wake and mr_wake run in `python -m
+# hipace_tpu_torch.gpu_check`
+GATE_CASES = 7
 
 # ~25 ms of device clock cycles: longer than the host takes to enqueue the
 # calls that cuda_ms times
@@ -3354,6 +3373,62 @@ def pipeline_path(torch, counts):
         raise AssertionError("pipeline path failed its checks")
 
 
+@phase("bench")
+def bench_phase(torch):
+    """The port's bench (hipace_tpu_torch.bench) in this process on its
+    pdf deck at 1023^2 x 64: one warm-up step, then 3 runs of 2 measured
+    steps; its JSON line on a line of its own. It must name this card and
+    have launched K1, K2 and K3 on every slice."""
+    from hipace_tpu_torch import bench
+    rec = bench.run(nxy=NXY, nz=NZ, steps=3, runs=3, log=sys.stdout)
+    print(json.dumps(rec), flush=True)
+    low = [k for k, n in rec["launches_per_slice"].items() if n < 1]
+    if rec["device"] != torch.cuda.get_device_name(0) or low:
+        raise AssertionError(f"bench on {rec['device']}, kernels under one "
+                             f"launch per slice: {low}")
+
+
+@phase("physics gate")
+def gate_phase(torch):
+    """hipace_tpu_torch.gpu_check's small ladder (CPU f64, card f64, card
+    f32 from one beam and one set of draws) on its first GATE_CASES cases,
+    its full-width leg (card f32 against card f64 at 1023^2 x 64) and its
+    reference leg; the record under build/chip_smoke/gpu_check.json. Fails
+    where a case fails or a kernel was not launched."""
+    from hipace_tpu_torch import gpu_check
+    from hipace_tpu_torch.ops.deposit import deposit
+    from hipace_tpu_torch.ops.gather import gather_main
+    from hipace_tpu_torch.ops.mg_kernel import mg_solve
+    kernels = {"K1": deposit, "K2": gather_main, "K3": mg_solve}
+    for fn in kernels.values():
+        fn.launches = 0
+    record = gpu_check.gate([c.name for c in gpu_check.CASES[:GATE_CASES]],
+                            log=io.StringIO())
+    launches = {k: fn.launches for k, fn in kernels.items()}
+    OUT.mkdir(parents=True, exist_ok=True)
+    (OUT / "gpu_check.json").write_text(json.dumps(record, indent=1) + "\n")
+
+    def pair(e, k):
+        p = e[k]
+        return f"{p['max_rel']:.3e} ({p['key']}; tol {p['tol']:g})"
+
+    for e in record["cases"] + [record["full_width"]]:
+        legs = ", ".join(f"{leg} {e['mg_cycles'][leg]}/{e['pc_iters'][leg]}/"
+                         f"{e['seconds'][leg]:.1f} s" for leg in e["seconds"])
+        f64 = (f"card f64 vs CPU {pair(e, 'f64_vs_cpu')}, "
+               if "f64_vs_cpu" in e else "")
+        print(f"physics gate {e['case']}, {e['steps']} steps: {f64}card "
+              f"f32 vs f64 {pair(e, 'f32_vs_f64')}; V-cycles/PC iterations"
+              f"/seconds {legs} {'ok' if e['ok'] else 'FAIL'}", flush=True)
+    for s in record["skipped"]:
+        print(f"physics gate {s['case']}: skipped ({s['skipped']})")
+    print(f"physics gate reference leg: {record['reference']}")
+    print(f"physics gate record: {OUT / 'gpu_check.json'}; launches "
+          + ", ".join(f"{k} {n}" for k, n in launches.items()), flush=True)
+    if not record["ok"] or not all(launches.values()):
+        raise AssertionError("the physics gate failed")
+
+
 def main() -> int:
     if not (ROOT / "hipace_tpu_torch" / "csrc").is_dir():
         print("chip_smoke.py must run from a checkout of the repository",
@@ -3365,12 +3440,8 @@ def main() -> int:
         print("no CUDA device: torch.cuda.is_available() is False",
               file=sys.stderr)
         return 3
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=False, timeout=60)
-    smi_line = (smi.stdout.strip().splitlines()[0] if smi.stdout
-                else smi.stderr.strip())
+    from hipace_tpu_torch.device import card_line
+    smi_line = card_line()
     print(smi_line)
     CARD["line"] = smi_line
     kind = torch.cuda.get_device_name(0)
@@ -3459,6 +3530,10 @@ def main() -> int:
     pipeline_small_phase(torch)
     pipe_counts: dict = {}
     pipeline_path(torch, pipe_counts)
+    torch.cuda.empty_cache()
+    bench_phase(torch)
+    torch.cuda.empty_cache()
+    gate_phase(torch)
 
     if failures:
         print(f"chip_smoke FAILED phases: {failures}", file=sys.stderr)

@@ -8,6 +8,9 @@ GPU, float32, through the port's kernels, and raises where there is no GPU;
 With more than one GPU the time loop is a pipeline, one rank per GPU
 (``Simulation.evolve_pipelined``; the reference's ``mpiexec -n N`` mode,
 ref Hipace.cpp:400-401), unless the deck sets ``hipace.pipeline = 0``.
+``hipace.profile = <dir>`` runs the time loop under ``torch.profiler`` (CPU
+activity, and CUDA activity on the card) and writes its trace to that
+directory (``<worker>.<ms>.pt.trace.json``).
 """
 
 from __future__ import annotations
@@ -45,14 +48,24 @@ def main(argv=None):
     from .pipeline.simulation import Simulation
 
     inputs = Inputs.from_file(rest[0], overrides=rest[1:])
+    # hipace.profile = <trace dir>: a profiler trace of the run (the
+    # reference's TinyProfiler regions), viewable in Perfetto or TensorBoard
+    trace_dir = inputs.query("hipace.profile", "", str)
     t0 = time.perf_counter()
     sim = Simulation(inputs, device=device)
     n_ranks = (torch.cuda.device_count() if sim.device.type == "cuda"
                and inputs.query("hipace.pipeline", True, bool) else 1)
-    if n_ranks > 1:
-        sim.evolve_pipelined()
+    run = sim.evolve_pipelined if n_ranks > 1 else sim.evolve
+    if trace_dir:
+        from torch.profiler import (ProfilerActivity, profile,
+                                    tensorboard_trace_handler)
+        activities = [ProfilerActivity.CPU] + (
+            [ProfilerActivity.CUDA] if sim.device.type == "cuda" else [])
+        with profile(activities=activities,
+                     on_trace_ready=tensorboard_trace_handler(trace_dir)):
+            run()
     else:
-        sim.evolve()
+        run()
     if sim.device.type == "cuda":
         torch.cuda.synchronize(sim.device)
     wall = time.perf_counter() - t0

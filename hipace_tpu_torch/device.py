@@ -8,6 +8,8 @@ against the JAX package's x64 results, as the tests do.
 
 from __future__ import annotations
 
+import subprocess
+
 import torch
 
 
@@ -31,3 +33,18 @@ def resolve(device=None, dtype=None) -> tuple[torch.device, torch.dtype]:
             raise ValueError("CPU runs are float64 parity runs")
         return dev, dt
     raise ValueError(f"unsupported device {dev}")
+
+
+def card_line() -> str:
+    """The card's name and power limit as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` prints them (its
+    first line), or "not read"."""
+    try:
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            check=False, timeout=60)
+    except (OSError, subprocess.TimeoutExpired):
+        return "not read"
+    lines = smi.stdout.strip().splitlines()
+    return lines[0] if smi.returncode == 0 and lines else "not read"

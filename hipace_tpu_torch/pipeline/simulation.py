@@ -100,6 +100,10 @@ class Simulation:
         depos_order = inputs.query("hipace.depos_order_xy", 2, int)
         self.geom = Geometry.from_inputs(inputs, depos_order)
         self.mr_levels = parse_mr_levels(inputs, self.geom)
+        # ref parameters.rst:159-161: print all input parameters
+        if inputs.query("hipace.output_input", False, bool):
+            for k in sorted(inputs._raw):
+                print(f"{k} = {inputs._raw[k]}")
         self.max_step = inputs.query("max_step", 0, int)
         self.max_time = inputs.query("hipace.max_time", float("inf"))
         self._has_last_step = False

@@ -876,3 +876,24 @@ def test_pipelined_window_on_distinct_cards_matches_one_card(cuda):
     assert torch.equal(got["valid"].cpu(), v) and int(v.sum()) > 1900
     for k in ("x", "y", "z", "ux", "uy", "uz"):
         assert _rel(got[k].cpu()[v], ref[k].cpu()[v]) < 1e-8, k
+
+
+def test_bench_on_the_card_names_it(cuda):
+    """The bench at 255^2 x 16 on the card: its record names the card, the
+    kernels ran on every slice, and the runs are listed."""
+    import io
+
+    from hipace_tpu_torch import bench
+    rec = bench.run(nxy=255, nz=16, steps=3, runs=2, log=io.StringIO())
+    assert rec["device"] == torch.cuda.get_device_name(0) != "cpu"
+    assert len(rec["runs"]) == 2 and rec["value"] > 0
+    assert rec["peak_gib"] > 0
+    assert all(rec["launches_per_slice"][k] >= 1 for k in ("K1", "K2", "K3"))
+
+
+def test_gate_case_passes(cuda):
+    """The first case of the gate's small ladder: card float64 within 1e-8
+    of the CPU, card float32 within its pinned tolerance of float64."""
+    from hipace_tpu_torch import gpu_check as gc
+    entry = gc.run_case(gc.CASES[0])
+    assert entry["f64_vs_cpu"]["ok"] and entry["f32_vs_f64"]["ok"], entry

@@ -32,14 +32,15 @@ from hipace_tpu_torch.utils.atomic_data import (ATOMIC_WEIGHTS_DA,
 
 torch.set_num_threads(1)
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = {"hipace_tpu", "jax", "jaxlib"}
+FORBIDDEN = {"hipace_tpu", "jax", "jaxlib", "tools"}
 
 
 def _port_sources():
     files = [os.path.join(ROOT, "chip_smoke.py"),
              os.path.join(ROOT, "tools", "profile_torch_step.py"),
              os.path.join(ROOT, "tools", "time_torch_kernels.py"),
-             os.path.join(ROOT, "tools", "laser_f32_drift.py")]
+             os.path.join(ROOT, "tools", "laser_f32_drift.py"),
+             os.path.join(ROOT, "tools", "f32_sums_probe.py")]
     for folder, _, names in os.walk(os.path.join(ROOT, "hipace_tpu_torch")):
         files += [os.path.join(folder, n) for n in names if n.endswith(".py")]
     return sorted(files)
@@ -60,7 +61,8 @@ def test_the_walk_finds_the_port():
     assert {"chip_smoke.py", "hipace_tpu_torch/parser.py",
             "hipace_tpu_torch/geometry.py", "hipace_tpu_torch/constants.py",
             "hipace_tpu_torch/utils/atomic_data.py",
-            "hipace_tpu_torch/ops/mg_kernel.py"} <= names
+            "hipace_tpu_torch/ops/mg_kernel.py", "hipace_tpu_torch/bench.py",
+            "hipace_tpu_torch/gpu_check.py"} <= names
 
 
 @pytest.mark.parametrize("path", [os.path.relpath(p, ROOT)
