@@ -141,6 +141,21 @@ the serial loop's 4 steps from the same beam twice: its slices/s and peak
 memory, the pipelined final beam against the serial one within
 PIPE_F32_TOL, beside the spread of the two serial runs.
 
+The ranks (one process per stage, ``hipace_tpu_torch.parallel.ranks``,
+``Simulation.evolve_ranks``): "ranks, small", two ranks sharing cuda:0 over
+gloo, spawned with ``ranks.spawn``, run the 63^2 x 16 float64 flagship of
+"pipeline, small" from its beam, and every openPMD and in-situ file, the
+final beam and the V-cycles of every slice must agree with the single-process
+two-stage runs on cuda:0 and on the CPU within 1e-8; then the ranks path,
+the 1023^2 x 64 float32 flagship as two ranks on cuda:0, one warm-up window
+and two timed ones from the pipeline path's beam: each rank's K1/K2/K3
+launches against the serial slice structure of the steps it ran, finite
+fields, a conserved beam, equal generator draws on every rank and in this
+process, the final beam against the single-process pipeline's within
+PIPE_F32_TOL, slices/s over all ranks' slices against the pipeline path's
+serial loop and single-process pipeline, and each rank's peak memory.
+Where there are two cards, the same on one NCCL rank per card.
+
 The bench and the physics gate: "bench" runs the port's bench
 (``hipace_tpu_torch.bench``) on its pdf deck at 1023^2 x 64, one warm-up
 step and three runs of two measured steps, and prints its JSON line;
@@ -873,14 +888,7 @@ def pc_path(torch, counts):
         if step == 0:
             # every read of a device value by the host synchronizes: count
             # them through the sync debug mode's warnings
-            with warnings.catch_warnings(record=True) as caught:
-                warnings.simplefilter("always")
-                torch.cuda.set_sync_debug_mode("warn")
-                try:
-                    res = sim.run_step(step)
-                finally:
-                    torch.cuda.set_sync_debug_mode("default")
-            copies = sum("synchroniz" in str(w.message) for w in caught)
+            res, copies = sync_counted(torch, lambda: sim.run_step(step))
         else:
             res = sim.run_step(step)
         torch.cuda.synchronize()
@@ -1444,7 +1452,9 @@ def k3_complex_phase(torch, results):
 
 def sync_counted(torch, fn):
     """fn() and the host's synchronizing reads of the device during it,
-    counted through the sync debug mode's warnings."""
+    counted through the sync debug mode's warnings (its own notice that it
+    is a prototype, which some torch versions give on being turned on,
+    is not a read)."""
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         torch.cuda.set_sync_debug_mode("warn")
@@ -1452,7 +1462,8 @@ def sync_counted(torch, fn):
             out = fn()
         finally:
             torch.cuda.set_sync_debug_mode("default")
-    return out, sum("synchroniz" in str(w.message) for w in caught)
+    return out, sum("called a synchronizing" in str(w.message)
+                    for w in caught)
 
 
 def all_files(folder):
@@ -2378,11 +2389,15 @@ def output_files(folder):
     return files
 
 
+def output_lines(folder):
+    """Deck lines that send the openPMD and in-situ files under folder."""
+    return (f"hipace.file_prefix = {folder}/openpmd\n"
+            + "".join(f"{key}.insitu_file_prefix = {folder}/{sub}\n"
+                      for sub, key, _ in INSITU))
+
+
 def output_deck(deck_fn, nxy, nz, npart, extra, folder):
-    return deck_fn(nxy, nz, npart, extra
-                   + f"hipace.file_prefix = {folder}/openpmd\n"
-                   + "".join(f"{key}.insitu_file_prefix = {folder}/{sub}\n"
-                             for sub, key, _ in INSITU))
+    return deck_fn(nxy, nz, npart, extra + output_lines(folder))
 
 
 @phase("output, small")
@@ -3189,8 +3204,8 @@ def pipeline_small_phase(torch):
                              ("serial", "cuda", False)):
         folder = OUT / f"pipe_{name}"
         shutil.rmtree(folder, ignore_errors=True)
-        sim = Simulation(output_deck(blowout_wake, SMALL_NXY, SMALL_NZ,
-                                     4000, PIPE_OUTPUT, folder),
+        sim = Simulation(blowout_wake(SMALL_NXY, SMALL_NZ, 4000,
+                                      PIPE_OUTPUT + output_lines(folder)),
                          device=dev, dtype=torch.float64, verbose=0)
         if runs:
             cpu = runs["cpu"][0]
@@ -3240,6 +3255,7 @@ def pipeline_small_phase(torch):
           f"{'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
         raise AssertionError("small pipelined run mismatch")
+    return runs
 
 
 @phase("pipeline path")
@@ -3257,6 +3273,7 @@ def pipeline_path(torch, counts):
     from hipace_tpu_torch.ops.deposit import deposit
     from hipace_tpu_torch.ops.gather import gather_main
     from hipace_tpu_torch.ops.mg_kernel import mg_solve
+    from hipace_tpu_torch.parallel.ranks import generator_probe
     from hipace_tpu_torch.pipeline.simulation import Simulation
     devices = [torch.device("cuda:0")] * PIPE_STAGES
     steps = 2 * PIPE_STAGES
@@ -3275,6 +3292,7 @@ def pipeline_path(torch, counts):
     # reads are counted, then the timed windows from the same beam
     sim = flagship(PIPE_STAGES - 1)
     g = sim.geom
+    probe = generator_probe(sim)
     beam0 = {k: v.clone() if torch.is_tensor(v) else v
              for k, v in sim.binned.items()}
     dt0, n0 = sim.dt, int(beam0["valid"].sum())
@@ -3371,6 +3389,170 @@ def pipeline_path(torch, counts):
         ok &= counts[k] == want
     if not ok:
         raise AssertionError("pipeline path failed its checks")
+    # the references of the ranks path
+    return {"beam": pipe_binned, "serial": finals[0], "spread": spread[0],
+            "lanes": n0, "probe": probe, "per_step": per_step,
+            "slices_per_s": slices / t_pipe,
+            "serial_slices_per_s": slices / t_serial}
+
+
+# ------------------------------------------------------------- the ranks
+RANK_TIMEOUT = 300      # seconds for one spawn of two ranks
+
+
+def card_steps(results):
+    """Every step's record (V-cycles per slice, finite fields) of a rank run,
+    keyed by step, over its ranks; and each step's rank."""
+    steps, owner = {}, {}
+    for r, res in enumerate(results):
+        for s, rec in res["runs"][-1]["steps"].items():
+            steps[s], owner[s] = rec, r
+    return steps, owner
+
+
+@phase("ranks, small")
+def ranks_small_phase(torch, pipe):
+    """The 63^2 x 16 float64 flagship of "pipeline, small" (one window, then
+    the serial tail, every per-step output) as two ranks sharing cuda:0
+    over gloo (ranks.spawn, Simulation.evolve_ranks) from the CPU run's
+    beam: every openPMD and in-situ file and the final beam within 1e-8 of
+    the single-process two-stage runs on cuda:0 and on the CPU, equal
+    V-cycles on every slice of every step, each step on its rank."""
+    import shutil
+    from hipace_tpu_torch.decks import BLOWOUT_WAKE
+    from hipace_tpu_torch.parallel import ranks
+    if pipe is None:
+        raise AssertionError('"pipeline, small" did not run')
+    folder = OUT / "ranks_small"
+    shutil.rmtree(folder, ignore_errors=True)
+    folder.mkdir(parents=True)
+    cpu = pipe["cpu"][0]
+    start = folder / "start.pt"
+    torch.save({"binned": {k: v for k, v in cpu.binned0.items()
+                           if torch.is_tensor(v)}, "dt": cpu.dt}, start)
+    deck = (BLOWOUT_WAKE.format(nxy=SMALL_NXY, nz=SMALL_NZ, npart=4000)
+            + PIPE_OUTPUT + output_lines(folder))
+    t0 = time.perf_counter()
+    res = ranks.spawn(ranks.Job(deck, dtype="float64", start=str(start),
+                                keep_steps=True, verbose=0),
+                      ["cuda:0"] * PIPE_STAGES, timeout=RANK_TIMEOUT)
+    t_spawn = time.perf_counter() - t0
+    final = res[0]["final"]["binned"]
+    steps, owner = card_steps(res)
+    files = output_files(folder)
+    lines = []
+    ok = (sorted(steps) == [0, 1, 2] and owner == {0: 0, 1: 1, 2: 0}
+          and all(f.exists() for f in files))
+    for name in ("card", "cpu"):
+        sim, ref_steps, ref_files = pipe[name]
+        same_cycles = [steps[s]["mg_cycles"] for s in sorted(steps)] == [
+            r["mg_cycles"] for r in ref_steps]
+        beam = beam_rel(torch, final, sim.binned)[0]
+        worst = [0.0, ""]
+        if [f.name for f in files] != [f.name for f in ref_files]:
+            raise AssertionError(f"the ranks wrote {files}")
+        for got, ref in zip(files, ref_files):
+            if got.suffix == ".json":
+                compare_tree(json.loads(got.read_text()),
+                             json.loads(ref.read_text()), got.name, worst)
+            else:
+                compare_tree(read_insitu(got), read_insitu(ref), got.name,
+                             worst)
+        ok &= beam < 1e-8 and worst[0] < 1e-8 and same_cycles
+        lines.append(f"against the single-process {name} run: beam "
+                     f"{beam:.3e}, worst file dataset {worst[0]:.3e} "
+                     f"({worst[1]}) over {len(files)} files, V-cycles equal "
+                     f"on every slice of every step {same_cycles}")
+    print(f"ranks, small: {SMALL_NXY}^2 x {SMALL_NZ} float64 flagship, "
+          f"{PIPE_STAGES} ranks on cuda:0 (steps 0-1 in one window, step 2 "
+          f"serial on rank 0; spawn {t_spawn:.1f} s): " + "; ".join(lines)
+          + f" (tol 1e-8) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise AssertionError("small rank run mismatch")
+
+
+@phase("ranks path")
+def ranks_path(torch, pipe, counts):
+    """The 1023^2 x 64 float32 flagship of the pipeline path as two ranks on
+    cuda:0 (gloo): one warm-up window, then two timed windows (4 steps)
+    from the same beam. Each rank's K1/K2/K3 launches in the timed windows
+    against the serial slice structure of its 2 steps, finite fields, a
+    conserved beam, every rank's generator draws equal to this process's,
+    the final beam against the pipeline path's single-process pipeline
+    within PIPE_F32_TOL (beside the serial loop's and the spread of two
+    serial runs), slices/s over all ranks' slices against the pipeline
+    path's two runs, each rank's peak memory. Where there are two cards,
+    the same with one rank per card over NCCL; counts gets the launches of
+    the ranks on cuda:0, summed."""
+    import os
+    from hipace_tpu_torch.decks import BLOWOUT_WAKE
+    from hipace_tpu_torch.parallel import ranks
+    if pipe is None:
+        raise AssertionError('"pipeline path" did not run')
+    steps = 2 * PIPE_STAGES
+    job = ranks.Job(BLOWOUT_WAKE.format(nxy=NXY, nz=NZ, npart=NPART),
+                    dtype="float32", write_output=False, keep_steps=True,
+                    max_steps=(PIPE_STAGES - 1, steps - 1), verbose=0)
+    legs = [(f"{PIPE_STAGES} ranks on cuda:0", ["cuda:0"] * PIPE_STAGES)]
+    if torch.cuda.device_count() >= PIPE_STAGES:
+        legs.append((f"{PIPE_STAGES} ranks on {PIPE_STAGES} cards",
+                     [f"cuda:{i}" for i in range(PIPE_STAGES)]))
+    else:
+        print(f"ranks path: the NCCL leg (one rank per card) did not run: "
+              f"{torch.cuda.device_count()} card", flush=True)
+    ok = True
+    for leg, devices in legs:
+        t0 = time.perf_counter()
+        res = ranks.spawn(job, devices, timeout=RANK_TIMEOUT)
+        t_spawn = time.perf_counter() - t0
+        timed = [r["runs"][-1] for r in res]
+        rec, owner = card_steps(res)
+        final = res[0]["final"]["binned"]
+        n = int(final["valid"].sum())
+        diff = beam_rel(torch, final, pipe["beam"], sort=True)
+        vs_serial = beam_rel(torch, final, pipe["serial"], sort=True)
+        rate = NZ * steps / timed[0]["seconds"]
+        launches = [r["launches"] for r in timed]
+        want = {k: v * steps // PIPE_STAGES
+                for k, v in pipe["per_step"].items()}
+        good = (sorted(rec) == list(range(steps))
+                and all(owner[s] == s % PIPE_STAGES for s in rec)
+                and all(r["finite"] for r in rec.values())
+                and n == pipe["lanes"] == res[0]["lanes"]
+                and all(r["probe"] == pipe["probe"] for r in res)
+                and diff[0] <= PIPE_F32_TOL
+                and all(c == want for c in launches))
+        ok &= good
+        cycles = [c for r in rec.values() for c in r["mg_cycles"]]
+        print(f"ranks path {NXY}^2 x {NZ} float32, {leg} "
+              f"({res[0]['runs'][0]['seconds']:.3f} s warm-up window, spawn "
+              f"{t_spawn:.1f} s): {rate:.3f} slices/s over {steps} steps "
+              f"(every rank's slices; {rate / pipe['slices_per_s']:.3f}x the "
+              f"single-process pipeline's {pipe['slices_per_s']:.3f}, "
+              f"{rate / pipe['serial_slices_per_s']:.3f}x the serial "
+              f"loop's {pipe['serial_slices_per_s']:.3f}); peak memory per "
+              "rank " + ", ".join(f"{r['peak_bytes'] / 2 ** 30:.3f}"
+                                  for r in timed)
+              + f" GiB; {os.cpu_count()} host cores; {CARD['line']}",
+              flush=True)
+        print(f"ranks path {leg}: launches per rank "
+              + "; ".join(", ".join(f"{k} {v}" for k, v in c.items())
+                          for c in launches)
+              + " (the serial slice structure of 2 steps predicts "
+              + ", ".join(f"{k} {v}" for k, v in want.items())
+              + f"); fields finite {all(r['finite'] for r in rec.values())},"
+              f" V-cycles per slice {min(cycles)}-{max(cycles)}, steps per "
+              f"rank {owner}; beam particles {n} (start {pipe['lanes']}); "
+              f"generator draws equal on every rank "
+              f"{all(r['probe'] == pipe['probe'] for r in res)}; final beam "
+              f"against the single-process pipeline's {diff[0]:.3e} "
+              f"({diff[1]}; tol {PIPE_F32_TOL:g}), against the serial loop's "
+              f"{vs_serial[0]:.3e} (two serial runs {pipe['spread']:.3e}) "
+              f"{'ok' if good else 'FAIL'}", flush=True)
+        if devices[0] == devices[-1]:
+            counts.update({k: sum(c[k] for c in launches) for k in want})
+    if not ok:
+        raise AssertionError("ranks path failed its checks")
 
 
 @phase("bench")
@@ -3527,9 +3709,15 @@ def main() -> int:
     mr_counts: dict = {}
     mr_path(torch, mr_counts, results)
     torch.cuda.empty_cache()
-    pipeline_small_phase(torch)
+    pipe_small = pipeline_small_phase(torch)
     pipe_counts: dict = {}
-    pipeline_path(torch, pipe_counts)
+    pipe_ref = pipeline_path(torch, pipe_counts)
+    torch.cuda.empty_cache()
+    ranks_small_phase(torch, pipe_small)
+    del pipe_small
+    rank_counts: dict = {}
+    ranks_path(torch, pipe_ref, rank_counts)
+    del pipe_ref
     torch.cuda.empty_cache()
     bench_phase(torch)
     torch.cuda.empty_cache()
@@ -3579,6 +3767,11 @@ def main() -> int:
     entries += [(k, k, f"{k} {fn}, pipelined flagship ({PIPE_STAGES} stages "
                  "on one card)", pipe_counts[k])
                 for k, (fn, _, _) in KERNELS.items()]
+    # the rank-per-stage pipeline runs them in its ranks: their launches,
+    # summed over the ranks
+    entries += [(k, k, f"{k} {fn}, pipelined flagship ({PIPE_STAGES} ranks "
+                 "on one card, one process each, launches summed)",
+                 rank_counts[k]) for k, (fn, _, _) in KERNELS.items()]
     for k, key, label, launches in entries:
         _, source, replaces = KERNELS[k]
         err, ms, plain_ms, bound_ms, bound_by = results[(key, "float32")]

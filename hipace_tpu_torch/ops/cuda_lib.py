@@ -5,10 +5,11 @@ and all at once, and linked into one shared library with a plain C
 interface, loaded through ctypes. The build happens at the first kernel
 launch, into ``build/hipace_tpu_torch/<hash>/`` at the root of the checkout,
 keyed by a hash of the sources and flags, so a changed source is rebuilt and
-an unchanged one reused; the compiler's output (``-Xptxas -v``: registers,
-stack frame and spills per kernel) is kept beside the library. Importing
-this module builds nothing; a machine without nvcc fails at the first
-launch.
+an unchanged one reused (processes that build at once, such as the ranks of
+a pipelined run, each build into files of their own, renamed into place);
+the compiler's output (``-Xptxas -v``: registers, stack frame and spills per
+kernel) is kept beside the library. Importing this module builds nothing; a
+machine without nvcc fails at the first launch.
 """
 
 from __future__ import annotations
@@ -115,7 +116,12 @@ class KernelLibrary:
             self.compiler_output = "".join(outputs)
             if failed:
                 raise RuntimeError("nvcc failed:\n" + self.compiler_output)
-            log.write_text(self.compiler_output)
+            # processes that build at once (the ranks of a run) each write
+            # their own temporaries and rename them: a process that finds
+            # the library finds it whole, and its log
+            log_tmp = out_dir / f".{LOG_NAME}{tag}"
+            log_tmp.write_text(self.compiler_output)
+            os.replace(log_tmp, log)
             os.replace(tmp, self.path)
             self.built = True
         self.lib = ctypes.CDLL(str(self.path))

@@ -23,6 +23,9 @@ XLA, not in a Pallas kernel.
 
 from __future__ import annotations
 
+import collections
+import threading
+
 import torch
 
 from . import cuda_lib
@@ -55,10 +58,11 @@ def as_planes(planes) -> tuple:
     return planes
 
 
-def gather_main_plain(planes, ym, xm, order):
-    """Plain PyTorch gather (any device), exact elementwise reads."""
-    planes = as_planes(planes)
-    NY, NX = planes[0].shape
+def _stencils(ym, xm, order, NY, NX):
+    """The lanes' stencils: (live, the tap weights of the two raw Psi
+    derivatives and of the interpolation, each (N, m, m), the taps' flat
+    cell indices (N, m, m)), from the order-p weights and nodal derivative
+    factors with the taps outside the grid zeroed."""
     live = ym < LIVE_FRACTION * NY
     iy0, wy, dwy = shape_weights_derivative(ym, order, 1)
     ix0, wx, dwx = shape_weights_derivative(xm, order, 1)
@@ -71,13 +75,50 @@ def gather_main_plain(planes, ym, xm, order):
     wy, dwy = wy * oky, dwy * oky
     wx, dwx = wx * okx, dwx * okx
     lin = (iy.clamp(0, NY - 1)[:, :, None] * NX
-           + ix.clamp(0, NX - 1)[:, None, :])                      # (N, m, m)
-    vals = [plane.reshape(NY * NX)[lin] for plane in planes]       # (N, m, m)
-    w = wy[:, :, None] * wx[:, None, :]
-    out = torch.stack([
-        ((wy[:, :, None] * dwx[:, None, :]) * vals[0]).sum(dim=(1, 2)),
-        ((dwy[:, :, None] * wx[:, None, :]) * vals[0]).sum(dim=(1, 2)),
-    ] + [(w * vals[c]).sum(dim=(1, 2)) for c in range(1, 5)])
+           + ix.clamp(0, NX - 1)[:, None, :])
+    return (live, wy[:, :, None] * dwx[:, None, :],
+            dwy[:, :, None] * wx[:, None, :], wy[:, :, None] * wx[:, None, :],
+            lin)
+
+
+# the stencils of the last few CPU calls of at most _CPU_TAPS taps, by their
+# positions (a reused entry equals what it replaces: a cache, whose state
+# changes no result): the predictor-corrector's trial pushes gather again and
+# again at the same positions, a fine level's between the coarse level's
+_CPU_STENCILS: collections.deque = collections.deque(maxlen=4)
+_CPU_TAPS = 2 ** 20
+_CPU_LOCK = threading.Lock()
+
+
+def gather_main_plain(planes, ym, xm, order):
+    """Plain PyTorch gather (any device), exact elementwise reads. On the
+    CPU a call at the positions of one of the last few reuses its stencils
+    (where they are small)."""
+    planes = as_planes(planes)
+    NY, NX = planes[0].shape
+    cpu = (ym.device.type == "cpu"
+           and ym.numel() * (order + 2) ** 2 <= _CPU_TAPS)
+    key = (order, NY, NX, ym.dtype, ym.shape)
+    st = None
+    if cpu:
+        with _CPU_LOCK:
+            entries = list(_CPU_STENCILS)
+        st = next((e[3] for e in entries if e[0] == key
+                   and torch.equal(e[1], ym) and torch.equal(e[2], xm)),
+                  None)
+    if st is None:
+        st = _stencils(ym, xm, order, NY, NX)
+        if cpu:
+            with _CPU_LOCK:
+                _CPU_STENCILS.appendleft((key, ym.clone(), xm.clone(), st))
+    live, wdx, wdy, w, lin = st
+    # index_select reads what plane[lin] reads, faster on the CPU
+    flat = lin.reshape(-1)
+    vals = [plane.reshape(NY * NX).index_select(0, flat).view(lin.shape)
+            for plane in planes]                                   # (N, m, m)
+    out = torch.stack([(wdx * vals[0]).sum(dim=(1, 2)),
+                       (wdy * vals[0]).sum(dim=(1, 2))]
+                      + [(w * vals[c]).sum(dim=(1, 2)) for c in range(1, 5)])
     return torch.where(live, out, torch.zeros_like(out))
 
 

@@ -25,13 +25,14 @@ An entry may repeat: several stages may share one card, or the CPU.
   ticks before, as its (n00, nm1); stage 0 reads the window's stream, and
   stage n - 1's is the next window's.
 - One host thread drives every stage in turn (each kernel wrapper launches
-  on its tensor's card, whichever card is current). The slice steps are bound by the host (its
-  Python and launches), so on several cards the stages run one after
-  another at about the serial loop's rate: a window of n steps costs about
-  n serial steps on any number of cards. One host thread per card was
-  slower still, as the threads queue for the interpreter lock at every
-  launch (PERF.md, the pipeline's findings). Cards that overlap need a process per card, or a
-  slice step whose launches do not bind the host.
+  on its tensor's card, whichever card is current). The slice steps are
+  bound by the host (its Python and launches), so here the stages run one
+  after another, also on several cards: a window of n steps costs about n
+  serial steps. ``parallel/ranks.py`` runs the same schedule with one
+  process per stage (``Simulation.evolve_ranks``), so that the stages of a
+  window run at the same time; this module is its CPU oracle and shares
+  its schedule (``n_ticks``, ``stage_slice``), rows (``stage_lanes``,
+  ``sort_block``, ``insert_block``) and seeds (``seed_stages``) with it.
 
 The receive rows grow with what arrives. The JAX package gives them a fixed
 capacity, beam_cap + slip_cap, drops the lanes beyond it without a word and
@@ -71,40 +72,63 @@ def _read_ints(tensors: list) -> list:
     return out
 
 
+def sort_block(block: dict, geom) -> tuple:
+    """A block's lanes sorted by their slice, floor((z - lo_z) / dz), and
+    the lanes per slice: nz + 1 counts on the block's device, the last the
+    lanes that bm.bin_beam would drop (dead or outside the domain), which
+    the sort puts at the end. No read of the device."""
+    nz = geom.nz
+    isl = bm.slice_index(block["z"], geom)
+    ok = block["valid"] & (isl >= 0) & (isl < nz)
+    key, order = torch.sort(torch.where(ok, isl, nz), stable=True)
+    # lanes per slice, without the read that bincount makes on a card
+    starts = torch.searchsorted(key, torch.arange(nz + 2, device=key.device))
+    return {k: v[order] for k, v in block.items()}, starts.diff()
+
+
+def insert_block(rows: list, block: dict, counts, tail: bool = False) -> None:
+    """Put a sorted block (sort_block's, with its counts as ints) into the
+    receive rows `rows` (nz lists of blocks, each a dict of 1-D tensors
+    keyed by bm.ALL_ATTRS): a sweep's block before what a row holds (the
+    sweep emits from the head), the slip carries (tail=True) after."""
+    start = 0
+    for i, c in enumerate(counts[:len(rows)]):
+        if c:
+            part = {k: v[start:start + c] for k, v in block.items()}
+            if tail:
+                rows[i].append(part)
+            else:
+                rows[i].insert(0, part)
+            start += c
+
+
 def bin_blocks_into(entries, geom, tail: bool = False) -> None:
     """Bin each (rows, block) of entries: the block's valid lanes into the
-    receive rows `rows` (nz lists of blocks, each a dict of 1-D tensors
-    keyed by bm.ALL_ATTRS) by their slice, floor((z - lo_z) / dz), lanes
-    outside the domain dropped as bm.bin_beam drops them. A sweep's block
-    goes before what its rows hold (the sweep emits from the head), the
-    slip carries (tail=True) after. Reads the lanes per slice of every
-    block once, one read per receiving device."""
-    nz = geom.nz
-    work = []
-    for rows, block in entries:
-        if block["x"].numel() == 0:
-            continue
-        isl = bm.slice_index(block["z"], geom)
-        ok = block["valid"] & (isl >= 0) & (isl < nz)
-        key, order = torch.sort(torch.where(ok, isl, nz), stable=True)
-        # lanes per slice, without the read that bincount makes on a card
-        starts = torch.searchsorted(key, torch.arange(nz + 1,
-                                                      device=key.device))
-        work.append((rows, {k: v[order] for k, v in block.items()},
-                     starts.diff()))
-    if not work:
-        return
+    receive rows `rows` by their slice (sort_block, insert_block), lanes
+    outside the domain dropped as bm.bin_beam drops them. Reads the lanes
+    per slice of every block once, one read per receiving device."""
+    work = [(rows,) + sort_block(block, geom) for rows, block in entries
+            if block["x"].numel()]
     for (rows, block, _), counts in zip(work, _read_ints(
             [c for *_, c in work])):
-        start = 0
-        for i, c in enumerate(counts):
-            if c:
-                part = {k: v[start:start + c] for k, v in block.items()}
-                if tail:
-                    rows[i].append(part)
-                else:
-                    rows[i].insert(0, part)
-                start += c
+        insert_block(rows, block, counts, tail)
+
+
+def seed_stages(sim, steps: list, first: int = 0) -> list:
+    """A window's draws from the simulation's generator, in the order every
+    stage and rank takes them: each species' plasma temperature draws
+    (plasma_draws, one set for every stage, ROADMAP R22), then with
+    ionization or collisions one seed, stage d's generator seeded seed + d
+    (the JAX package's fold_in(key, d)); steps are the SliceSteps of the
+    stages first, first + 1, .... Returns the plasma draws."""
+    draws = sim.plasma_draws()
+    if sim.cfg.ionization_pairs or sim.cfg.collisions:
+        gen = sim.generator
+        seed = int(torch.randint(0, 2 ** 62, (1,), generator=gen,
+                                 device=gen.device))
+        for j, ss in enumerate(steps):
+            ss.draws.generator.manual_seed(seed + first + j)
+    return draws
 
 
 def assemble_row(blocks: list, dead: dict) -> dict:
@@ -125,6 +149,39 @@ def rows_flat(rows: list, dead: dict) -> dict:
             for k, v in dead.items()}
 
 
+def n_ticks(nz: int, n: int) -> int:
+    """The ticks of a window of n stages over nz slices."""
+    return nz + 2 * (n - 1)
+
+
+def stage_slice(t: int, d: int, nz: int):
+    """The slice stage d sweeps at tick t of a window, None where it is
+    inactive: two slices behind its upstream, whose lanes emitted from
+    slices >= i - 1 its slice i needs."""
+    rel = t - 2 * d
+    return nz - 1 - rel if 0 <= rel < nz else None
+
+
+def stage_lanes(i: int, binned0, rows: list, dead: dict) -> tuple:
+    """A stage's (this, nxt) lanes for slice i: stage 0's from the window's
+    binned beam binned0, a later stage's (binned0 None) from its receive
+    rows, each padded to the serial row width."""
+    if binned0 is not None:
+        return ({k: v[i] for k, v in binned0.items()},
+                {k: v[i - 1] for k, v in binned0.items()} if i else dead)
+    return (assemble_row(rows[i], dead),
+            assemble_row(rows[i - 1], dead) if i else dead)
+
+
+def first_stream(st: dict, laser_stream, device) -> tuple:
+    """Stage 0's laser stream (n00, nm1) on its device: the window's, zeros
+    where None (before the first step)."""
+    if laser_stream is None:
+        zc = torch.zeros_like(st["laser_out"][0])
+        return zc, zc
+    return tuple(a.to(device) for a in laser_stream)
+
+
 def pipelined_window(sim, binned: dict, dts, times, base_step: int, devices,
                      laser_stream=None) -> dict:
     """Run the n = len(devices) time steps base_step .. base_step + n - 1 of
@@ -140,13 +197,7 @@ def pipelined_window(sim, binned: dict, dts, times, base_step: int, devices,
     n, g, cfg = len(devices), sim.geom, sim.cfg
     nz = g.nz
     steps = sim.stage_slice_steps(devices)
-    draws = sim.plasma_draws()
-    if cfg.ionization_pairs or cfg.collisions:
-        gen = sim.generator
-        seed = int(torch.randint(0, 2 ** 62, (1,), generator=gen,
-                                 device=gen.device))
-        for d, ss in enumerate(steps):
-            ss.draws.generator.manual_seed(seed + d)
+    draws = seed_stages(sim, steps)
     binned0 = {k: binned[k].to(devices[0]) for k in bm.ALL_ATTRS}
     states = [sim.step_state(
         times[d], dts[d], base_step + d, steps[d], devices[d],
@@ -157,32 +208,21 @@ def pipelined_window(sim, binned: dict, dts, times, base_step: int, devices,
     dead = [{k: torch.zeros_like(v[0], device=dev)
              for k, v in binned0.items()} for dev in devices]
     rows = [[[] for _ in range(nz)] for _ in range(n)]
-    stream0 = None
     if cfg.use_laser:
-        zc = torch.zeros_like(states[0]["laser_out"][0])
-        stream0 = (tuple(a.to(devices[0]) for a in laser_stream)
-                   if laser_stream is not None else (zc, zc))
+        stream0 = first_stream(states[0], laser_stream, devices[0])
 
-    for t in range(nz + 2 * (n - 1)):
+    for t in range(n_ticks(nz, n)):
         sent = []
         for d in range(n):
-            rel = t - 2 * d
-            if not 0 <= rel < nz:
+            i = stage_slice(t, d, nz)
+            if i is None:
                 continue
-            i = nz - 1 - rel
+            this, nxt = stage_lanes(i, binned0 if d == 0 else None, rows[d],
+                                    dead[d])
             lrows = None
-            if d == 0:
-                this = {k: v[i] for k, v in binned0.items()}
-                nxt = ({k: v[i - 1] for k, v in binned0.items()} if i
-                       else dead[0])
-                if stream0 is not None:
-                    lrows = (stream0[0][i], stream0[1][i])
-            else:
-                this = assemble_row(rows[d][i], dead[d])
-                nxt = assemble_row(rows[d][i - 1], dead[d]) if i else dead[d]
-                if cfg.use_laser:
-                    up = states[d - 1]["laser_out"]
-                    lrows = (up[0][i].to(devices[d]), up[1][i].to(devices[d]))
+            if cfg.use_laser:
+                up = stream0 if d == 0 else states[d - 1]["laser_out"]
+                lrows = (up[0][i].to(devices[d]), up[1][i].to(devices[d]))
             emit = sim.sweep_slice(states[d], i, this, nxt, lrows)
             nd = (d + 1) % n
             sent.append((rows[nd], {k: v.to(devices[nd])

@@ -771,13 +771,18 @@ class Simulation:
         """A step from time t at dt reaches or passes hipace.max_time."""
         return (t + dt >= self.max_time > t) or (t + dt <= self.max_time < t)
 
-    def _next_dt(self, res: dict, numprocs: int = 1) -> None:
-        """The next dt from a step's beam moments, predicted numprocs steps
-        ahead (one read of four device scalars; the first beam's mass and
-        charge, as the JAX package takes them, ROADMAP R4)."""
+    @staticmethod
+    def _moment_values(res: dict) -> list:
+        """A step's beam moments for the next dt: sum_w, sum_w_uz,
+        sum_w_uz2 and min_uz, one read of four device scalars."""
         mom = res["beam_moments"]
-        vals = torch.stack([mom["sum_w"], mom["sum_w_uz"],
+        return torch.stack([mom["sum_w"], mom["sum_w_uz"],
                             mom["sum_w_uz2"], res["min_uz"]]).tolist()
+
+    def _next_dt(self, vals: list, numprocs: int = 1) -> None:
+        """The next dt from a step's beam moments (_moment_values), predicted
+        numprocs steps ahead (the first beam's mass and charge, as the JAX
+        package takes them, ROADMAP R4)."""
         self.dt, self.min_uz_mq = adt.calculate_from_min_uz(
             self.adt_cfg, dict(zip(("sum_w", "sum_w_uz", "sum_w_uz2",
                                     "min_uz"), vals), min_acc=0.0),
@@ -798,7 +803,7 @@ class Simulation:
         self.time += self.dt
         if (self.adt_cfg.enabled and self.beam_cfgs
                 and not self._has_last_step):
-            self._next_dt(res)
+            self._next_dt(self._moment_values(res))
         return res
 
     def evolve(self, write_output: bool = True, start_step: int = 0):
@@ -838,6 +843,29 @@ class Simulation:
                              f"on {self.device}")
         return dev
 
+    def _window_ladder(self, step: int, n: int) -> tuple:
+        """The dt/time ladder of the window of n steps from `step`, on the
+        host from the simulation's time and dt (ref
+        AdaptiveTimeStep.cpp:338-370): under adaptive dt the phase-advance
+        control per step. (None, None) where the loop finishes serially:
+        fewer than n steps are left, or hipace.max_time falls inside the
+        window."""
+        if self.max_step - step + 1 < n:
+            return None, None
+        dts, times = [], []
+        t, dt = self.time, self.dt
+        for _ in range(n):
+            if self.adt_cfg.enabled:
+                dt = adt.calculate_from_density(
+                    self.adt_cfg, self.plasma_cfgs, self.pc, t, dt,
+                    self.min_uz_mq)
+            if t == self.max_time or self._crosses_max_time(t, dt):
+                return None, None
+            dts.append(dt)
+            times.append(t)
+            t += dt
+        return dts, times
+
     def evolve_pipelined(self, devices=None, write_output: bool = True):
         """The time loop as a temporal pipeline (ref Hipace.cpp:400-401, the
         reference's mpiexec -n N mode): windows of n = len(devices)
@@ -855,8 +883,9 @@ class Simulation:
         CPU. It runs the serial loop where n <= 1 or a plasma has a density
         table, and finishes serially from the step where fewer than n steps
         are left or a window would cross hipace.max_time. One host thread
-        drives every stage, so on several cards too the stages run one after
-        another, at about the serial loop's rate."""
+        drives every stage, so the stages run one after another, at about
+        the serial loop's rate; evolve_ranks runs them at the same time, one
+        process per stage."""
         from ..parallel.pipeline import pipelined_window
         if devices is None:
             devices = ([torch.device("cuda", i)
@@ -868,23 +897,8 @@ class Simulation:
             return self.evolve(write_output)
         step = 0
         while step <= self.max_step:
-            if self.max_step - step + 1 < n:
-                return self.evolve(write_output, start_step=step)
-            # the window's dt/time ladder
-            dts, times = [], []
-            t, dt = self.time, self.dt
-            for _ in range(n):
-                if self.adt_cfg.enabled:
-                    dt = adt.calculate_from_density(
-                        self.adt_cfg, self.plasma_cfgs, self.pc, t, dt,
-                        self.min_uz_mq)
-                if t == self.max_time or self._crosses_max_time(t, dt):
-                    break
-                dts.append(dt)
-                times.append(t)
-                t += dt
-            if len(dts) < n:
-                # max_time inside the window: finish serially
+            dts, times = self._window_ladder(step, n)
+            if dts is None:
                 return self.evolve(write_output, start_step=step)
             if self.verbose >= 1:
                 for d in range(n):
@@ -905,8 +919,64 @@ class Simulation:
                                           for a in win["laser_stream"])
             self.time = times[-1] + dts[-1]
             if self.adt_cfg.enabled and self.beam_cfgs:
-                self._next_dt(win["stages"][-1], numprocs=n)
+                self._next_dt(self._moment_values(win["stages"][-1]),
+                              numprocs=n)
             del win     # its stages' buffers, before the next window's
+            step += n
+        return self
+
+    def evolve_ranks(self, ring, write_output: bool = True):
+        """evolve_pipelined's time loop as one rank of a ring of processes
+        (parallel/ranks.py; the reference's MPI ranks, ref
+        Hipace.cpp:400-401): rank d = ring.rank runs step base + d of each
+        window of n = ring.size steps on its own device, at the same time as
+        the other ranks, with the same windows, dt/time ladder and results
+        as evolve_pipelined over n devices. Every rank builds the window's
+        ladder from the same state; under adaptive dt rank n - 1 broadcasts
+        its beam moments once per window. Rank d writes step base + d's
+        openPMD file; rank 0 gathers every rank's in-situ records and
+        appends them in step order. The serial fallbacks (a density table,
+        fewer than n steps left, hipace.max_time inside a window) run on
+        rank 0 from its state, after every rank has met at a barrier, and
+        the other ranks return. Rank 0 holds the final beam and time."""
+        from ..parallel.ranks import rank_window
+        n, d = ring.size, ring.rank
+        step = 0
+        while step <= self.max_step:
+            dts, times = ((None, None) if n <= 1 or any(
+                p.density_table for p in self.plasma_cfgs)
+                else self._window_ladder(step, n))
+            if dts is None:
+                ring.barrier()
+                return (self.evolve(write_output, start_step=step) if d == 0
+                        else self)
+            if self.verbose >= 1:
+                # one write per line: the ranks share their output
+                print(f"Rank {d} started step {step + d} at time {times[d]}"
+                      f" with dt {dts[d]}\n", end="", flush=True)
+            win = rank_window(self, ring, self.binned, dts, times, step,
+                              self.laser_stream)
+            self.time, self.dt = times[d], dts[d]
+            if write_output:
+                if self._do_output(step + d):
+                    self._write_diagnostics(step + d, win["stage"],
+                                            win["input"])
+                records = ring.gather_objects(
+                    self._insitu_records(step + d, win["stage"]))
+                for recs in records or ():
+                    self._write_records(recs)
+            if d == 0:
+                self.binned = bm.bin_beam(win["beam"], self.geom,
+                                          self.beam_cap)
+                if self.cfg.use_laser:
+                    self.laser_stream = win["laser_stream"]
+            self.time, self.dt = times[-1] + dts[-1], dts[-1]
+            if self.adt_cfg.enabled and self.beam_cfgs:
+                # rank n - 1 reads its step's moments for every rank
+                self._next_dt(ring.broadcast_floats(
+                    self._moment_values(win["stage"]) if d == n - 1
+                    else None, 4, src=n - 1), numprocs=n)
+            del win     # its step's buffers, before the next window's
             step += n
         return self
 
@@ -933,45 +1003,53 @@ class Simulation:
 
     def _write_insitu(self, step, res):
         """Write reduced diagnostics (ref Hipace.cpp:487-490)."""
-        inputs, cfg, g = self.inputs, self.cfg, self.geom
+        self._write_records(self._insitu_records(step, res))
 
-        def writer(kind, name, default_prefix, key):
+    def _write_records(self, records: list) -> None:
+        """Append in-situ records (_insitu_records') to their files, one
+        writer per record kind and name."""
+        for kind, name, key, default_prefix, rec in records:
             wkey = (kind, name)
             if wkey not in self._insitu_writers:
                 self._insitu_writers[wkey] = ins.InsituWriter(
-                    inputs.query(key, default_prefix, str), name)
-            return self._insitu_writers[wkey]
+                    self.inputs.query(key, default_prefix, str), name)
+            self._insitu_writers[wkey].write_record(rec)
 
+    def _insitu_records(self, step, res) -> list:
+        """A step's in-situ records at the simulation's time, where their
+        periods hit: (kind, name, deck key of the file prefix, its default,
+        record) each, in the order they are written."""
+        cfg, g = self.cfg, self.geom
+        out = []
         if "insitu_beam" in res and step % cfg.insitu_beam_period == 0:
             moments = res["insitu_beam"].cpu().numpy()[..., ins.BEAM_ORDER]
             for ib, b in enumerate(self.beam_cfgs):
-                rec = ins.beam_record(step, self.time, moments[:, ib],
-                                      b.charge, b.mass, g,
-                                      self.normalized_units)
-                writer("beam", b.name, "diags/insitu",
-                       f"{b.name}.insitu_file_prefix").write_record(rec)
+                out.append(("beam", b.name, f"{b.name}.insitu_file_prefix",
+                            "diags/insitu", ins.beam_record(
+                                step, self.time, moments[:, ib], b.charge,
+                                b.mass, g, self.normalized_units)))
         if "insitu_field" in res and step % cfg.insitu_field_period == 0:
             moments = res["insitu_field"].cpu().numpy() * (
                 g.dx * g.dy * g.dz)
-            rec = ins.field_record(step, self.time, moments, g,
-                                   self.normalized_units)
-            writer("field", "field", "diags/field_insitu",
-                   "fields.insitu_file_prefix").write_record(rec)
+            out.append(("field", "field", "fields.insitu_file_prefix",
+                        "diags/field_insitu", ins.field_record(
+                            step, self.time, moments, g,
+                            self.normalized_units)))
         if "insitu_laser" in res and step % cfg.insitu_laser_period == 0:
-            rec = ins.laser_record(step, self.time,
-                                   res["insitu_laser"].cpu().numpy(), g,
-                                   self.normalized_units)
-            writer("laser", "laser", "diags/laser_insitu",
-                   "lasers.insitu_file_prefix").write_record(rec)
+            out.append(("laser", "laser", "lasers.insitu_file_prefix",
+                        "diags/laser_insitu", ins.laser_record(
+                            step, self.time,
+                            res["insitu_laser"].cpu().numpy(), g,
+                            self.normalized_units)))
         if "insitu_plasma" in res and step % cfg.insitu_plasma_period == 0:
             moments = res["insitu_plasma"].cpu().numpy()[
                 ..., ins.PLASMA_ORDER]
             for i, p in enumerate(self.plasma_cfgs):
-                rec = ins.plasma_record(step, self.time, moments[:, i],
-                                        p.charge, p.mass, g,
-                                        self.normalized_units)
-                writer("plasma", p.name, "diags/plasma_insitu",
-                       f"{p.name}.insitu_file_prefix").write_record(rec)
+                out.append(("plasma", p.name, f"{p.name}.insitu_file_prefix",
+                            "diags/plasma_insitu", ins.plasma_record(
+                                step, self.time, moments[:, i], p.charge,
+                                p.mass, g, self.normalized_units)))
+        return out
 
     @staticmethod
     def _z_process(arr, dg):

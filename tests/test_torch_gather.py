@@ -117,6 +117,27 @@ def test_gather_drops_the_taps_outside_the_grid(order):
     _assert_close(got, _gather_loop(stack, ym.numpy(), xm.numpy(), order))
 
 
+@pytest.mark.parametrize("order", [0, 2])
+def test_gather_at_repeated_positions(order):
+    """The plain gather keeps the stencils of its last few CPU calls: calls
+    that alternate two sets of positions over three sets of planes, and a
+    call after positions changed in place, each equal the loop over the
+    taps."""
+    NY, NX = 14, 11
+    lanes = [_lanes(150 + order, 300, NY, NX), _lanes(160 + order, 300, NY,
+                                                        NX)]
+    rng = np.random.default_rng(170 + order)
+    for stack in [rng.standard_normal((5, NY, NX)) for _ in range(3)]:
+        for ym, xm in lanes:
+            got = gather_main(_form(stack, "planes"), ym, xm, order)
+            _assert_close(got, _gather_loop(stack, ym.numpy(), xm.numpy(),
+                                            order))
+    ym, xm = lanes[0]
+    ym[3] += 0.37
+    got = gather_main(_form(stack, "stack"), ym, xm, order)
+    _assert_close(got, _gather_loop(stack, ym.numpy(), xm.numpy(), order))
+
+
 @pytest.mark.parametrize("form", FORMS)
 @pytest.mark.parametrize("order", [1, 2, 3])
 def test_gather_forms_match_pallas(form, order):

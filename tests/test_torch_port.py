@@ -40,7 +40,8 @@ def _port_sources():
              os.path.join(ROOT, "tools", "profile_torch_step.py"),
              os.path.join(ROOT, "tools", "time_torch_kernels.py"),
              os.path.join(ROOT, "tools", "laser_f32_drift.py"),
-             os.path.join(ROOT, "tools", "f32_sums_probe.py")]
+             os.path.join(ROOT, "tools", "f32_sums_probe.py"),
+             os.path.join(ROOT, "tools", "pipeline_cards.py")]
     for folder, _, names in os.walk(os.path.join(ROOT, "hipace_tpu_torch")):
         files += [os.path.join(folder, n) for n in names if n.endswith(".py")]
     return sorted(files)
@@ -62,7 +63,9 @@ def test_the_walk_finds_the_port():
             "hipace_tpu_torch/geometry.py", "hipace_tpu_torch/constants.py",
             "hipace_tpu_torch/utils/atomic_data.py",
             "hipace_tpu_torch/ops/mg_kernel.py", "hipace_tpu_torch/bench.py",
-            "hipace_tpu_torch/gpu_check.py"} <= names
+            "hipace_tpu_torch/gpu_check.py",
+            "hipace_tpu_torch/parallel/ranks.py",
+            "tools/pipeline_cards.py"} <= names
 
 
 @pytest.mark.parametrize("path", [os.path.relpath(p, ROOT)
