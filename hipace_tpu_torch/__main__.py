@@ -12,11 +12,13 @@ sets ``hipace.pipeline = 0``. Under ``torchrun`` (``WORLD_SIZE`` set) each
 process it started is a rank of that group.
 ``hipace.profile = <dir>`` runs the time loop under ``torch.profiler`` (CPU
 activity, and CUDA activity on the card) and writes its trace to that
-directory (``<worker>.<ms>.pt.trace.json``).
+directory (``<worker>.<ms>.pt.trace.json``), with the program's spans
+(``tracing.py``) as named ranges.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 import sys
 import time
@@ -37,18 +39,24 @@ def _parse(argv):
     return device, rest
 
 
+@contextlib.contextmanager
 def _profiled(trace_dir: str, device):
     """A torch.profiler context writing its trace to trace_dir (CPU
-    activity, and CUDA activity on the card), or a null context."""
-    import contextlib
+    activity, and CUDA activity on the card), the program's spans in it as
+    named ranges; nothing where trace_dir is empty."""
     if not trace_dir:
-        return contextlib.nullcontext()
+        yield
+        return
     from torch.profiler import (ProfilerActivity, profile,
                                 tensorboard_trace_handler)
+
+    from .tracing import named_ranges
     activities = [ProfilerActivity.CPU] + (
         [ProfilerActivity.CUDA] if device.type == "cuda" else [])
-    return profile(activities=activities,
-                   on_trace_ready=tensorboard_trace_handler(trace_dir))
+    with profile(activities=activities,
+                 on_trace_ready=tensorboard_trace_handler(trace_dir)), \
+            named_ranges():
+        yield
 
 
 def report(sim, wall: float, n_ranks: int) -> None:
@@ -111,8 +119,9 @@ def _serial(inputs, device) -> int:
 
     from .pipeline.simulation import Simulation
 
-    # hipace.profile = <trace dir>: a profiler trace of the run (the
-    # reference's TinyProfiler regions), viewable in Perfetto or TensorBoard
+    # hipace.profile = <trace dir>: a profiler trace of the run, the
+    # program's spans as its named ranges (the place of the reference's
+    # TinyProfiler regions), viewable in Perfetto or TensorBoard
     trace_dir = inputs.query("hipace.profile", "", str)
     t0 = time.perf_counter()
     sim = Simulation(inputs, device=device)

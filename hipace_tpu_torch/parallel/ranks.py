@@ -54,6 +54,7 @@ import torch
 import torch.distributed as dist
 
 from ..particles import beam as bm
+from ..tracing import OFF, span, traced
 from . import pipeline as pp
 
 # a message or collective that waits longer than this raises on its rank
@@ -211,6 +212,7 @@ class Ring:
             work.wait()
         return got
 
+    @traced("ring exchange")
     def exchange(self, out, recv: bool, geom, layout: list, laser=None):
         """One message round the ring. out: None, or (block, laser rows or
         None), the lanes this rank emitted (a dict keyed as `layout`) and
@@ -237,12 +239,17 @@ class Ring:
             head = torch.cat(parts)
             if block["x"].numel():
                 body = _pack(block, layout)
-        got = self._swap(head, head_bytes + 2 * row_bytes if recv else None)
-        counts = (got[2 * row_bytes:].view(torch.int64).tolist() if recv
-                  else [])
+        with span("ring wait"):
+            got = self._swap(head, head_bytes + 2 * row_bytes if recv
+                             else None)
+        # over NCCL the header is on the card
+        with span("read: ring counts") if recv else OFF:
+            counts = (got[2 * row_bytes:].view(torch.int64).tolist()
+                      if recv else [])
         m = sum(counts)
         lane_bytes = sum(dtype.itemsize for _, dtype in layout)
-        got_body = self._swap(body, m * lane_bytes if m else None)
+        with span("ring wait"):
+            got_body = self._swap(body, m * lane_bytes if m else None)
         if not recv:
             return None
         block = (_unpack(got_body.to(self.device, non_blocking=True),
@@ -288,6 +295,13 @@ def rank_window(sim, ring: Ring, binned: dict, dts, times, base_step: int,
     receive rows as flat lanes elsewhere)}, on rank 0 also "beam", the
     lanes after the window (rank n - 1's, flat), and with a laser
     "laser_stream", the stream after the window (rank n - 1's rows)."""
+    with span("time step", step=base_step + ring.rank, device=ring.device):
+        return _rank_window(sim, ring, binned, dts, times, base_step,
+                            laser_stream)
+
+
+def _rank_window(sim, ring: Ring, binned: dict, dts, times, base_step: int,
+                 laser_stream=None) -> dict:
     n, d, dev = ring.size, ring.rank, ring.device
     g, cfg = sim.geom, sim.cfg
     nz = g.nz

@@ -38,6 +38,7 @@ from ..fields.mr import in_level_bounds
 from ..geometry import Geometry
 from ..ops.deposit import deposit
 from ..parser import Inputs, TorchFunction
+from ..tracing import span
 from .plasma import (cell_positions, deposit_invvol, enforce_particle_bc,
                      field_planes, gather_fields)
 
@@ -487,8 +488,10 @@ def slice_index(z, geom: Geometry):
 
 def plan_capacity(beam: dict, geom: Geometry) -> int:
     """Per-slice capacity: 1.25 x the fullest slice + 16."""
-    isl = slice_index(beam["z"], geom).cpu().numpy()
-    isl = isl[beam["valid"].cpu().numpy() & (isl >= 0) & (isl < geom.nz)]
+    with span("read: plan capacity"):
+        isl = slice_index(beam["z"], geom).cpu().numpy()
+        valid = beam["valid"].cpu().numpy()
+    isl = isl[valid & (isl >= 0) & (isl < geom.nz)]
     if isl.size == 0:
         return 1
     return int(np.bincount(isl, minlength=geom.nz).max() * 1.25) + 16
@@ -519,7 +522,10 @@ def bin_beam(beam: dict, geom: Geometry, cap: int) -> dict:
     vflat = torch.zeros(nz * cap + 1, dtype=torch.bool, device=isl.device)
     vflat[dst] = ok[order] & keep
     out["valid"] = vflat[:-1].reshape(nz, cap)
-    out["n_dropped"] = int(ok.sum()) - int(out["valid"].sum())
+    with span("read: re-bin counts"):
+        n_ok = int(ok.sum())
+    with span("read: re-bin counts"):
+        out["n_dropped"] = n_ok - int(out["valid"].sum())
     return out
 
 

@@ -63,6 +63,7 @@ from ..ops.deposit import deposit
 from ..ops.gather import PLANE_NAMES, gather_laser_aabs, gather_main
 from ..ops.shape import DW_KIND, W_KIND
 from ..parser import Inputs, TorchFunction, deck_function
+from ..tracing import span
 from .. import constants as cst
 from ..utils.atomic_data import ATOMIC_WEIGHTS_DA, IONIZATION_ENERGIES_EV
 
@@ -725,8 +726,9 @@ def deposit_plasma(p: dict, stack_comps, fields: dict, geom: Geometry,
         q_mu0_m = q_mu0_m * ion
         lnorm = lnorm * ion * ion
     if use_laser:
-        a2 = gather_laser_aabs(p["x"], p["y"], fields["aabs"], geom,
-                               order)[0] * lnorm
+        with span("laser: |a|^2 gather"):
+            a2 = gather_laser_aabs(p["x"], p["y"], fields["aabs"], geom,
+                                   order)[0] * lnorm
         gamma_psi = 0.5 * ((1.0 + 0.5 * a2) * psi_inv * psi_inv
                            + vx_c * vx_c * clight_inv ** 2
                            + vy_c * vy_c * clight_inv ** 2 + 1.0)
@@ -795,8 +797,9 @@ def fused_plasma_deposits(p: dict, stack_comps, fields: dict, geom: Geometry,
         q_m = q_m * ion
         lnorm = lnorm * ion * ion
     if use_laser:
-        a2 = gather_laser_aabs(p["x"], p["y"], fields["aabs"], geom,
-                               order)[0] * lnorm
+        with span("laser: |a|^2 gather"):
+            a2 = gather_laser_aabs(p["x"], p["y"], fields["aabs"], geom,
+                                   order)[0] * lnorm
         gamma_psi = 0.5 * ((1.0 + 0.5 * a2) * psi_inv * psi_inv
                            + vx * vx + vy * vy + 1.0)
     else:

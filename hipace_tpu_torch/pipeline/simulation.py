@@ -59,6 +59,7 @@ from ..geometry import Geometry
 from ..parser import Inputs, deck_function
 from ..particles import beam as bm
 from ..particles import plasma as pl
+from ..tracing import span, traced
 from ..utils import adaptive_dt as adt
 from .salame import empty_salame_state
 from .step import (DIAG_COMPS, THIS_COMPS_PC, DiagConfig, SimConfig,
@@ -78,11 +79,13 @@ def _read_counts(*groups) -> None:
             else:
                 slots.append((grp, k))
     vals = [c[k] for c, k in slots]
-    dev = next((v.device for v in vals if torch.is_tensor(v)), None)
-    if dev is None:
-        return
-    read = torch.stack([torch.as_tensor(v, device=dev).reshape(())
-                        .to(torch.int64) for v in vals]).tolist()
+    # the site's span also where the counts are ints already (the CPU)
+    with span("read: step counts"):
+        dev = next((v.device for v in vals if torch.is_tensor(v)), None)
+        if dev is None:
+            return
+        read = torch.stack([torch.as_tensor(v, device=dev).reshape(())
+                            .to(torch.int64) for v in vals]).tolist()
     for (c, k), v in zip(slots, read):
         c[k] = v
 
@@ -528,6 +531,7 @@ class Simulation:
         return [pl.plasma_draws(pcfg, self.geom, self.generator, self.device,
                                 self.dtype) for pcfg in self.plasma_cfgs]
 
+    @traced("plasma init")
     def step_state(self, time: float, dt: float, step: int, slice_step,
                    device, binned: dict | None = None, draws=None) -> dict:
         """A time step's state before its sweep, on `device` through
@@ -591,7 +595,8 @@ class Simulation:
             is_sal = torch.zeros(nz, dtype=torch.bool, device=device)
             if step == 0:
                 is_sal = bm.salame_lanes(binned, self.beam_cfgs).any(dim=1)
-                carry["salame_slices"] = is_sal.tolist()
+                with span("read: SALAME slices"):
+                    carry["salame_slices"] = is_sal.tolist()
             else:
                 carry["salame_slices"] = [False] * nz
             st["is_sal"] = is_sal
@@ -638,22 +643,26 @@ class Simulation:
         (the slice's) and nxt (the next slice's), with a laser its (n00,
         nm1) rows of the stream: the slice step, its outputs into the
         state's buffers. Returns the lanes it emitted."""
-        carry, out = st["slice_step"](st["carry"], islice, this, nxt,
-                                      laser_rows)
-        st["carry"] = carry
-        for k, buf in st["bufs"].items():
-            if k in out:
-                buf[islice] = out[k]
-        for k, v in out.items():
-            if k == "salame_cycles" or k.startswith("mg_cycles_lev"):
-                st["extra_cycles"].setdefault(k, {})[islice] = v
-        st["cycles"].append(out["mg_cycles"])
-        st["pc_iters"].append(out["pc_iters"])
-        st["pc_err"].append(out["pc_err"])
-        if self.cfg.use_laser:
-            st["laser_out"][0][islice] = out["laser_np1"]
-            st["laser_out"][1][islice] = out["laser_n00"]
-            st["laser_cycles"].append(out["laser_cycles"])
+        slice_step = st["slice_step"]
+        with span("slice step", step=st["carry"]["step"], slice=islice,
+                  device=slice_step.device):
+            carry, out = slice_step(st["carry"], islice, this, nxt,
+                                    laser_rows)
+            st["carry"] = carry
+            with span("diagnostics"):
+                for k, buf in st["bufs"].items():
+                    if k in out:
+                        buf[islice] = out[k]
+            for k, v in out.items():
+                if k == "salame_cycles" or k.startswith("mg_cycles_lev"):
+                    st["extra_cycles"].setdefault(k, {})[islice] = v
+            st["cycles"].append(out["mg_cycles"])
+            st["pc_iters"].append(out["pc_iters"])
+            st["pc_err"].append(out["pc_err"])
+            if self.cfg.use_laser:
+                st["laser_out"][0][islice] = out["laser_np1"]
+                st["laser_out"][1][islice] = out["laser_n00"]
+                st["laser_cycles"].append(out["laser_cycles"])
         return out["beam_out"]
 
     @staticmethod
@@ -708,28 +717,31 @@ class Simulation:
         slice); with mesh refinement mg_cycles_lev<N> (per slice the level
         runs, explicit solver)."""
         g, nz = self.geom, self.geom.nz
-        st = self.step_state(time, dt, step, self.slice_step, self.device,
-                             binned)
-        if self.cfg.use_laser and laser_stream is None:
-            zc = torch.zeros_like(st["laser_out"][0])
-            laser_stream = (zc, zc)
-        beam = {k: binned[k] for k in bm.ALL_ATTRS}
-        empty_next = {k: torch.zeros_like(v[0]) for k, v in beam.items()}
-        emitted = [None] * nz
-        for islice in range(nz - 1, -1, -1):
-            this = {k: v[islice] for k, v in beam.items()}
-            nxt = ({k: v[islice - 1] for k, v in beam.items()} if islice
-                   else empty_next)
-            rows = ((laser_stream[0][islice], laser_stream[1][islice])
-                    if self.cfg.use_laser else None)
-            emitted[islice] = self.sweep_slice(st, islice, this, nxt, rows)
-        self.read_step_counts(st)
-        res = self.step_result(st)
-        # merge emitted beam + final slip, re-bin by new z
-        flat = {k: torch.cat([e[k] for e in emitted]
-                             + [st["carry"]["slip"][k]])
-                for k in bm.ALL_ATTRS}
-        res["binned"] = bm.bin_beam(flat, g, self.beam_cap)
+        with span("time step", step=step, device=self.device):
+            st = self.step_state(time, dt, step, self.slice_step,
+                                 self.device, binned)
+            if self.cfg.use_laser and laser_stream is None:
+                zc = torch.zeros_like(st["laser_out"][0])
+                laser_stream = (zc, zc)
+            beam = {k: binned[k] for k in bm.ALL_ATTRS}
+            empty_next = {k: torch.zeros_like(v[0]) for k, v in beam.items()}
+            emitted = [None] * nz
+            for islice in range(nz - 1, -1, -1):
+                this = {k: v[islice] for k, v in beam.items()}
+                nxt = ({k: v[islice - 1] for k, v in beam.items()} if islice
+                       else empty_next)
+                rows = ((laser_stream[0][islice], laser_stream[1][islice])
+                        if self.cfg.use_laser else None)
+                emitted[islice] = self.sweep_slice(st, islice, this, nxt,
+                                                   rows)
+            self.read_step_counts(st)
+            res = self.step_result(st)
+            # merge emitted beam + final slip, re-bin by new z
+            with span("re-bin"):
+                flat = {k: torch.cat([e[k] for e in emitted]
+                                     + [st["carry"]["slip"][k]])
+                        for k in bm.ALL_ATTRS}
+                res["binned"] = bm.bin_beam(flat, g, self.beam_cap)
         return res
 
     def run_step(self, step: int) -> dict:
@@ -776,8 +788,9 @@ class Simulation:
         """A step's beam moments for the next dt: sum_w, sum_w_uz,
         sum_w_uz2 and min_uz, one read of four device scalars."""
         mom = res["beam_moments"]
-        return torch.stack([mom["sum_w"], mom["sum_w_uz"],
-                            mom["sum_w_uz2"], res["min_uz"]]).tolist()
+        with span("read: beam moments"):
+            return torch.stack([mom["sum_w"], mom["sum_w_uz"],
+                                mom["sum_w_uz2"], res["min_uz"]]).tolist()
 
     def _next_dt(self, vals: list, numprocs: int = 1) -> None:
         """The next dt from a step's beam moments (_moment_values), predicted
@@ -798,7 +811,8 @@ class Simulation:
         pre_push_binned = self.binned
         res = self.run_step(step)
         if write_output:
-            self.write_output(step, res, pre_push_binned)
+            with span("output", step=step):
+                self.write_output(step, res, pre_push_binned)
         self.binned = res["binned"]
         self.time += self.dt
         if (self.adt_cfg.enabled and self.beam_cfgs

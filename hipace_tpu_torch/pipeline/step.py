@@ -85,6 +85,7 @@ from ..geometry import Geometry
 from ..particles import beam as bm
 from ..particles import collisions as coll
 from ..particles import plasma as pl
+from ..tracing import OFF, span
 from .salame import salame_slice
 
 
@@ -842,184 +843,313 @@ class SliceStep:
         charges = self.beam_consts["charges"]
         mr = cfg.mr_levels
 
-        # ---- InitializeSlices (ref Fields.cpp:536-586)
-        this = dict(f["This"])
-        for c in cfg.zero_comps():
-            this[c] = torch.zeros_like(this[c])
-        if cfg.explicit:
-            f = dict(f, Next={c: torch.zeros_like(v)
-                              for c, v in f["Next"].items()})
-        # ---- mesh refinement: the fine levels' InitializeSlices and the
-        # plasma lanes' levels (TagByLevel gated by the levels' z activity)
-        if mr:
-            act = [lv.active(islice) for lv in mr]
-            run = act if self.mr_skip else [True] * len(mr)
-            fine = self._init_fine(f, this, islice, run)
-            tags = ([tag_by_level(p["x"], p["y"], p["valid"],
-                                  [lv.geom if a else None
-                                   for lv, a in zip(mr, act)])
-                     for p in carry["plasma"]] if any(act) else None)
-        else:
-            act, fine, tags = [], [], None
-        levels = [i for i, fl in enumerate(fine) if fl is not None]
-
-        # ---- the laser: this slice's envelope state and |a|^2 (ref
-        # Hipace.cpp:603 UpdateLaserAabs)
-        if cfg.use_laser:
-            lg = self.laser_geom
-            lz_lo, lz_hi = self.laser_zeta
-            has_laser = lz_lo <= islice <= lz_hi
-            n00_row, nm1_row = laser_rows
-            if carry["step"] == 0 and not cfg.laser.from_file:
-                n00j00 = envelope_slice(
-                    cfg.laser, lg, g.z_pos_offset + islice * g.dz,
-                    self.dtype, self.device)
-            else:
-                n00j00 = n00_row
-            if not has_laser:
-                n00j00 = torch.zeros_like(n00j00)
-            lstate = dict(carry["laser"], n00j00=n00j00, nm1j00=nm1_row)
-            aabs_l = torch.abs(n00j00) ** 2
-            this["aabs"] = (self.l2f.apply(aabs_l)
-                            if self.separate_laser_grid else aabs_l)
-
-        # ---- plasma deposits on This (K1): explicit, the currents and the
-        # Sx/Sy channels; predictor-corrector, the currents
-        plasmas, dgrids_list = [], []
-        for p, pcfg in zip(carry["plasma"], cfg.plasmas):
+        with span("slice init"):
+            # ---- InitializeSlices (ref Fields.cpp:536-586)
+            this = dict(f["This"])
+            for c in cfg.zero_comps():
+                this[c] = torch.zeros_like(this[c])
             if cfg.explicit:
-                this, p, dg = pl.fused_plasma_deposits(
-                    p, self._plasma_comps(pcfg), this, g, pcfg, pc, order,
-                    cfg.normalized_units,
-                    deriv_type=cfg.depos_derivative_type,
-                    use_laser=cfg.use_laser)
-                dgrids_list.append(dg)
+                f = dict(f, Next={c: torch.zeros_like(v)
+                                  for c, v in f["Next"].items()})
+            # ---- mesh refinement: the fine levels' InitializeSlices and
+            # the plasma lanes' levels (TagByLevel gated by the levels' z
+            # activity)
+            if mr:
+                with span("MR: level init"):
+                    act = [lv.active(islice) for lv in mr]
+                    run = act if self.mr_skip else [True] * len(mr)
+                    fine = self._init_fine(f, this, islice, run)
+                    tags = ([tag_by_level(p["x"], p["y"], p["valid"],
+                                          [lv.geom if a else None
+                                           for lv, a in zip(mr, act)])
+                             for p in carry["plasma"]] if any(act) else None)
             else:
-                this, p = pl.deposit_plasma(
-                    p, self._plasma_comps(pcfg), this, g, pcfg, pc, order,
-                    cfg.normalized_units, use_laser=cfg.use_laser)
-            plasmas.append(p)
+                act, fine, tags = [], [], None
+            levels = [i for i, fl in enumerate(fine) if fl is not None]
 
-        # ---- beam deposit on This (K1)
-        if cfg.beams:
-            this = bm.deposit_beam_slice(beam_this, cfg.beam_this_map(), this,
-                                         g, cfg.beams, pc, order,
-                                         cfg.normalized_units, charges)
-        # ---- the fine levels' deposits (K1; a level deposits the plasma
-        # lanes tagged at or above it, ref PlasmaDepositCurrent.cpp:130,
-        # and the beam lanes inside it) and AddRhoIons
-        fine_dgrids = {}
-        for i in levels:
-            fth, fg = fine[i]["This"], mr[i].geom
+            # ---- the laser: this slice's envelope state and |a|^2 (ref
+            # Hipace.cpp:603 UpdateLaserAabs)
             if cfg.use_laser:
-                # ref MultiLaser.cpp:289-291: |a|^2 from the parent level
-                parent = this if i == 0 else fine[i - 1]["This"]
-                fth["aabs"] = self.couplers[i].up_full(parent["aabs"])
-            fine_dgrids[i] = []
-            for ip, (p, pcfg) in enumerate(zip(plasmas, cfg.plasmas)):
-                if tags is None:
-                    break
-                kw = dict(extra_mask=tags[ip] >= i + 1, geom0=g,
-                          use_laser=cfg.use_laser)
-                if cfg.explicit:
-                    fth, _, dg = pl.fused_plasma_deposits(
-                        p, self._plasma_comps(pcfg), fth, fg, pcfg, pc,
-                        order, cfg.normalized_units,
-                        deriv_type=cfg.depos_derivative_type, **kw)
-                    fine_dgrids[i].append(dg)
+                lg = self.laser_geom
+                lz_lo, lz_hi = self.laser_zeta
+                has_laser = lz_lo <= islice <= lz_hi
+                n00_row, nm1_row = laser_rows
+                if carry["step"] == 0 and not cfg.laser.from_file:
+                    n00j00 = envelope_slice(
+                        cfg.laser, lg, g.z_pos_offset + islice * g.dz,
+                        self.dtype, self.device)
                 else:
-                    fth, _ = pl.deposit_plasma(
-                        p, self._plasma_comps(pcfg), fth, fg, pcfg, pc, order,
-                        cfg.normalized_units, **kw)
-            if cfg.beams and act[i]:
-                fth = bm.deposit_beam_slice(
-                    beam_this, cfg.beam_this_map(), fth, fg, cfg.beams, pc,
-                    order, cfg.normalized_units, charges,
-                    extra_mask=in_level_bounds(beam_this["x"],
-                                               beam_this["y"], fg),
-                    geom0=g)
-            fine[i]["This"] = self._add_rho_ions(fth, fine[i])
-        # ---- AddRhoIons (ref Fields.cpp:606-615)
-        this = self._add_rho_ions(this, f)
-        # ---- the analytic grid current into the beam's jz (ref
-        # GridCurrent.cpp:26-71), at z = lo + islice * dz
-        if self.grid_current is not None:
-            _, mean, std = cfg.grid_current
-            dz_n = (g.prob_lo[2] + islice * g.dz - mean[2]) / std[2]
-            tgt = "jz_beam" if cfg.explicit else "jz"
-            this[tgt] = this[tgt] + self.grid_current * math.exp(
-                -0.5 * dz_n * dz_n)
+                    n00j00 = n00_row
+                if not has_laser:
+                    n00j00 = torch.zeros_like(n00j00)
+                lstate = dict(carry["laser"], n00j00=n00j00, nm1j00=nm1_row)
+                aabs_l = torch.abs(n00j00) ** 2
+                this["aabs"] = (self.l2f.apply(aabs_l)
+                                if self.separate_laser_grid else aabs_l)
 
-        # ---- Psi/ExmBy/EypBx/Ez/Bz, then each fine level's
-        this = solve_psi_ez_bz(this, cfg, self.solver, self.ob)
-        f = dict(f, This=this)
-        for i in levels:
-            fine[i]["This"] = solve_fine_psi_ez_bz(
-                fine[i]["This"], this if i == 0 else fine[i - 1]["This"], cfg,
-                mr[i].geom, self.couplers[i], self.fine_solvers[i])
+        with span("deposit"):
+            # ---- plasma deposits on This (K1): explicit, the currents and
+            # the Sx/Sy channels; predictor-corrector, the currents
+            plasmas, dgrids_list = [], []
+            for p, pcfg in zip(carry["plasma"], cfg.plasmas):
+                if cfg.explicit:
+                    this, p, dg = pl.fused_plasma_deposits(
+                        p, self._plasma_comps(pcfg), this, g, pcfg, pc,
+                        order, cfg.normalized_units,
+                        deriv_type=cfg.depos_derivative_type,
+                        use_laser=cfg.use_laser)
+                    dgrids_list.append(dg)
+                else:
+                    this, p = pl.deposit_plasma(
+                        p, self._plasma_comps(pcfg), this, g, pcfg, pc,
+                        order, cfg.normalized_units, use_laser=cfg.use_laser)
+                plasmas.append(p)
 
-        # ---- the envelope advance (ref Hipace.cpp:637 AdvanceSlice) on
-        # chi: the plasma's inside the trusted region, the density
-        # profile's elsewhere (ref MultiLaser.cpp:335-405 InterpolateChi)
-        laser_cycles = 0
-        if cfg.use_laser:
-            chi_src = (self.f2l.apply(this["chi"])
-                       if self.separate_laser_grid else this["chi"])
-            chi_laser = torch.where(self.laser_trust, chi_src,
-                                    carry["chi_initial"])
-            np1j00 = self.laser_advance(lstate, chi_laser, dt, carry["step"])
-            if not has_laser:
-                np1j00 = torch.zeros_like(np1j00)
-            if self.laser_advance.mg is not None:
-                laser_cycles = self.laser_advance.mg.cycles
+            # ---- beam deposit on This (K1)
+            if cfg.beams:
+                this = bm.deposit_beam_slice(beam_this, cfg.beam_this_map(),
+                                             this, g, cfg.beams, pc, order,
+                                             cfg.normalized_units, charges)
+            # ---- the fine levels' deposits (K1; a level deposits the
+            # plasma lanes tagged at or above it, ref
+            # PlasmaDepositCurrent.cpp:130, and the beam lanes inside it)
+            # and AddRhoIons
+            fine_dgrids = {}
+            with span("MR: level deposits") if levels else OFF:
+                for i in levels:
+                    fine_dgrids[i] = self._fine_deposits(
+                        i, fine, this, plasmas, tags, act, beam_this)
+            # ---- AddRhoIons (ref Fields.cpp:606-615)
+            this = self._add_rho_ions(this, f)
+            # ---- the analytic grid current into the beam's jz (ref
+            # GridCurrent.cpp:26-71), at z = lo + islice * dz
+            if self.grid_current is not None:
+                _, mean, std = cfg.grid_current
+                dz_n = (g.prob_lo[2] + islice * g.dz - mean[2]) / std[2]
+                tgt = "jz_beam" if cfg.explicit else "jz"
+                this[tgt] = this[tgt] + self.grid_current * math.exp(
+                    -0.5 * dz_n * dz_n)
+
+        with span("field solve"):
+            # ---- Psi/ExmBy/EypBx/Ez/Bz, then each fine level's
+            this = solve_psi_ez_bz(this, cfg, self.solver, self.ob)
+            f = dict(f, This=this)
+            with span("MR: level Psi/Ez/Bz") if levels else OFF:
+                for i in levels:
+                    fine[i]["This"] = solve_fine_psi_ez_bz(
+                        fine[i]["This"],
+                        this if i == 0 else fine[i - 1]["This"], cfg,
+                        mr[i].geom, self.couplers[i], self.fine_solvers[i])
+
+            # ---- the envelope advance (ref Hipace.cpp:637 AdvanceSlice)
+            # on chi: the plasma's inside the trusted region, the density
+            # profile's elsewhere (ref MultiLaser.cpp:335-405
+            # InterpolateChi)
+            laser_cycles = 0
+            if cfg.use_laser:
+                with span("laser: envelope advance"):
+                    chi_src = (self.f2l.apply(this["chi"])
+                               if self.separate_laser_grid else this["chi"])
+                    chi_laser = torch.where(self.laser_trust, chi_src,
+                                            carry["chi_initial"])
+                    np1j00 = self.laser_advance(lstate, chi_laser, dt,
+                                                carry["step"])
+                    if not has_laser:
+                        np1j00 = torch.zeros_like(np1j00)
+                    if self.laser_advance.mg is not None:
+                        laser_cycles = self.laser_advance.mg.cycles
 
         out = {}
         if cfg.explicit:
             # ---- beam Next jx/jy deposit (K1), Sx/Sy, Bx/By (K3)
             if cfg.do_beam_jx_jy_deposition and cfg.beams:
-                f["Next"] = bm.deposit_beam_slice(
-                    beam_next, {"jx": "jx_beam", "jy": "jy_beam"}, f["Next"],
-                    g, cfg.beams, pc, order, cfg.normalized_units, charges)
-            f = init_sx_sy_with_beam(f, cfg)
-            this = f["This"]
-            for dg in dgrids_list:
-                this = pl.combine_explicit_sxsy(this, dg, pc, g)
-            this = explicit_bxby_solve(this, cfg, self.mg)
-            cycles = self.mg.cycles
-            pc_err, pc_iters = 0.0, 0
-            # ---- SALAME (ref Hipace.cpp:673-678), on level 0, before the
-            # fine levels' Bx/By so that they take the final weights
-            is_sal = False
-            if cfg.salame_active:
-                is_sal = carry["salame_slices"][islice]
-                sal = carry["salame"]
-                if is_sal:
-                    this, beam_this, sal, out["salame_cycles"] = salame_slice(
-                        cfg, this, f["Next"], f["Previous"], plasmas,
-                        dgrids_list, beam_this, sal, islice, self.solver,
-                        self.mg, self.salame_target, charges)
-                else:
-                    sal = dict(sal, prev_was_salame=torch.zeros_like(
-                        sal["prev_was_salame"]))
-                carry = dict(carry, salame=sal)
-                out.update(salame_W=sal["W_last"], salame_dbg=sal["dbg"])
-            f = dict(f, This=this)
-            for i in levels:
-                fine[i] = self._fine_explicit_bxby(
-                    i, fine[i], this if i == 0 else fine[i - 1]["This"],
-                    fine_dgrids[i], beam_this, beam_next, act[i], is_sal)
-                out[f"mg_cycles_lev{i + 1}"] = self.fine_mgs[i].cycles
+                with span("deposit"):
+                    f["Next"] = bm.deposit_beam_slice(
+                        beam_next, {"jx": "jx_beam", "jy": "jy_beam"},
+                        f["Next"], g, cfg.beams, pc, order,
+                        cfg.normalized_units, charges)
+            with span("field solve"):
+                f = init_sx_sy_with_beam(f, cfg)
+                this = f["This"]
+                for dg in dgrids_list:
+                    this = pl.combine_explicit_sxsy(this, dg, pc, g)
+                this = explicit_bxby_solve(this, cfg, self.mg)
+                cycles = self.mg.cycles
+                pc_err, pc_iters = 0.0, 0
+                # ---- SALAME (ref Hipace.cpp:673-678), on level 0, before
+                # the fine levels' Bx/By so that they take the final
+                # weights
+                is_sal = False
+                if cfg.salame_active:
+                    is_sal = carry["salame_slices"][islice]
+                    sal = carry["salame"]
+                    if is_sal:
+                        with span("SALAME"):
+                            (this, beam_this, sal,
+                             out["salame_cycles"]) = salame_slice(
+                                cfg, this, f["Next"], f["Previous"], plasmas,
+                                dgrids_list, beam_this, sal, islice,
+                                self.solver, self.mg, self.salame_target,
+                                charges)
+                    else:
+                        sal = dict(sal, prev_was_salame=torch.zeros_like(
+                            sal["prev_was_salame"]))
+                    carry = dict(carry, salame=sal)
+                    out.update(salame_W=sal["W_last"], salame_dbg=sal["dbg"])
+                f = dict(f, This=this)
+                with span("MR: level Bx/By") if levels else OFF:
+                    for i in levels:
+                        fine[i] = self._fine_explicit_bxby(
+                            i, fine[i],
+                            this if i == 0 else fine[i - 1]["This"],
+                            fine_dgrids[i], beam_this, beam_next, act[i],
+                            is_sal)
+                        out[f"mg_cycles_lev{i + 1}"] = self.fine_mgs[i].cycles
         else:
             cycles = 0
             # ---- the predictor-corrector loop (K2, K1, the solver), the
             # fine levels in it
-            f, pc_err, pc_iters = pc_bxby_solve(
-                f, plasmas, beam_next, cfg, self.solver, self.ob, charges,
-                mr=(fine, act, self.couplers, self.fine_solvers, tags)
-                if levels else None)
+            with span("field solve"):
+                f, pc_err, pc_iters = pc_bxby_solve(
+                    f, plasmas, beam_next, cfg, self.solver, self.ob,
+                    charges, mr=(fine, act, self.couplers, self.fine_solvers,
+                                 tags) if levels else None)
             this = f["This"]
 
-        # ---- per-slice diagnostics (ref Diagnostic.cpp, Fields::Copy)
+        with span("diagnostics"):
+            carry = self._diagnostics(carry, out, this, fine,
+                                      n00j00 if cfg.use_laser else None,
+                                      plasmas)
+
+        # ---- field ionization (ref Hipace.cpp:693-696), K2 for the field
+        if cfg.ionization_pairs:
+            with span("ionization module"):
+                for ip, ie, spawn_base, prod_lev in cfg.ionization_pairs:
+                    plasmas[ip], plasmas[ie] = pl.ionization_module(
+                        plasmas[ip], plasmas[ie], this, g, cfg.plasmas[ip],
+                        pc, order, cfg.normalized_units,
+                        cfg.background_density_SI, spawn_base, prod_lev,
+                        self.draws("ionization", plasmas[ip]["x"].numel()))
+
+        # ---- push plasma (K2), a tagged lane on its level's fields
+        fine_push = tuple((fine[i]["This"], mr[i].geom) if act[i] else None
+                          for i in range(len(fine)))
+        with span("plasma push"):
+            plasmas = [pl.advance_plasma(p, this, g, pcfg, pc, order=order,
+                                         pusher=cfg.plasma_pusher,
+                                         use_laser=cfg.use_laser,
+                                         fine_levels=fine_push if tags
+                                         else (),
+                                         tag=tags[ip] if tags else None)
+                       for ip, (p, pcfg) in enumerate(zip(plasmas,
+                                                          cfg.plasmas))]
+
+        with span("beam push"):
+            # ---- push beam: slipped carry first, then this slice (K2)
+            slip = carry["slip"]
+            combined = {k: torch.cat([slip[k], beam_this[k]])
+                        for k in bm.ALL_ATTRS}
+            if cfg.insitu_beam_period and cfg.beams:
+                # each beam's moments before the push (ref Hipace.cpp:681)
+                with span("diagnostics"):
+                    out["insitu_beam"] = ins.beams_slice_raw(
+                        combined, len(cfg.beams), pc, cfg.insitu_radius)
+            if cfg.beams:
+                combined = bm.advance_all_beams(
+                    combined, this, g, cfg.beams, pc, dt, min_z, order=order,
+                    time=carry["time"],
+                    background_density_SI=cfg.background_density_SI,
+                    external=self.beam_consts["external"],
+                    fine_levels=tuple(lv for lv in fine_push
+                                      if lv is not None))
+                # particles that stopped mid-subcycles slip to the next
+                # slice; every boolean index waits for the device, so each
+                # set is indexed by one index tensor
+                incomplete = combined["valid"] & (combined["nsub"] > 0)
+                with span("read: beam compaction"):
+                    slip_idx = incomplete.nonzero().squeeze(1)
+                with span("read: beam compaction"):
+                    emit_idx = (~incomplete
+                                & combined["valid"]).nonzero().squeeze(1)
+                slip = {k: v[slip_idx] for k, v in combined.items()}
+                emit = {k: v[emit_idx] for k, v in combined.items()}
+            else:
+                # no beam: the binned lanes are all dead, nothing is emitted
+                # (and nothing read back)
+                emit = {k: v[:0] for k, v in combined.items()}
+
+        # ---- Coulomb collisions (ref Hipace.cpp:712)
+        if cfg.collisions:
+            with span("collisions"):
+                plasmas, emit = self.collide(plasmas, emit, dt)
+        if cfg.beams and cfg.adaptive_dt:
+            carry = dict(carry, **beam_uz_moments(emit, carry, pc.c))
+
+        with span("shift"):
+            # ---- ShiftSlices (ref Fields.cpp:588-604), on every running
+            # level
+            f = self._shift(f, this)
+            for i in levels:
+                f[f"mr{i + 1}"] = self._shift(fine[i], fine[i]["This"])
+            carry = dict(carry, fields=f, plasma=plasmas, slip=slip)
+            out.update(beam_out=emit,
+                       mg_cycles=cycles,
+                       pc_iters=pc_iters, pc_err=pc_err)
+            if cfg.use_laser:
+                # ShiftLaserSlices (ref MultiLaser.cpp:181-212)
+                carry["laser"] = shift_laser_slices(lstate, np1j00)
+                out.update(laser_np1=np1j00, laser_n00=lstate["n00j00"],
+                           laser_cycles=laser_cycles)
+        return carry, out
+
+    def _fine_deposits(self, i: int, fine: list, this: dict, plasmas: list,
+                       tags, act: list, beam_this: dict) -> list:
+        """The deposits of fine level i+1 on its This (K1): the plasma lanes
+        tagged at or above it (ref PlasmaDepositCurrent.cpp:130), the beam
+        lanes inside it, then AddRhoIons; written into fine[i]. Returns the
+        explicit solver's Sx/Sy grids of each species."""
+        cfg = self.cfg
+        g, pc, order = cfg.geom, cfg.pc, cfg.depos_order_xy
+        fth, fg = fine[i]["This"], cfg.mr_levels[i].geom
+        if cfg.use_laser:
+            # ref MultiLaser.cpp:289-291: |a|^2 from the parent level
+            parent = this if i == 0 else fine[i - 1]["This"]
+            fth["aabs"] = self.couplers[i].up_full(parent["aabs"])
+        dgrids = []
+        for ip, (p, pcfg) in enumerate(zip(plasmas, cfg.plasmas)):
+            if tags is None:
+                break
+            kw = dict(extra_mask=tags[ip] >= i + 1, geom0=g,
+                      use_laser=cfg.use_laser)
+            if cfg.explicit:
+                fth, _, dg = pl.fused_plasma_deposits(
+                    p, self._plasma_comps(pcfg), fth, fg, pcfg, pc,
+                    order, cfg.normalized_units,
+                    deriv_type=cfg.depos_derivative_type, **kw)
+                dgrids.append(dg)
+            else:
+                fth, _ = pl.deposit_plasma(
+                    p, self._plasma_comps(pcfg), fth, fg, pcfg, pc, order,
+                    cfg.normalized_units, **kw)
+        if cfg.beams and act[i]:
+            fth = bm.deposit_beam_slice(
+                beam_this, cfg.beam_this_map(), fth, fg, cfg.beams, pc,
+                order, cfg.normalized_units, self.beam_consts["charges"],
+                extra_mask=in_level_bounds(beam_this["x"],
+                                           beam_this["y"], fg),
+                geom0=g)
+        fine[i]["This"] = self._add_rho_ions(fth, fine[i])
+        return dgrids
+
+    def _diagnostics(self, carry: dict, out: dict, this: dict, fine: list,
+                     n00j00, plasmas: list) -> dict:
+        """The slice's diagnostics (ref Diagnostic.cpp, Fields::Copy) into
+        out: the stack, each other diagnostic's payload (an xy_integrated
+        one summed into the carry, which is returned) and the in-situ
+        moments (ref Hipace.cpp:681-688). n00j00: the laser's envelope
+        slice, or None."""
+        cfg = self.cfg
+        g, pc, mr = cfg.geom, cfg.pc, cfg.mr_levels
         out["diag"] = (torch.stack([sl.interior(this[c], g)
                                     for c in cfg.diag_comps])
                        if cfg.diag_comps else None)
@@ -1047,7 +1177,6 @@ class SliceStep:
                 carry = dict(carry, diag_int=di)
             else:
                 out["diagf_" + dg.name] = payload
-        # ---- in-situ moments (ref Hipace.cpp:681-688)
         if cfg.insitu_field_period and cfg.explicit:
             out["insitu_field"] = ins.field_slice_sums(this, g, pc)
         if cfg.insitu_plasma_period:
@@ -1057,73 +1186,7 @@ class SliceStep:
         if cfg.use_laser and cfg.insitu_laser_period:
             out["insitu_laser"] = ins.laser_slice_moments(n00j00,
                                                           self.laser_geom)
-
-        # ---- field ionization (ref Hipace.cpp:693-696), K2 for the field
-        for ip, ie, spawn_base, prod_lev in cfg.ionization_pairs:
-            plasmas[ip], plasmas[ie] = pl.ionization_module(
-                plasmas[ip], plasmas[ie], this, g, cfg.plasmas[ip], pc,
-                order, cfg.normalized_units, cfg.background_density_SI,
-                spawn_base, prod_lev,
-                self.draws("ionization", plasmas[ip]["x"].numel()))
-
-        # ---- push plasma (K2), a tagged lane on its level's fields
-        fine_push = tuple((fine[i]["This"], mr[i].geom) if act[i] else None
-                          for i in range(len(fine)))
-        plasmas = [pl.advance_plasma(p, this, g, pcfg, pc, order=order,
-                                     pusher=cfg.plasma_pusher,
-                                     use_laser=cfg.use_laser,
-                                     fine_levels=fine_push if tags else (),
-                                     tag=tags[ip] if tags else None)
-                   for ip, (p, pcfg) in enumerate(zip(plasmas, cfg.plasmas))]
-
-        # ---- push beam: slipped carry first, then this slice (K2)
-        slip = carry["slip"]
-        combined = {k: torch.cat([slip[k], beam_this[k]])
-                    for k in bm.ALL_ATTRS}
-        if cfg.insitu_beam_period and cfg.beams:
-            # each beam's moments before the push (ref Hipace.cpp:681)
-            out["insitu_beam"] = ins.beams_slice_raw(
-                combined, len(cfg.beams), pc, cfg.insitu_radius)
-        if cfg.beams:
-            combined = bm.advance_all_beams(
-                combined, this, g, cfg.beams, pc, dt, min_z, order=order,
-                time=carry["time"],
-                background_density_SI=cfg.background_density_SI,
-                external=self.beam_consts["external"],
-                fine_levels=tuple(lv for lv in fine_push if lv is not None))
-            # particles that stopped mid-subcycles slip to the next slice
-            # every boolean index waits for the device, so each set is
-            # indexed by one index tensor
-            incomplete = combined["valid"] & (combined["nsub"] > 0)
-            slip_idx = incomplete.nonzero().squeeze(1)
-            emit_idx = (~incomplete & combined["valid"]).nonzero().squeeze(1)
-            slip = {k: v[slip_idx] for k, v in combined.items()}
-            emit = {k: v[emit_idx] for k, v in combined.items()}
-        else:
-            # no beam: the binned lanes are all dead, nothing is emitted
-            # (and nothing read back)
-            emit = {k: v[:0] for k, v in combined.items()}
-
-        # ---- Coulomb collisions (ref Hipace.cpp:712)
-        if cfg.collisions:
-            plasmas, emit = self.collide(plasmas, emit, dt)
-        if cfg.beams and cfg.adaptive_dt:
-            carry = dict(carry, **beam_uz_moments(emit, carry, pc.c))
-
-        # ---- ShiftSlices (ref Fields.cpp:588-604), on every running level
-        f = self._shift(f, this)
-        for i in levels:
-            f[f"mr{i + 1}"] = self._shift(fine[i], fine[i]["This"])
-        carry = dict(carry, fields=f, plasma=plasmas, slip=slip)
-        out.update(beam_out=emit,
-                   mg_cycles=cycles,
-                   pc_iters=pc_iters, pc_err=pc_err)
-        if cfg.use_laser:
-            # ShiftLaserSlices (ref MultiLaser.cpp:181-212)
-            carry["laser"] = shift_laser_slices(lstate, np1j00)
-            out.update(laser_np1=np1j00, laser_n00=lstate["n00j00"],
-                       laser_cycles=laser_cycles)
-        return carry, out
+        return carry
 
     def _plasma_comps(self, pcfg) -> list:
         """A species' This deposit: the solver's currents and the charge

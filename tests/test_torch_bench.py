@@ -124,6 +124,9 @@ def test_profile_writes_a_trace(tmp_path, capsys):
     assert len(files) == 1
     events = json.loads(files[0].read_text())["traceEvents"]
     assert any(e.get("cat") == "cpu_op" for e in events)
+    # the program's spans, as named ranges
+    names = {e.get("name") for e in events}
+    assert {"slice step", "field solve", "beam push"} <= names
 
 
 def test_no_trace_without_the_profile_key(tmp_path, capsys):

@@ -23,20 +23,25 @@ per slice. With ``--deck pc`` it prints the predictor-corrector's
 iterations per slice and, per iteration, the launches and device ms of each
 group: the difference between the profiled step and a profiled step of the
 same deck capped at one iteration per slice, over the difference in
-iterations. With ``--deck laser`` the complex K3 solves are a group of their
-own, and the device time of the laser's two named parts is printed apart:
-the envelope advance (every kernel it launches, its complex K3 solve
-included) and the |a|^2 gathers of the plasma deposit and push, with their
-share of the step's device time. With ``--deck ionization`` the ionization
-module (its K2 field gather included) is such a named range, with
-``--deck collision`` the slice's collisions. ``--deck salame`` runs
-SALAME_WAKE, whose SALAME runs at step 0 only: the profiled step is a fresh
-simulation's step 0, after the warm-up and timed steps of another, and its
-named range is SALAME's work per SALAME slice. ``--deck mr`` runs MR_WAKE
-(a 511^2 level at full width, half the grid's width), whose named ranges
-are the level's parts (its initialization, deposits, Psi/Ez/Bz and Bx/By
-solves and the pushes' gathers from it) with the coupler products apart:
-the level's device ms and launches per active slice.
+iterations. The parts of the optional paths are the program's own spans
+(``hipace_tpu_torch/tracing.py``), on while the profiler runs: per span
+name its device-clock ms (the CUDA events at its ends: the kernels it
+launched and the device's idle between them), its calls and the device
+activities launched inside it. With ``--deck laser`` the complex K3 solves
+are a group of their own, and the laser's two spans are printed apart: the
+envelope advance (every kernel it launches, its complex K3 solve included)
+and the |a|^2 gathers of the plasma deposits (the push's, inside its
+subcycles, have no span), with their share of the step's device time. With
+``--deck ionization`` the ionization module (its K2 field gather included)
+is such a span, with ``--deck collision`` the slice's collisions.
+``--deck salame`` runs SALAME_WAKE, whose SALAME runs at step 0 only: the
+profiled step is a fresh simulation's step 0, after the warm-up and timed
+steps of another, and its span is SALAME's work per SALAME slice. ``--deck
+mr`` runs MR_WAKE (a 511^2 level at full width, half the grid's width),
+whose spans are the level's parts (its initialization, deposits, Psi/Ez/Bz
+and Bx/By solves; its gathers in the pushes' subcycles have no span): the
+level's device ms and launches per active slice, and the coupler products'
+share of it (the GEMM group's device ms: every GEMM of the deck).
 
 Output: ``--insitu`` turns on the in-situ beam, plasma and field records
 every step, ``--xz`` an xz field diagnostic of every comp and rho every step
@@ -89,8 +94,8 @@ def device_activities(prof):
     per_kernel = defaultdict(lambda: [0.0, 0])
     readbacks = 0
     for e in prof.events():
-        if e.device_type != DeviceType.CUDA or e.name in ALL_RANGES:
-            continue    # the named ranges' device spans are no activity
+        if e.device_type != DeviceType.CUDA:
+            continue
         dur = e.time_range.elapsed_us() / 1e3
         g = group_of(e.name)
         readbacks += "DtoH" in e.name
@@ -101,88 +106,43 @@ def device_activities(prof):
     return ms, count, per_kernel, readbacks
 
 
-# the parts named around their calls, per deck
+# the program's spans (hipace_tpu_torch/tracing.py) of each deck's parts
 LASER_RANGES = ("laser: envelope advance", "laser: |a|^2 gather")
 MR_RANGES = ("MR: level init", "MR: level deposits", "MR: level Psi/Ez/Bz",
-             "MR: level Bx/By", "MR: level gathers")
+             "MR: level Bx/By")
 RANGES = {"laser": LASER_RANGES, "ionization": ("ionization module",),
-          "salame": ("SALAME",),
-          "mr": MR_RANGES + ("MR: coupler products (inside the above)",),
+          "salame": ("SALAME",), "mr": MR_RANGES,
           "collision": ("collisions",)}
-ALL_RANGES = tuple(r for labels in RANGES.values() for r in labels)
+# on MR_WAKE (no open boundary) every GEMM is a coupler product
+COUPLER_GROUP = "GEMM (open-boundary moments, MR couplers)"
 
 
-def named(fn, label):
-    """fn inside a profiler range called label."""
-    import torch
-
-    def wrapped(*args, **kwargs):
-        with torch.profiler.record_function(label):
-            return fn(*args, **kwargs)
-    return wrapped
-
-
-def name_mr_ranges(sim, plasma, stp):
-    """Put the mesh-refinement level's parts of the slice step into named
-    ranges: its InitializeSlices, deposits (the calls on its geometry), its
-    two solves, the pushes' gathers on its grid; the coupler products in a
-    range of their own, nested in those."""
-    import torch
-
-    from hipace_tpu_torch.fields import mr
-    ss, fg = sim.slice_step, sim.mr_levels[0].geom
-    ss._init_fine = named(ss._init_fine, MR_RANGES[0])
-    ss._fine_explicit_bxby = named(ss._fine_explicit_bxby, MR_RANGES[3])
-    stp.solve_fine_psi_ez_bz = named(stp.solve_fine_psi_ez_bz, MR_RANGES[2])
-
-    def on_level(fn, label, geom_at):
-        def wrapped(*args, **kwargs):
-            if geom_at(args, kwargs) == fg:
-                with torch.profiler.record_function(label):
-                    return fn(*args, **kwargs)
-            return fn(*args, **kwargs)
-        return wrapped
-
-    for mod, name in ((plasma, "fused_plasma_deposits"),
-                      (plasma, "deposit_plasma"),
-                      (stp.bm, "deposit_beam_slice")):
-        setattr(mod, name, on_level(getattr(mod, name), MR_RANGES[1],
-                                    lambda a, k: a[3]))
-    plasma.gather_fields = on_level(plasma.gather_fields, MR_RANGES[4],
-                                    lambda a, k: a[4])
-    stp.bm.gather_fields = plasma.gather_fields
-    for meth in ("up_full", "bc_values"):
-        setattr(mr.LevelCoupler, meth, named(getattr(mr.LevelCoupler, meth),
-                                             RANGES["mr"][-1]))
-
-
-def range_ms(prof, labels):
-    """Per named range: the device ms of the activities inside its device
-    spans (the spans of one stream hold exactly the kernels the range
-    launched; the ctypes-launched K3 included), its calls and those
-    activities' count."""
-    import bisect
+def launch_times(prof) -> list:
+    """The host clock's nanosecond at which each device activity of the
+    profile was launched: its runtime call's start, matched by correlation
+    id (activities without one are left out)."""
     from torch.autograd import DeviceType
-    spans = {label: [] for label in labels}
-    acts = []
-    for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
-            continue
-        if e.name in spans:
-            spans[e.name].append((e.time_range.start, e.time_range.end))
-        else:
-            acts.append((e.time_range.start, e.time_range.elapsed_us()))
+    evs = prof.profiler.kineto_results.events()
+    host = {e.correlation_id(): e.start_ns() for e in evs
+            if e.device_type() != DeviceType.CUDA and e.correlation_id()}
+    return sorted(host[e.correlation_id()] for e in evs
+                  if e.device_type() == DeviceType.CUDA
+                  and e.correlation_id() in host)
+
+
+def span_parts(prof, labels, spans):
+    """Per label: the device-clock ms of the program's spans of that name
+    (their CUDA events: the kernels they launched and the device's idle
+    between them), their count, and the device activities launched inside
+    them on the host clock."""
+    import bisect
+    launched = launch_times(prof)
     out = {}
-    for label, sp in spans.items():
-        sp.sort()
-        starts = [a for a, _ in sp]
-        us, n = 0.0, 0
-        for t0, dur in acts:
-            i = bisect.bisect_right(starts, t0) - 1
-            if i >= 0 and t0 < sp[i][1]:
-                us += dur
-                n += 1
-        out[label] = [us / 1e3, len(sp), n]
+    for label in labels:
+        mine = [s for s in spans if s.name == label]
+        n = sum(bisect.bisect_left(launched, s.end_ns)
+                - bisect.bisect_left(launched, s.start_ns) for s in mine)
+        out[label] = [sum(s.device_ms or 0.0 for s in mine), len(mine), n]
     return out
 
 
@@ -211,8 +171,7 @@ def main() -> int:
                                         drive_witness, ion_motion_even,
                                         ionization_wake, laser_wake, mr_wake,
                                         pc_open, pdf_beam, salame_wake)
-    from hipace_tpu_torch.particles import plasma
-    from hipace_tpu_torch.pipeline import step as stp
+    from hipace_tpu_torch import tracing
     from hipace_tpu_torch.pipeline.simulation import Simulation
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -250,22 +209,6 @@ def main() -> int:
         npart = 0       # no beam, or a fixed_ppc one
     sim = Simulation(deck(args.nxy, args.nz, npart, extra), device="cuda",
                      dtype=torch.float32, verbose=0)
-    if args.deck == "laser":
-        adv = sim.slice_step.laser_advance
-        sim.slice_step.laser_advance = named(adv, LASER_RANGES[0])
-        sim.slice_step.laser_advance.mg = adv.mg
-        plasma.gather_laser_aabs = named(plasma.gather_laser_aabs,
-                                         LASER_RANGES[1])
-    if args.deck == "ionization":
-        plasma.ionization_module = named(plasma.ionization_module,
-                                         RANGES["ionization"][0])
-    if args.deck == "collision":
-        sim.slice_step.collide = named(sim.slice_step.collide,
-                                       RANGES["collision"][0])
-    if args.deck == "salame":
-        stp.salame_slice = named(stp.salame_slice, RANGES["salame"][0])
-    if args.deck == "mr":
-        name_mr_ranges(sim, plasma, stp)
     write_s = []
 
     def step(sim, profiled=False):
@@ -300,7 +243,9 @@ def main() -> int:
         sim = Simulation(deck(args.nxy, args.nz, npart, extra),
                          device="cuda", dtype=torch.float32, verbose=0)
         write_s.clear()
+    tracing.clear()
     prof, res = step(sim, profiled=True)
+    spans = tracing.spans()
     ms, count, per_kernel, readbacks = device_activities(prof)
     total = sum(ms.values())
     nz = args.nz
@@ -344,7 +289,7 @@ def main() -> int:
         print(f"{'total':<30} {(total - sum(ms1.values())) / d_it:16.4f} "
               f"{(sum(count.values()) - sum(count1.values())) / d_it:15.2f}")
     if args.deck in RANGES:
-        parts = range_ms(prof, RANGES[args.deck])
+        parts = span_parts(prof, RANGES[args.deck], spans)
         part = sum(t for t, _, _ in parts.values())
         for label, (t, n, acts) in parts.items():
             print(f"{label:<30} {t / nz:16.3f} ms/slice in {n / nz:.2f} "
@@ -367,7 +312,7 @@ def main() -> int:
         print(f"the level ({lv.geom.nx}^2 on {n_act} of {nz} slices): "
               f"{t / n_act:.3f} device ms and {sum(p[2] for p in lev) / n_act:.2f}"
               f" launches per active slice; the coupler products "
-              f"{parts[RANGES['mr'][-1]][0] / t:.3f} of it")
+              f"{ms[COUPLER_GROUP] / t:.3f} of it")
     if "ionized" in res:
         print(f"ionization events in the profiled step: "
               f"{int(res['ionized'])}")
