@@ -2,17 +2,22 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels (K1 deposit, K2 gather, K3 multigrid) from
-``hipace_tpu_torch/csrc`` with nvcc, prints each kernel's registers, stack
-frame and spills (K2's order-2 kernels must use no local memory), holds each
-kernel against its plain PyTorch version at the main path's shapes (1023^2
-grid, ~1.05M plasma particles; K1 and K2 also on the same lanes shuffled,
-moved by up to 40 cells, and on a 30k-lane beam slice) in float32 and
-float64, checks a small time step on the kernels against the same step on
+Builds the port's CUDA kernels (K1 deposit, K2 gather, K3 multigrid, the
+fused beam push) from ``hipace_tpu_torch/csrc`` with nvcc, prints each
+kernel's registers, stack frame and spills (K2's order-2 kernels must use no
+local memory), holds each kernel against its plain PyTorch version at the
+main path's shapes (1023^2 grid, ~1.05M plasma particles; K1 and K2 also on
+the same lanes shuffled, moved by up to 40 cells, and on a 30k-lane beam
+slice) in float32 and float64 (the fused beam push on the benchmark's 2047^2
+beam slices of ~42k and ~95k lanes in float64 and the flagship's 30k in
+float32, equal valid lanes and resume counters), checks a small time step on the kernels against the same step on
 the CPU plain path, then drives the port's main path -- a ``Simulation`` of
 the flagship blowout-wake deck (``hipace_tpu_torch.decks.BLOWOUT_WAKE``) at
 1023^2 x 64 slices in float32 -- for one warm-up and two timed steps, and
-checks that every kernel ran as often as the slice structure predicts, that
+checks that every kernel ran as often as the slice structure predicts (a
+beam species' push one fused launch per slice, unless it keeps the subcycle
+loop with its K2 launches: external fields, spin, radiation reaction, an
+active mesh-refinement level), that
 a multigrid solve is at most three device launches, and prints the share of
 deposit blocks that took the kernel's direct path. Two more timed steps
 follow the counted ones.
@@ -257,6 +262,12 @@ KERNELS = {
            "hipace_tpu/ops/pallas_mg.py:204"),
 }
 
+# the fused beam push, beside the three TPU kernels' ports
+ALL_KERNELS = dict(KERNELS, **{"beam push": (
+    "beam_push", "hipace_tpu_torch/csrc/beam_push.cu",
+    "hipace_tpu/particles/beam.py advance_beam_slice (the subcycle loop) and "
+    "its K2 calls, hipace_tpu/ops/pallas_banded.py:663")})
+
 # NVIDIA H100 SXM data sheet: HBM3 bytes/s, non-tensor FLOP/s by itemsize
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {4: 67e12, 8: 34e12}
@@ -396,6 +407,21 @@ def ptxas_phase(log, nvcc):
           and ("<2," in k[0] or "ILi2E" in k[0])]
     if len(k2) != 2 or any(sum(k[2:]) for k in k2):
         raise AssertionError(f"K2's order-2 kernels use local memory: {k2}")
+
+
+def beam_k2(sim):
+    """K2 launches per slice of the beam pushes on a slice where no fine
+    level is active: one per subcycle of each species that keeps the
+    subcycle loop; a species that takes the fused beam push launches no K2
+    (ops/beam_push.py takes_kernel)."""
+    from hipace_tpu_torch.ops.beam_push import takes_kernel
+    return sum(c.n_subcycles for c in sim.beam_cfgs if not takes_kernel(c))
+
+
+def fused_pushes(sim):
+    """Fused beam push launches per slice: one per species that takes it."""
+    from hipace_tpu_torch.ops.beam_push import takes_kernel
+    return sum(takes_kernel(c) for c in sim.beam_cfgs)
 
 
 def plasma_lanes(torch, g, dtype):
@@ -574,6 +600,104 @@ def k2_phase(torch, g, dtype, lc, results):
                 results[("K2", name)] = (err, ms, plain_ms, b_ms, by)
 
 
+# the fused beam push's cases: (label, nxy, dtype name, lanes); the
+# benchmark's explicit.2047 slices hold ~42k beam lanes on average and ~95k
+# at the fullest, the 1023^2 flagship's ~30k
+PUSH_CASES = (("2047^2, 42k lanes", 2047, "float64", 42_000),
+              ("2047^2, 95k lanes", 2047, "float64", 95_000),
+              ("1023^2 flagship, 30k lanes", 1023, "float32", 30_000))
+# per live lane and subcycle, besides the gather's 2 x 6 x 16: the push's
+# multiplies, adds, divisions and roots (three gammas, the half and full
+# position steps, the cell positions, the momentum update)
+PUSH_FLOPS = 82
+
+
+def push_lanes(torch, g, n, dtype, min_z):
+    """A beam slice of n lanes (benchmark/configs/transverse_explicit.json's
+    beam): gaussian x and y (sigma 0.3), z over the slice above min_z, uz
+    2000 with a spread, every lane live and at its first subcycle."""
+    gen = torch.Generator(device="cuda").manual_seed(n)
+
+    def normal(scale, mean=0.0):
+        return (mean + scale * torch.randn(n, generator=gen, device="cuda",
+                                           dtype=torch.float64)).to(dtype)
+
+    z = min_z + g.dz * torch.rand(n, generator=gen, device="cuda",
+                                  dtype=torch.float64)
+    zero = torch.zeros(n, dtype=dtype, device="cuda")
+    return {"x": normal(0.3), "y": normal(0.3), "z": z.to(dtype),
+            "ux": normal(1.0), "uy": normal(1.0), "uz": normal(20.0, 2000.0),
+            "w": torch.full((n,), 1e-3, dtype=dtype, device="cuda"),
+            "sx": zero, "sy": zero, "sz": zero,
+            "valid": torch.ones(n, dtype=torch.bool, device="cuda"),
+            "nsub": torch.zeros(n, dtype=torch.int32, device="cuda"),
+            "beam_id": torch.zeros(n, dtype=torch.int32, device="cuda")}
+
+
+@phase("beam push")
+def beam_push_phase(torch, g_flag, results):
+    """The fused beam push at the main paths' shapes against its plain
+    version (the subcycle loop) on the card: valid and nsub equal, the
+    floats within K2's tolerances of each attribute's largest value; its
+    device time, its bound and the loop's device and host times."""
+    from hipace_tpu_torch.constants import make_constants
+    from hipace_tpu_torch.geometry import Geometry
+    from hipace_tpu_torch.ops import beam_push as bpo
+    from hipace_tpu_torch.particles.beam import BeamConfig
+    from hipace_tpu_torch.particles.plasma import cell_positions
+    pc = make_constants(True)
+    cfg = BeamConfig(particle_boundary="Periodic")
+    for label, nxy, name, n in PUSH_CASES:
+        dtype = getattr(torch, name)
+        g = g_flag if nxy == g_flag.nx else Geometry(
+            (nxy, nxy, 32), (-8.0, -8.0, -6.0), (8.0, 8.0, 2.0))
+        min_z = g.prob_lo[2] + (g.nz // 2) * g.dz
+        lanes = push_lanes(torch, g, n, dtype, min_z)
+        gen = torch.Generator(device="cuda").manual_seed(nxy)
+        NY, NX = g.slice_shape
+        planes = {c: 0.5 * torch.randn((NY, NX), generator=gen,
+                                       device="cuda", dtype=dtype)
+                  for c in ("Psi", "Ez", "Bx", "By", "Bz")}
+
+        def kernel():
+            return bpo.beam_push_cuda(lanes, planes, g, cfg, pc, 1.0, min_z)
+
+        def plain():
+            return bpo.beam_push_plain(lanes, planes, g, cfg, pc, 1.0, min_z)
+
+        got, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        same = all(torch.equal(got[k], ref[k]) for k in ("valid", "nsub"))
+        worst = max((compare("K2", name, got[k], ref[k])
+                     for k in bpo.LANE_ATTRS), key=lambda c: c[2])
+        ok = same and worst[0]
+        slipped = int((got["nsub"] > 0).sum())
+        ms = cuda_ms(kernel)
+        plain_ms = cuda_ms(plain)
+        plain_wall = wall_ms(plain)
+        print(f"beam push {name} {label} on {NY}x{NX}, {cfg.n_subcycles} "
+              f"subcycles: valid and nsub equal {same} ({slipped} lanes "
+              f"stopped below min_z), floats max abs err {worst[1]:.3e}, / "
+              f"max {worst[2]:.3e} (tol {worst[3]:g}) "
+              f"{'ok' if ok else 'FAIL'}; kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.3f} ms on the device, {plain_wall:.3f} ms host "
+              f"wall; {CARD['line']}", flush=True)
+        if not ok:
+            raise AssertionError(f"beam push {name} {label} differs from "
+                                 "the loop")
+        # the lanes read and written once (seven floats, valid, nsub) and
+        # the five planes' cells under the lanes' stencils at their start
+        size = planes["Psi"].element_size()
+        ym, xm = cell_positions(lanes["x"], lanes["y"], lanes["valid"], g)
+        cells = stencil_cells(torch, ym, xm, NY, NX, 2)
+        nbytes = 2 * n * (7 * size + 1 + 4) + 5 * size * cells
+        flops = n * cfg.n_subcycles * (2 * 6 * 16 + PUSH_FLOPS)
+        b_ms, by = bound_line("beam push", f"{name} {label}", ms, nbytes,
+                              flops, size)
+        # per dtype the last case's, as for K1 and K2: float32 the flagship's
+        results[("beam push", name)] = (worst[1], ms, plain_ms, b_ms, by)
+
+
 def k3_case(torch, dtype, ny, nx, dx, dy, C, acf_kind, max_iters, seed):
     """One solve on the kernel and on the plain version: (label, mg, args,
     kwargs, got, ref, cycles, plain cycles, device launches)."""
@@ -748,11 +872,14 @@ def main_path(torch, sim, counts):
     from hipace_tpu_torch.ops.deposit import (deposit, direct_block_count,
                                               reset_block_counts)
     from hipace_tpu_torch.ops.gather import gather_main
+    from hipace_tpu_torch.ops.beam_push import beam_push
     from hipace_tpu_torch.ops.mg_kernel import mg_solve
+    from hipace_tpu_torch.particles.beam import advance_beam_slice
     n0 = int(sim.binned["valid"].sum())
     steps, extra_steps = 3, 2
-    for fn in (deposit, gather_main, mg_solve):
+    for fn in (deposit, gather_main, mg_solve, beam_push):
         fn.launches = 0
+    advance_beam_slice.general_calls = 0
     mg_solve.kernel_launches = 0
     reset_block_counts()
     step_seconds = []
@@ -760,7 +887,9 @@ def main_path(torch, sim, counts):
         if step == steps:
             # the counted run ends here; the extra steps are only timed
             counts.update({"K1": deposit.launches, "K2": gather_main.launches,
-                           "K3": mg_solve.launches})
+                           "K3": mg_solve.launches,
+                           "beam push": beam_push.launches,
+                           "beam loop": advance_beam_slice.general_calls})
             mg_launches = mg_solve.kernel_launches
             direct, blocks = direct_block_count("cuda"), deposit.blocks
         torch.cuda.synchronize()
@@ -779,10 +908,11 @@ def main_path(torch, sim, counts):
         if not finite or n != n0:
             raise AssertionError("non-finite fields or beam particles lost")
     g = sim.geom
-    pcfg, bcfg = sim.plasma_cfgs[0], sim.beam_cfgs[0]
+    pcfg = sim.plasma_cfgs[0]
     per_step = {"K1": int(pcfg.neutralize_background) + 3 * g.nz,
-                "K2": g.nz * (pcfg.n_subcycles + bcfg.n_subcycles),
-                "K3": g.nz}
+                "K2": g.nz * (pcfg.n_subcycles + beam_k2(sim)),
+                "K3": g.nz, "beam push": g.nz * fused_pushes(sim),
+                "beam loop": 0}
     t_timed = sum(step_seconds[1:steps])
     slices = g.nz * (steps - 1)
     print(f"main path {NXY}^2 x {NZ} float32, {NPART} beam particles: "
@@ -797,11 +927,12 @@ def main_path(torch, sim, counts):
           f"{mg_launches / counts['K3']:.2f}", flush=True)
     if mg_launches > 3 * counts["K3"]:
         raise AssertionError("a multigrid solve took more than 3 launches")
-    for k, (fn_name, _, _) in KERNELS.items():
+    for k, fn_name in [(k, v[0]) for k, v in KERNELS.items()] + [
+            ("beam push", "beam_push"), ("beam loop", "general_calls")]:
         want = per_step[k] * steps
         print(f"launches {k} {fn_name}: {counts[k]} (slice structure "
               f"predicts {want})", flush=True)
-        if counts[k] != want or counts[k] == 0:
+        if counts[k] != want or (counts[k] == 0 and k != "beam loop"):
             raise AssertionError(f"{k} launch count {counts[k]} != {want}")
 
 
@@ -876,7 +1007,7 @@ def pc_path(torch, counts):
     sim = Simulation(pc_open(NXY, NZ, NPART), device="cuda",
                      dtype=torch.float32, verbose=0)
     g = sim.geom
-    pcfg, bcfg = sim.plasma_cfgs[0], sim.beam_cfgs[0]
+    pcfg = sim.plasma_cfgs[0]
     n0 = int(sim.binned["valid"].sum())
     steps = 3
     for fn in (deposit, gather_main, mg_solve):
@@ -929,7 +1060,7 @@ def pc_path(torch, counts):
           f"{2.15 + mean0:.3f})", flush=True)
     want = {"K1": steps * (g.nz * 2 + int(pcfg.neutralize_background))
             + 2 * total,
-            "K2": steps * g.nz * (pcfg.n_subcycles + bcfg.n_subcycles)
+            "K2": steps * g.nz * (pcfg.n_subcycles + beam_k2(sim))
             + pcfg.n_subcycles * total,
             "K3": 0}
     for k, count in counts.items():
@@ -1111,8 +1242,7 @@ def even_path(torch, counts):
     per_step = {
         "K1": sum(int(p.neutralize_background) for p in cfgs)
         + g.nz * (len(cfgs) + 2),
-        "K2": g.nz * (sum(p.n_subcycles for p in cfgs)
-                      + sim.beam_cfgs[0].n_subcycles),
+        "K2": g.nz * (sum(p.n_subcycles for p in cfgs) + beam_k2(sim)),
         "K3": g.nz}
     for k, count in counts.items():
         print(f"even path launches {k}: {count} (slice structure with "
@@ -1214,12 +1344,14 @@ def witness_path(torch, counts, results):
     steps; finite fields and momenta, each beam's count conserved (by
     beam_id), the witness's |s| within 1e-5 of 1, the K1/K2/K3 launches
     against the slice structure with two beam species (the beam pushes'
-    K2 launches counted apart); then K2 on the witness path's own beam
+    K2 launches counted apart: the witness's loop; the drive's fused beam
+    push counted too); then K2 on the witness path's own beam
     lanes (its fullest witness slice, the witness pass) against its plain
     version, timed, with its bound."""
     from hipace_tpu_torch.decks import drive_witness
     from hipace_tpu_torch.ops import gather as gat
     from hipace_tpu_torch.ops.deposit import deposit
+    from hipace_tpu_torch.ops.beam_push import beam_push
     from hipace_tpu_torch.ops.gather import gather_main
     from hipace_tpu_torch.ops.mg_kernel import mg_solve
     from hipace_tpu_torch.particles import beam as bm
@@ -1237,16 +1369,16 @@ def witness_path(torch, counts, results):
     n0 = per_beam(sim.binned)
     steps = 3
     # the beam pushes' K2 launches, counted around each push
-    beam_k2 = [0]
+    beam_k2_calls = [0]
     orig = bm.advance_all_beams
 
     def counted(*args, **kwargs):
         before = gather_main.launches
         out = orig(*args, **kwargs)
-        beam_k2[0] += gather_main.launches - before
+        beam_k2_calls[0] += gather_main.launches - before
         return out
 
-    for fn in (deposit, gather_main, mg_solve):
+    for fn in (deposit, gather_main, mg_solve, beam_push):
         fn.launches = 0
     bm.advance_all_beams = counted
     try:
@@ -1254,7 +1386,8 @@ def witness_path(torch, counts, results):
     finally:
         bm.advance_all_beams = orig
     counts.update({"K1": deposit.launches, "K2": gather_main.launches,
-                   "K3": mg_solve.launches, "K2 beam": beam_k2[0]})
+                   "K3": mg_solve.launches, "K2 beam": beam_k2_calls[0],
+                   "beam push": beam_push.launches})
     b = sim.binned
     n = per_beam(b)
     finite = bool(torch.isfinite(res["diag"]).all()) and all(
@@ -1285,16 +1418,17 @@ def witness_path(torch, counts, results):
           + ", ".join(f"{g.nz / t:.3f}" for t, _ in times[1:])
           + f"; {CARD['line']}", flush=True)
     pcfg = sim.plasma_cfgs[0]
-    sub = sum(c.n_subcycles for c in sim.beam_cfgs)
+    # the drive beam takes the fused push, the witness (spin, radiation
+    # reaction) keeps the subcycle loop
+    sub = beam_k2(sim)
     per_step = {"K1": int(pcfg.neutralize_background) + 3 * g.nz,
                 "K2": g.nz * (pcfg.n_subcycles + sub), "K3": g.nz,
-                "K2 beam": g.nz * sub}
+                "K2 beam": g.nz * sub, "beam push": g.nz * fused_pushes(sim)}
     for k, count in counts.items():
         print(f"witness path launches {k}: {count} (slice structure with "
-              f"{nb} beam species predicts {per_step[k] * steps}; K2 per "
-              f"slice {pcfg.n_subcycles} + "
-              f"{' + '.join(str(c.n_subcycles) for c in sim.beam_cfgs)})",
-              flush=True)
+              f"{nb} beam species predicts {per_step[k] * steps}; per slice "
+              f"K2 {pcfg.n_subcycles} + {sub} (the loop's subcycles), "
+              f"{fused_pushes(sim)} fused beam push)", flush=True)
     # K2 on the witness pass's lanes of the slice that holds most of the
     # witness: every lane of the merged slice, the drive's dead
     fullest = int((b["valid"] & (b["beam_id"] == 1)).sum(1).argmax())
@@ -2090,7 +2224,7 @@ def ionization_path(torch, counts, results):
     per_step = {"K1": sum(int(p.neutralize_background) for p in cfgs)
                 + g.nz * (len(cfgs) + 2),
                 "K2": g.nz * (sum(p.n_subcycles for p in cfgs)
-                              + sim.beam_cfgs[0].n_subcycles + 1),
+                              + beam_k2(sim) + 1),
                 "K3": g.nz, "K2 ionization": g.nz}
     n = int(sim.binned["valid"].sum())
     finite = bool(torch.isfinite(res["diag"]).all())
@@ -2124,8 +2258,8 @@ def ionization_path(torch, counts, results):
     for k, count in counts.items():
         print(f"ionization path launches {k}: {count} (slice structure "
               f"predicts {per_step[k] * steps}: per slice two species' "
-              f"deposits and pushes, the beam's {sim.beam_cfgs[0].n_subcycles}"
-              f" subcycles, one ionization gather)", flush=True)
+              f"deposits and pushes, the beam's fused push (K2 in its loop: "
+              f"{beam_k2(sim)}), one ionization gather)", flush=True)
     # the module and its gather alone, on the kept call's arguments
     args = kept["args"]
     draw = torch.rand(args[0]["x"].numel(), device="cuda")
@@ -2238,7 +2372,7 @@ def collision_path(torch, counts, results):
                    "K3": mg_solve.launches})
     pcfg, bcfg = sim.plasma_cfgs[0], sim.beam_cfgs[0]
     per_step = {"K1": int(pcfg.neutralize_background) + 3 * g.nz,
-                "K2": g.nz * (pcfg.n_subcycles + bcfg.n_subcycles),
+                "K2": g.nz * (pcfg.n_subcycles + beam_k2(sim)),
                 "K3": g.nz}
     slices = g.nz * (steps - 1)
     t_step = sum(times[1:])
@@ -2505,9 +2639,9 @@ def pdf_path(torch):
           f"{len(files)} missing {missing}, in-situ beam sum(w) per step "
           f"{', '.join(f'{v:.9g}' for v in sw)} vs the beam's {w0:.9g} (max "
           f"rel {w_rel:.3e}, tol 1e-5)", flush=True)
-    pcfg, bcfg = sim.plasma_cfgs[0], sim.beam_cfgs[0]
+    pcfg = sim.plasma_cfgs[0]
     per_step = {"K1": int(pcfg.neutralize_background) + 3 * g.nz,
-                "K2": g.nz * (pcfg.n_subcycles + bcfg.n_subcycles),
+                "K2": g.nz * (pcfg.n_subcycles + beam_k2(sim)),
                 "K3": g.nz}
     for k, count in counts.items():
         print(f"pdf path launches {k}: {count} (slice structure predicts "
@@ -2869,7 +3003,7 @@ def salame_path(torch, counts, results):
     r_n, copies_n = sync_counted(torch, lambda: nos.run_step(0))
     n_sal = int(res[0]["salame_is_sal"].sum())
     n_sal1 = int(res[1]["salame_is_sal"].sum())
-    sub = sum(b.n_subcycles for b in sim.beam_cfgs)
+    sub = beam_k2(sim)
     pcfg = sim.plasma_cfgs[0]
     it = sim.cfg.salame_n_iter
     base = {"K1": int(pcfg.neutralize_background) + 3 * g.nz,
@@ -2949,6 +3083,7 @@ def mr_path(torch, counts, results):
     from hipace_tpu_torch.fields.mr import LevelCoupler
     from hipace_tpu_torch.ops import deposit as dep
     from hipace_tpu_torch.ops import gather as gat
+    from hipace_tpu_torch.ops.beam_push import beam_push
     from hipace_tpu_torch.ops.mg_kernel import mg_solve
     from hipace_tpu_torch.particles import plasma as pl
     from hipace_tpu_torch.pipeline.simulation import Simulation
@@ -2977,7 +3112,7 @@ def mr_path(torch, counts, results):
                      gat.gather_main, keep=middle * per_slice_k2)
     k3 = CallKeeper(sim.slice_step.fine_mgs[0], "solve",
                     lambda a, k: True, mg_solve, keep=middle)
-    for f in (dep.deposit, gat.gather_main, mg_solve):
+    for f in (dep.deposit, gat.gather_main, mg_solve, beam_push):
         f.launches = 0
     steps, times, copies = 3, [], 0
     try:
@@ -2996,17 +3131,22 @@ def mr_path(torch, counts, results):
         for k in (k1, k2p, k3):
             k.undo()
     counts.update({"K1": dep.deposit.launches, "K2": gat.gather_main.launches,
-                   "K3": mg_solve.launches})
+                   "K3": mg_solve.launches, "beam push": beam_push.launches})
     # the kernels' own counts inside the level's calls
     counts["K1 fine"] = k1.launches
     counts["K2 fine"] = k2p.launches
     counts["K3 fine"] = k3.launches
-    pcfg, bcfg = sim.plasma_cfgs[0], sim.beam_cfgs[0]
+    pcfg = sim.plasma_cfgs[0]
+    # on the level's active slices every beam push keeps the subcycle loop
+    # and gathers on both levels; on the others the fused push takes it
+    all_sub = sum(c.n_subcycles for c in sim.beam_cfgs)
     per_step = {"K1": 2 * int(pcfg.neutralize_background) + 3 * (g.nz + n_act),
-                "K2": (g.nz + n_act) * (pcfg.n_subcycles + bcfg.n_subcycles),
+                "K2": (g.nz + n_act) * pcfg.n_subcycles
+                + (g.nz - n_act) * beam_k2(sim) + 2 * n_act * all_sub,
                 "K3": g.nz + n_act, "K1 fine": n_act,
-                "K2 fine": n_act * (pcfg.n_subcycles + bcfg.n_subcycles),
-                "K3 fine": n_act}
+                "K2 fine": n_act * (pcfg.n_subcycles + all_sub),
+                "K3 fine": n_act,
+                "beam push": (g.nz - n_act) * fused_pushes(sim)}
     n = int(sim.binned["valid"].sum())
     rows = slice(lv.zeta_lo, lv.zeta_hi + 1)
     fine_line = res["diagf_lev1"][rows, 0].double().cpu()
@@ -3044,9 +3184,10 @@ def mr_path(torch, counts, results):
     for k, count in counts.items():
         print(f"MR path launches {k}: {count} (slice structure predicts "
               f"{per_step[k] * steps}: per slice 3 / "
-              f"{pcfg.n_subcycles} + {bcfg.n_subcycles} / 1 on each running "
-              f"level, one background deposit per level and step)",
-              flush=True)
+              f"{pcfg.n_subcycles} + the beam's / 1 on each running level, "
+              f"the beam's K2 {all_sub} per level on the {n_act} active "
+              f"slices and {beam_k2(sim)} on the others, one background "
+              f"deposit per level and step)", flush=True)
     # a coupler product on the card against the CPU's in float64
     coup = sim.slice_step.couplers[0]
     c_gpu = res["diag"][g.nz // 2].new_zeros(g.slice_shape)
@@ -3324,7 +3465,7 @@ def pipeline_path(torch, counts):
     cycles = [c for s in keeper.steps for c in s["mg_cycles"]]
     n = int(sim.binned["valid"].sum())
     pipe_binned = sim.binned
-    pcfg, bcfg = sim.plasma_cfgs[0], sim.beam_cfgs[0]
+    pcfg, loop_k2 = sim.plasma_cfgs[0], beam_k2(sim)
     del sim
     torch.cuda.empty_cache()
 
@@ -3349,7 +3490,7 @@ def pipeline_path(torch, counts):
     spread = beam_rel(torch, finals[1], finals[0], sort=True)
 
     per_step = {"K1": int(pcfg.neutralize_background) + 3 * g.nz,
-                "K2": g.nz * (pcfg.n_subcycles + bcfg.n_subcycles),
+                "K2": g.nz * (pcfg.n_subcycles + loop_k2),
                 "K3": g.nz}
     slices = g.nz * steps
     print(f"pipeline path {NXY}^2 x {NZ} float32, {NPART} beam particles, "
@@ -3663,6 +3804,7 @@ def main() -> int:
         k1_phase(torch, g, dtype, lc, results)
         k2_phase(torch, g, dtype, lc, results)
         k3_phase(torch, g, dtype, results)
+    beam_push_phase(torch, g, results)
     reference_phase(torch)
     counts: dict = {}
     main_path(torch, sim, counts)
@@ -3743,8 +3885,9 @@ def main() -> int:
                  "K3 mg_solve, even path on MGDirichlet (cell-centered "
                  "Poisson, C=3)", even_counts["K3 MGDirichlet"]),
                 ("K2", "K2 witness beam",
-                 "K2 gather_main, witness path (drive and witness beam "
-                 "subcycles)", witness_counts["K2 beam"]),
+                 "K2 gather_main, witness path (the witness beam's "
+                 "subcycles; the drive beam takes the fused beam push)",
+                 witness_counts["K2 beam"]),
                 ("K3", "K3 complex",
                  "K3 mg_solve, laser path (complex envelope, "
                  "node-centered)", laser_counts["K3 complex"]),
@@ -3762,6 +3905,10 @@ def main() -> int:
                 ("K3", "K3 SALAME",
                  "K3, SALAME Bx/By (1023^2, C = 2, max_iters 40)",
                  salame_counts["K3 SALAME"])]
+    # the fused beam push: the flagship's beam slice, the flagship's count
+    entries += [("beam push", "beam push",
+                 "beam push, main path (the beam's subcycles, one launch "
+                 "per slice)", counts["beam push"])]
     # the pipelined flagship runs the flagship's calls: their times, the
     # pipeline path's counts
     entries += [(k, k, f"{k} {fn}, pipelined flagship ({PIPE_STAGES} stages "
@@ -3773,7 +3920,7 @@ def main() -> int:
                  "on one card, one process each, launches summed)",
                  rank_counts[k]) for k, (fn, _, _) in KERNELS.items()]
     for k, key, label, launches in entries:
-        _, source, replaces = KERNELS[k]
+        _, source, replaces = ALL_KERNELS[k]
         err, ms, plain_ms, bound_ms, bound_by = results[(key, "float32")]
         # no single PyTorch call computes any of the three functions
         kernels.append({"name": label, "route": "cuda",

@@ -20,11 +20,12 @@ run.
 
 Stderr: the measured seconds and pushes, ns/push (subcycles counted) and
 ns/cell (ref Hipace.cpp:509-553, counted as bench.py counts them), K1/K2/K3
-launches per slice from the wrappers' counters, the peak device memory and
-the kernels' build seconds. The last line of stdout is one JSON object:
-metric, value (the median slices/s), unit, runs (each run's slices/s),
-ns_per_push, ns_per_cell, device (the card's name) and power_limit (the
-``nvidia-smi --query-gpu=name,power.limit`` line, or "not read").
+and fused beam push launches per slice from the wrappers' counters, the
+peak device memory and the kernels' build seconds. The last line of stdout
+is one JSON object: metric, value (the median slices/s), unit, runs (each
+run's slices/s), ns_per_push, ns_per_cell, device (the card's name) and
+power_limit (the ``nvidia-smi --query-gpu=name,power.limit`` line, or "not
+read").
 
 The card is the default and the bench raises without one. ``--device cpu``
 is the rehearsal: the plain PyTorch versions in float64; its line says
@@ -51,6 +52,7 @@ import torch
 from . import decks
 from .device import card_line, resolve
 from .ops import cuda_lib
+from .ops.beam_push import beam_push
 from .ops.deposit import deposit
 from .ops.gather import gather_main
 from .ops.mg_kernel import mg_solve
@@ -105,8 +107,9 @@ def run(nxy: int = 1023, nz: int = 128, steps: int = 4, runs: int = 5,
 
     measured = max(1, steps - 1)
     n_slices = nz * measured
-    kernels = (deposit, gather_main, mg_solve)
-    for fn in kernels:
+    kernels = {"K1": deposit, "K2": gather_main, "K3": mg_solve,
+               "beam push": beam_push}
+    for fn in kernels.values():
         fn.launches = 0
     walls, step = [], 1
     for r in range(runs):
@@ -120,7 +123,8 @@ def run(nxy: int = 1023, nz: int = 128, steps: int = 4, runs: int = 5,
         walls.append(time.perf_counter() - t0)
         print(f"# run {r}: {walls[-1]:.3f} s for {n_slices} slices, "
               f"{n_slices / walls[-1]:.3f} slices/s", file=log, flush=True)
-    launches = [fn.launches / (runs * n_slices) for fn in kernels]
+    launches = {k: fn.launches / (runs * n_slices)
+                for k, fn in kernels.items()}
 
     rates = [n_slices / w for w in walls]
     value = statistics.median(rates)
@@ -134,7 +138,7 @@ def run(nxy: int = 1023, nz: int = 128, steps: int = 4, runs: int = 5,
     print(f"# ns/push (all, subcycled): {1e9 * wall / pushes:.3f}", file=log)
     print(f"# ns/cell: {1e9 * wall / counts['cells']:.3f}", file=log)
     print("# launches per slice: " + ", ".join(
-        f"{k} {n:.3f}" for k, n in zip(("K1", "K2", "K3"), launches))
+        f"{k} {n:.3f}" for k, n in launches.items())
         + ("" if on_card else " (the CPU runs the plain versions)"),
         file=log)
     print("# peak device memory: "
@@ -146,7 +150,7 @@ def run(nxy: int = 1023, nz: int = 128, steps: int = 4, runs: int = 5,
             "value": value, "unit": "slices/s", "runs": rates,
             "ns_per_push": 1e9 * wall / pushes,
             "ns_per_cell": 1e9 * wall / counts["cells"], **counts,
-            "launches_per_slice": dict(zip(("K1", "K2", "K3"), launches)),
+            "launches_per_slice": launches,
             "peak_gib": peak, "warmup_s": warmup, "build": build,
             "device": torch.cuda.get_device_name(dev) if on_card else "cpu",
             "power_limit": card_line() if on_card else "not read"}

@@ -39,6 +39,8 @@ SIGNATURES = {
                        _U, _P, _P],
     "hipace_gather_main": [_P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I,
                            _P],
+    "hipace_beam_push": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I,
+                         _I, _I, _I, _I, _I, _P],
     "hipace_mg_solve": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                         _I, _D, _D, _I, _D, _I, _I, _P, _P, _P, _I, _P],
 }

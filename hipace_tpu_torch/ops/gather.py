@@ -122,7 +122,7 @@ def gather_main_plain(planes, ym, xm, order):
     return torch.where(live, out, torch.zeros_like(out))
 
 
-def _plane_pointers(planes):
+def plane_pointers(planes):
     """(data pointers of the five planes, NY, NX, dtype, device) of a
     (5, NY, NX) CUDA stack or of five CUDA planes, each checked once."""
     if torch.is_tensor(planes):
@@ -153,7 +153,7 @@ def gather_main_cuda(planes, ym, xm, order):
     """Launch the K2 kernel on CUDA tensors."""
     if not 0 <= order <= 3:
         raise ValueError(f"unsupported order {order}")
-    ptrs, NY, NX, dt, device = _plane_pointers(planes)
+    ptrs, NY, NX, dt, device = plane_pointers(planes)
     N = ym.shape[0]
     cuda_lib.require(ym, "ym", dtype=dt, shape=(N,), device=device)
     cuda_lib.require(xm, "xm", dtype=dt, shape=(N,), device=device)

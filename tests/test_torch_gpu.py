@@ -12,6 +12,8 @@ Tolerances are relative to the largest output: float64 1e-12 and float32
 for the multigrid (roundoff carried through the V-cycles).
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -441,6 +443,106 @@ def test_beam_push_on_the_card_matches_the_cpu(cuda):
         assert torch.equal(got[k].cpu(), ref[k]), k
     for k in bm.BEAM_ATTRS:
         assert _rel(got[k].cpu(), ref[k]) < 1e-12, k
+
+
+def _push_lanes(sim, n, seed):
+    """_beam_lanes of two species, a third of them moved to within half a
+    cell of the box's transverse edges with transverse momenta that carry
+    many across; numpy, float64."""
+    g = sim.geom
+    bp, min_z = _beam_lanes(sim, n, 2, seed)
+    rng = np.random.default_rng(seed + 1)
+    edge = rng.random(n) < 1 / 3
+    for k, lo, hi in (("x", g.prob_lo[0], g.prob_hi[0]),
+                      ("y", g.prob_lo[1], g.prob_hi[1])):
+        side = np.where(rng.random(n) < 0.5, lo, hi)
+        bp[k] = np.where(edge, side + rng.uniform(-0.5, 0.5, n) * g.dx,
+                         bp[k])
+    for k in ("ux", "uy"):
+        bp[k] = np.where(edge, 60.0 * rng.standard_normal(n), bp[k])
+    return bp, min_z
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("boundary", ["Periodic", "Reflecting", "Absorbing"])
+@pytest.mark.parametrize("order", [0, 1, 2, 3])
+def test_beam_push_kernel(cuda, dtype, boundary, order):
+    """The fused beam push against its plain version (the subcycle loop) on
+    the card: lanes across the box's edges, resume counters 0-3, lanes
+    below min_z, dead lanes, every lane or one species of two, with and
+    without do_z_push. valid and nsub must be equal lane by lane. The floats
+    must lie within K2's tolerances in chip_smoke.py of each attribute's
+    largest value, 1e-12 in float64 and 1e-5 in float32: the kernel rounds
+    the push as the loop's ops do, but its gather's sums are K2's code,
+    inlined, whose multiply-adds the compiler may contract otherwise than in
+    K2's own kernel."""
+    from hipace_tpu_torch.decks import drive_witness
+    from hipace_tpu_torch.ops.beam_push import (beam_push_cuda,
+                                                beam_push_plain)
+    from hipace_tpu_torch.particles import beam as bm
+    from hipace_tpu_torch.pipeline.simulation import Simulation
+    sim = Simulation(drive_witness(31, 8, 1000), device="cpu", verbose=0)
+    lanes, min_z = _push_lanes(sim, 6000, 20 + order)
+    rng = np.random.default_rng(30 + order)
+    NY, NX = sim.geom.slice_shape
+    planes = {k: torch.tensor(0.5 * rng.standard_normal((NY, NX)),
+                              dtype=dtype, device=cuda)
+              for k in ("Psi", "Ez", "Bx", "By", "Bz")}
+    bp = {k: torch.as_tensor(v, device=cuda) for k, v in lanes.items()}
+    bp = {k: v.to(dtype) if v.is_floating_point() else v
+          for k, v in bp.items()}
+    tol = _tol(dtype, 1e-12, 1e-5)
+    for species, z_push in ((None, True), (1, True), (0, False)):
+        cfg = dataclasses.replace(sim.beam_cfgs[0],
+                                  particle_boundary=boundary,
+                                  do_z_push=z_push)
+        got = beam_push_cuda(bp, planes, sim.geom, cfg, sim.pc, 1.0, min_z,
+                             order, species)
+        mask = None if species is None else bp["beam_id"] == species
+        ref = beam_push_plain(bp, planes, sim.geom, cfg, sim.pc, 1.0, min_z,
+                              order, species_mask=mask)
+        torch.cuda.synchronize()
+        for k in ("valid", "nsub", "beam_id"):
+            assert torch.equal(got[k], ref[k]), (species, k)
+        for k in bm.BEAM_ATTRS:
+            assert got[k].dtype == dtype
+            assert _rel(got[k], ref[k]) <= tol, (species, k)
+        moved = got["uz"] != bp["uz"]
+        assert int(moved.sum()) > 1000
+        if mask is not None:
+            assert not bool(moved[~mask].any())
+        if not z_push:
+            assert torch.equal(got["z"], bp["z"])
+        # lanes stopped below min_z keep a counter to resume from
+        assert int((got["valid"] & (got["nsub"] > 0)).sum()) > 0
+
+
+def test_beam_push_counts_launches(cuda):
+    """DRIVE_WITNESS's drive beam is one launch of the fused push, its
+    witness (spin, radiation reaction) one push of the loop; an empty slice
+    launches nothing and comes back empty."""
+    from hipace_tpu_torch.decks import drive_witness
+    from hipace_tpu_torch.ops.beam_push import beam_push, beam_push_cuda
+    from hipace_tpu_torch.particles import beam as bm
+    from hipace_tpu_torch.pipeline.simulation import Simulation
+    sim = Simulation(drive_witness(31, 8, 1000), device="cpu", verbose=0)
+    lanes, min_z = _beam_lanes(sim, 4000, 2, 14)
+    bp = {k: torch.as_tensor(v, device=cuda) for k, v in lanes.items()}
+    NY, NX = sim.geom.slice_shape
+    planes = {k: torch.zeros((NY, NX), dtype=torch.float64, device=cuda)
+              for k in ("Psi", "Ez", "Bx", "By", "Bz")}
+    before = (beam_push.launches, bm.advance_beam_slice.general_calls)
+    bm.advance_all_beams(bp, planes, sim.geom, sim.beam_cfgs, sim.pc, 1.0,
+                         min_z,
+                         background_density_SI=sim.cfg.background_density_SI)
+    assert (beam_push.launches, bm.advance_beam_slice.general_calls) == (
+        before[0] + 1, before[1] + 1)
+    empty = {k: v[:0] for k, v in bp.items()}
+    out = beam_push_cuda(empty, planes, sim.geom, sim.beam_cfgs[0], sim.pc,
+                         1.0, min_z)
+    torch.cuda.synchronize()
+    assert beam_push.launches == before[0] + 1
+    assert all(out[k].numel() == 0 for k in bm.ALL_ATTRS)
 
 
 def test_two_beam_deposit_on_the_card_matches_the_cpu(cuda):
