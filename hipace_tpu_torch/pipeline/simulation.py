@@ -660,8 +660,9 @@ class Simulation:
             st["pc_iters"].append(out["pc_iters"])
             st["pc_err"].append(out["pc_err"])
             if self.cfg.use_laser:
-                st["laser_out"][0][islice] = out["laser_np1"]
-                st["laser_out"][1][islice] = out["laser_n00"]
+                with span("laser: stream rows"):
+                    st["laser_out"][0][islice] = out["laser_np1"]
+                    st["laser_out"][1][islice] = out["laser_n00"]
                 st["laser_cycles"].append(out["laser_cycles"])
         return out["beam_out"]
 

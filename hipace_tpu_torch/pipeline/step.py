@@ -870,22 +870,24 @@ class SliceStep:
             # ---- the laser: this slice's envelope state and |a|^2 (ref
             # Hipace.cpp:603 UpdateLaserAabs)
             if cfg.use_laser:
-                lg = self.laser_geom
-                lz_lo, lz_hi = self.laser_zeta
-                has_laser = lz_lo <= islice <= lz_hi
-                n00_row, nm1_row = laser_rows
-                if carry["step"] == 0 and not cfg.laser.from_file:
-                    n00j00 = envelope_slice(
-                        cfg.laser, lg, g.z_pos_offset + islice * g.dz,
-                        self.dtype, self.device)
-                else:
-                    n00j00 = n00_row
-                if not has_laser:
-                    n00j00 = torch.zeros_like(n00j00)
-                lstate = dict(carry["laser"], n00j00=n00j00, nm1j00=nm1_row)
-                aabs_l = torch.abs(n00j00) ** 2
-                this["aabs"] = (self.l2f.apply(aabs_l)
-                                if self.separate_laser_grid else aabs_l)
+                with span("laser: slice init"):
+                    lg = self.laser_geom
+                    lz_lo, lz_hi = self.laser_zeta
+                    has_laser = lz_lo <= islice <= lz_hi
+                    n00_row, nm1_row = laser_rows
+                    if carry["step"] == 0 and not cfg.laser.from_file:
+                        n00j00 = envelope_slice(
+                            cfg.laser, lg, g.z_pos_offset + islice * g.dz,
+                            self.dtype, self.device)
+                    else:
+                        n00j00 = n00_row
+                    if not has_laser:
+                        n00j00 = torch.zeros_like(n00j00)
+                    lstate = dict(carry["laser"], n00j00=n00j00,
+                                  nm1j00=nm1_row)
+                    aabs_l = torch.abs(n00j00) ** 2
+                    this["aabs"] = (self.l2f.apply(aabs_l)
+                                    if self.separate_laser_grid else aabs_l)
 
         with span("deposit"):
             # ---- plasma deposits on This (K1): explicit, the currents and

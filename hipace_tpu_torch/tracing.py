@@ -29,8 +29,10 @@ device activities.
 
 Names: "time step", "plasma init", "slice step", "slice init", "deposit",
 "field solve", "diagnostics", "plasma push", "beam push", "shift", "re-bin",
-"output", "ring exchange", "ring wait"; the optional paths' "laser: envelope
-advance", "laser: |a|^2 gather", "ionization module", "collisions",
+"output", "ring exchange", "ring wait"; the optional paths' "laser: slice
+init" (the slice's envelope row and its |a|^2 plane), "laser: envelope
+advance", "laser: |a|^2 gather", "laser: stream rows" (the slice's rows of
+the next step's envelope stream), "ionization module", "collisions",
 "SALAME", "MR: level init", "MR: level deposits", "MR: level Psi/Ez/Bz",
 "MR: level Bx/By"; and "read: <site>" around each read of the device that
 the host waits for. No span opens inside a loop over lanes, subcycles or
