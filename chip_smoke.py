@@ -3,21 +3,26 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels (K1 deposit, K2 gather, K3 multigrid, the
-fused beam push) from ``hipace_tpu_torch/csrc`` with nvcc, prints each
-kernel's registers, stack frame and spills (K2's order-2 kernels must use no
-local memory), holds each kernel against its plain PyTorch version at the
-main path's shapes (1023^2 grid, ~1.05M plasma particles; K1 and K2 also on
-the same lanes shuffled, moved by up to 40 cells, and on a 30k-lane beam
-slice) in float32 and float64 (the fused beam push on the benchmark's 2047^2
-beam slices of ~42k and ~95k lanes in float64 and the flagship's 30k in
-float32, equal valid lanes and resume counters), checks a small time step on the kernels against the same step on
-the CPU plain path, then drives the port's main path -- a ``Simulation`` of
-the flagship blowout-wake deck (``hipace_tpu_torch.decks.BLOWOUT_WAKE``) at
-1023^2 x 64 slices in float32 -- for one warm-up and two timed steps, and
-checks that every kernel ran as often as the slice structure predicts (a
-beam species' push one fused launch per slice, unless it keeps the subcycle
-loop with its K2 launches: external fields, spin, radiation reaction, an
-active mesh-refinement level), that
+fused beam and plasma pushes) from ``hipace_tpu_torch/csrc`` with nvcc,
+prints each kernel's registers, stack frame and spills (K2's order-2 kernels
+must use no local memory), holds each kernel against its plain PyTorch
+version at the main path's shapes (1023^2 grid, ~1.05M plasma particles; K1
+and K2 also on the same lanes shuffled, moved by up to 40 cells, and on a
+30k-lane beam slice) in float32 and float64 (the fused beam push on the
+benchmark's 2047^2 beam slices of ~42k and ~95k lanes in float64 and the
+flagship's 30k in float32, equal valid lanes and resume counters; the fused
+plasma push on the benchmark cells' 2047^2 species in float64, with and
+without the laser, and the flagship's 1023^2 species in float32, every
+output bit for bit), checks a small time step on the kernels against the
+same step on the CPU plain path, then drives the port's main path -- a
+``Simulation`` of the flagship blowout-wake deck
+(``hipace_tpu_torch.decks.BLOWOUT_WAKE``) at 1023^2 x 64 slices in float32
+-- for one warm-up and two timed steps, and checks that every kernel ran as
+often as the slice structure predicts (a beam species' push one fused launch
+per slice, unless it keeps the subcycle loop with its K2 launches: external
+fields, spin, radiation reaction, an active mesh-refinement level; a plasma
+species' push one fused launch per slice, unless the AB5 pusher or an
+active mesh-refinement level keeps its loop), that
 a multigrid solve is at most three device launches, and prints the share of
 deposit blocks that took the kernel's direct path. Two more timed steps
 follow the counted ones.
@@ -266,6 +271,9 @@ KERNELS = {
 ALL_KERNELS = dict(KERNELS, **{"beam push": (
     "beam_push", "hipace_tpu_torch/csrc/beam_push.cu",
     "hipace_tpu/particles/beam.py advance_beam_slice (the subcycle loop) and "
+    "its K2 calls, hipace_tpu/ops/pallas_banded.py:663"), "plasma push": (
+    "plasma_push", "hipace_tpu_torch/csrc/plasma_push.cu",
+    "hipace_tpu/particles/plasma.py:619 advance_plasma (the push loop) and "
     "its K2 calls, hipace_tpu/ops/pallas_banded.py:663")})
 
 # NVIDIA H100 SXM data sheet: HBM3 bytes/s, non-tensor FLOP/s by itemsize
@@ -422,6 +430,25 @@ def fused_pushes(sim):
     """Fused beam push launches per slice: one per species that takes it."""
     from hipace_tpu_torch.ops.beam_push import takes_kernel
     return sum(takes_kernel(c) for c in sim.beam_cfgs)
+
+
+def plasma_k2(sim):
+    """K2 launches per slice of the plasma pushes on a slice where no fine
+    level is active: one per subcycle of each species where the deck's
+    pusher keeps the push loop (AB5); the leapfrog takes the fused plasma
+    push, which launches no K2 (ops/plasma_push.py takes_kernel)."""
+    from hipace_tpu_torch.ops.plasma_push import takes_kernel
+    if takes_kernel(sim.cfg.plasma_pusher):
+        return 0
+    return sum(p.n_subcycles for p in sim.plasma_cfgs)
+
+
+def plasma_pushes(sim):
+    """Fused plasma push launches per slice where no fine level is active:
+    one per species where the deck's pusher takes it."""
+    from hipace_tpu_torch.ops.plasma_push import takes_kernel
+    return (len(sim.plasma_cfgs) if takes_kernel(sim.cfg.plasma_pusher)
+            else 0)
 
 
 def plasma_lanes(torch, g, dtype):
@@ -698,6 +725,99 @@ def beam_push_phase(torch, g_flag, results):
         results[("beam push", name)] = (worst[1], ms, plain_ms, b_ms, by)
 
 
+# the fused plasma push's cases: (label, nxy, dtype name, the deck's box,
+# laser): the benchmark's two cells' species and the 1023^2 flagship's
+PLASMA_PUSH_CASES = (
+    ("explicit.2047", 2047, "float64", ((-8.0, -8.0, -6.0), (8.0, 8.0, 2.0)),
+     False),
+    ("laser.2047", 2047, "float64",
+     ((-20.0, -20.0, -7.5), (20.0, 20.0, 6.0)), True),
+    ("1023^2 flagship", 1023, "float32", None, False))
+# per lane and subcycle at order 2: six substeps of 83 operations (93 with
+# the laser; a division counts one), the cell positions, scalings and the
+# position push (~22), K2's nodal gather (~360: the weights, 16 taps of six
+# sums, the rows' weights); with the laser its |a|^2 gather (~150: the
+# weights, 9 taps of three weighted terms, the three sums)
+PLASMA_PUSH_FLOPS = 6 * 83 + 22 + 360
+LASER_PUSH_FLOPS = 6 * 10 + 150
+
+
+@phase("plasma push")
+def plasma_push_phase(torch, g_flag, results):
+    """The fused plasma push on the cells' and the flagship's species
+    against its plain version (the push loop) on the card: every output
+    equal bit for bit; its device time, its bound (the lanes read and
+    written once, the planes read once) and the loop's device and host
+    times."""
+    from hipace_tpu_torch.constants import make_constants
+    from hipace_tpu_torch.geometry import Geometry
+    from hipace_tpu_torch.ops import plasma_push as ppo
+    from hipace_tpu_torch.particles import plasma as pl
+    pc = make_constants(True)
+    cfg = pl.PlasmaConfig()
+    for label, nxy, name, box, laser in PLASMA_PUSH_CASES:
+        dtype = getattr(torch, name)
+        g = g_flag if box is None else Geometry((nxy, nxy, 32), *box)
+        gen = torch.Generator(device="cuda").manual_seed(nxy + int(laser))
+
+        def noise(shape, scale):
+            return (scale * torch.randn(shape, generator=gen, device="cuda",
+                                        dtype=torch.float64)).to(dtype)
+
+        p = pl.init_plasma(cfg, g, "cuda", dtype)
+        n = p["x"].numel()
+        x = p["x"] + noise(n, 0.1 * g.dx)
+        y = p["y"] + noise(n, 0.1 * g.dy)
+        p.update(x=x, y=y, x_prev=x, y_prev=y, ux_half=noise(n, 0.05),
+                 uy_half=noise(n, 0.05),
+                 psi_half=1.0 + noise(n, 0.02).abs())
+        NY, NX = g.slice_shape
+        f = {c: noise((NY, NX), 0.05) for c in ("Psi", "Ez", "Bx", "By",
+                                                "Bz")}
+        if laser:
+            f["aabs"] = (2.0 * torch.rand((NY, NX), generator=gen,
+                                          device="cuda",
+                                          dtype=torch.float64)).to(dtype)
+
+        def kernel():
+            return ppo.plasma_push_cuda(p, f, g, cfg, pc, 2, False, laser)
+
+        def plain():
+            return ppo.plasma_push_plain(p, f, g, cfg, pc, 2,
+                                         use_laser=laser)
+
+        got, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        same = got.keys() == ref.keys() and all(
+            torch.equal(got[k], ref[k]) for k in ref)
+        err = max(float((got[k].double() - ref[k].double()).abs().max())
+                  for k in ppo.LANE_OUT[:-1])
+        ms = cuda_ms(kernel)
+        plain_ms = cuda_ms(plain)
+        plain_wall = wall_ms(plain)
+        print(f"plasma push {name} {label} ({'with' if laser else 'no'} "
+              f"laser) on {NY}x{NX}, {n} lanes: every output equal {same}, "
+              f"floats max abs err {err:.3e} {'ok' if same else 'FAIL'}; "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.3f} ms on the device, "
+              f"{plain_wall:.3f} ms host wall; {CARD['line']}", flush=True)
+        if not same:
+            raise AssertionError(f"plasma push {name} {label} differs from "
+                                 "the loop")
+        # each lane's six floats and valid read and eight floats written
+        # (Periodic: w and valid come back as given), the planes read once
+        size = p["x"].element_size()
+        nbytes = (n * (6 * size + 1 + 8 * size)
+                  + (5 + int(laser)) * NY * NX * size)
+        flops = n * cfg.n_subcycles * (PLASMA_PUSH_FLOPS
+                                       + LASER_PUSH_FLOPS * int(laser))
+        b_ms, by = bound_line("plasma push", f"{name} {label}", ms, nbytes,
+                              flops, size)
+        # per dtype the last case's: float32 the flagship's
+        results[("plasma push", name)] = (err, ms, plain_ms, b_ms, by)
+        del p, f, got, ref
+        torch.cuda.empty_cache()
+
+
 def k3_case(torch, dtype, ny, nx, dx, dy, C, acf_kind, max_iters, seed):
     """One solve on the kernel and on the plain version: (label, mg, args,
     kwargs, got, ref, cycles, plain cycles, device launches)."""
@@ -874,12 +994,15 @@ def main_path(torch, sim, counts):
     from hipace_tpu_torch.ops.gather import gather_main
     from hipace_tpu_torch.ops.beam_push import beam_push
     from hipace_tpu_torch.ops.mg_kernel import mg_solve
+    from hipace_tpu_torch.ops.plasma_push import plasma_push
     from hipace_tpu_torch.particles.beam import advance_beam_slice
+    from hipace_tpu_torch.particles.plasma import advance_plasma
     n0 = int(sim.binned["valid"].sum())
     steps, extra_steps = 3, 2
-    for fn in (deposit, gather_main, mg_solve, beam_push):
+    for fn in (deposit, gather_main, mg_solve, beam_push, plasma_push):
         fn.launches = 0
     advance_beam_slice.general_calls = 0
+    advance_plasma.general_calls = 0
     mg_solve.kernel_launches = 0
     reset_block_counts()
     step_seconds = []
@@ -889,7 +1012,9 @@ def main_path(torch, sim, counts):
             counts.update({"K1": deposit.launches, "K2": gather_main.launches,
                            "K3": mg_solve.launches,
                            "beam push": beam_push.launches,
-                           "beam loop": advance_beam_slice.general_calls})
+                           "beam loop": advance_beam_slice.general_calls,
+                           "plasma push": plasma_push.launches,
+                           "plasma loop": advance_plasma.general_calls})
             mg_launches = mg_solve.kernel_launches
             direct, blocks = direct_block_count("cuda"), deposit.blocks
         torch.cuda.synchronize()
@@ -910,9 +1035,10 @@ def main_path(torch, sim, counts):
     g = sim.geom
     pcfg = sim.plasma_cfgs[0]
     per_step = {"K1": int(pcfg.neutralize_background) + 3 * g.nz,
-                "K2": g.nz * (pcfg.n_subcycles + beam_k2(sim)),
+                "K2": g.nz * (plasma_k2(sim) + beam_k2(sim)),
                 "K3": g.nz, "beam push": g.nz * fused_pushes(sim),
-                "beam loop": 0}
+                "beam loop": 0, "plasma push": g.nz * plasma_pushes(sim),
+                "plasma loop": 0}
     t_timed = sum(step_seconds[1:steps])
     slices = g.nz * (steps - 1)
     print(f"main path {NXY}^2 x {NZ} float32, {NPART} beam particles: "
@@ -928,11 +1054,14 @@ def main_path(torch, sim, counts):
     if mg_launches > 3 * counts["K3"]:
         raise AssertionError("a multigrid solve took more than 3 launches")
     for k, fn_name in [(k, v[0]) for k, v in KERNELS.items()] + [
-            ("beam push", "beam_push"), ("beam loop", "general_calls")]:
+            ("beam push", "beam_push"), ("beam loop", "general_calls"),
+            ("plasma push", "plasma_push"), ("plasma loop", "general_calls")]:
         want = per_step[k] * steps
         print(f"launches {k} {fn_name}: {counts[k]} (slice structure "
               f"predicts {want})", flush=True)
-        if counts[k] != want or (counts[k] == 0 and k != "beam loop"):
+        if counts[k] != want or (counts[k] == 0
+                                 and k not in ("K2", "beam loop",
+                                               "plasma loop")):
             raise AssertionError(f"{k} launch count {counts[k]} != {want}")
 
 
@@ -1003,6 +1132,7 @@ def pc_path(torch, counts):
     from hipace_tpu_torch.ops.deposit import deposit
     from hipace_tpu_torch.ops.gather import gather_main
     from hipace_tpu_torch.ops.mg_kernel import mg_solve
+    from hipace_tpu_torch.ops.plasma_push import plasma_push
     from hipace_tpu_torch.pipeline.simulation import Simulation
     sim = Simulation(pc_open(NXY, NZ, NPART), device="cuda",
                      dtype=torch.float32, verbose=0)
@@ -1010,7 +1140,7 @@ def pc_path(torch, counts):
     pcfg = sim.plasma_cfgs[0]
     n0 = int(sim.binned["valid"].sum())
     steps = 3
-    for fn in (deposit, gather_main, mg_solve):
+    for fn in (deposit, gather_main, mg_solve, plasma_push):
         fn.launches = 0
     iters, step_seconds, copies = [], [], None
     for step in range(steps):
@@ -1038,7 +1168,8 @@ def pc_path(torch, counts):
         if not finite or n != n0:
             raise AssertionError("non-finite fields or beam particles lost")
     counts.update({"K1": deposit.launches, "K2": gather_main.launches,
-                   "K3": mg_solve.launches})
+                   "K3": mg_solve.launches,
+                   "plasma push": plasma_push.launches})
     total = sum(map(sum, iters))
     flat = sorted(i for it in iters for i in it)
     median = flat[len(flat) // 2]
@@ -1060,9 +1191,10 @@ def pc_path(torch, counts):
           f"{2.15 + mean0:.3f})", flush=True)
     want = {"K1": steps * (g.nz * 2 + int(pcfg.neutralize_background))
             + 2 * total,
-            "K2": steps * g.nz * (pcfg.n_subcycles + beam_k2(sim))
-            + pcfg.n_subcycles * total,
-            "K3": 0}
+            "K2": steps * g.nz * (plasma_k2(sim) + beam_k2(sim))
+            + plasma_k2(sim) * total,
+            "K3": 0,
+            "plasma push": (steps * g.nz + total) * plasma_pushes(sim)}
     for k, count in counts.items():
         print(f"PC path launches {k}: {count} (slice structure and the run's "
               f"iterations predict {want[k]})", flush=True)
@@ -1206,18 +1338,20 @@ def even_path(torch, counts):
                                               reset_block_counts)
     from hipace_tpu_torch.ops.gather import gather_main
     from hipace_tpu_torch.ops.mg_kernel import mg_solve
+    from hipace_tpu_torch.ops.plasma_push import plasma_push
     from hipace_tpu_torch.pipeline.simulation import Simulation
     sim = Simulation(ion_motion_even(EVEN_NXY, NZ, NPART), device="cuda",
                      dtype=torch.float32, verbose=0)
     g = sim.geom
     n0 = int(sim.binned["valid"].sum())
     steps = 3
-    for fn in (deposit, gather_main, mg_solve):
+    for fn in (deposit, gather_main, mg_solve, plasma_push):
         fn.launches = 0
     reset_block_counts()
     res, times = timed_steps(torch, sim, steps, write=False)
     counts.update({"K1": deposit.launches, "K2": gather_main.launches,
-                   "K3": mg_solve.launches})
+                   "K3": mg_solve.launches,
+                   "plasma push": plasma_push.launches})
     direct, blocks = direct_block_count("cuda"), deposit.blocks
     print(f"even path K1 blocks on the direct path: {direct} of {blocks} "
           f"({100 * direct / blocks:.2f}%)", flush=True)
@@ -1242,8 +1376,8 @@ def even_path(torch, counts):
     per_step = {
         "K1": sum(int(p.neutralize_background) for p in cfgs)
         + g.nz * (len(cfgs) + 2),
-        "K2": g.nz * (sum(p.n_subcycles for p in cfgs) + beam_k2(sim)),
-        "K3": g.nz}
+        "K2": g.nz * (plasma_k2(sim) + beam_k2(sim)),
+        "K3": g.nz, "plasma push": g.nz * plasma_pushes(sim)}
     for k, count in counts.items():
         print(f"even path launches {k}: {count} (slice structure with "
               f"{len(cfgs)} species predicts {per_step[k] * steps})",
@@ -1422,12 +1556,12 @@ def witness_path(torch, counts, results):
     # reaction) keeps the subcycle loop
     sub = beam_k2(sim)
     per_step = {"K1": int(pcfg.neutralize_background) + 3 * g.nz,
-                "K2": g.nz * (pcfg.n_subcycles + sub), "K3": g.nz,
+                "K2": g.nz * (plasma_k2(sim) + sub), "K3": g.nz,
                 "K2 beam": g.nz * sub, "beam push": g.nz * fused_pushes(sim)}
     for k, count in counts.items():
         print(f"witness path launches {k}: {count} (slice structure with "
               f"{nb} beam species predicts {per_step[k] * steps}; per slice "
-              f"K2 {pcfg.n_subcycles} + {sub} (the loop's subcycles), "
+              f"K2 {plasma_k2(sim)} + {sub} (the loops' subcycles), "
               f"{fused_pushes(sim)} fused beam push)", flush=True)
     # K2 on the witness pass's lanes of the slice that holds most of the
     # witness: every lane of the merged slice, the drive's dead
@@ -1707,13 +1841,14 @@ def laser_path(torch, counts, results):
     from hipace_tpu_torch.ops.deposit import deposit
     from hipace_tpu_torch.ops.gather import gather_laser_aabs, gather_main
     from hipace_tpu_torch.ops.mg_kernel import mg_solve
+    from hipace_tpu_torch.ops.plasma_push import plasma_push
     from hipace_tpu_torch.pipeline.simulation import Simulation
     sim = Simulation(laser_wake(NXY, LASER_NZ), device="cuda",
                      dtype=torch.float32, verbose=0)
     g = sim.geom
     a0 = sim.laser_cfg.pulses[0].a0
     steps = 3
-    for fn in (deposit, gather_main, mg_solve):
+    for fn in (deposit, gather_main, mg_solve, plasma_push):
         fn.launches = 0
     mg_solve.complex_launches = 0
     times, peaks, copies = [], [], None
@@ -1745,15 +1880,16 @@ def laser_path(torch, counts, results):
             raise AssertionError("non-finite fields or envelope")
     counts.update({"K1": deposit.launches, "K2": gather_main.launches,
                    "K3": mg_solve.launches,
-                   "K3 complex": mg_solve.complex_launches})
+                   "K3 complex": mg_solve.complex_launches,
+                   "plasma push": plasma_push.launches})
     pcfg = sim.plasma_cfgs[0]
     per_step = {"K1": int(pcfg.neutralize_background) + g.nz,
-                "K2": g.nz * pcfg.n_subcycles, "K3": g.nz,
-                "K3 complex": g.nz}
+                "K2": g.nz * plasma_k2(sim), "K3": g.nz,
+                "K3 complex": g.nz, "plasma push": g.nz * plasma_pushes(sim)}
     for k, count in counts.items():
         print(f"laser path launches {k}: {count} (slice structure predicts "
-              f"{per_step[k] * steps}: per slice one plasma deposit, push "
-              f"and Bx/By solve and one envelope solve; no beam)",
+              f"{per_step[k] * steps}: per slice one plasma deposit, fused "
+              f"push and Bx/By solve and one envelope solve; no beam)",
               flush=True)
     slices = g.nz * (steps - 1)
     t_step = sum(times[1:])
@@ -1767,8 +1903,9 @@ def laser_path(torch, counts, results):
           f"warm-up step): {copies / g.nz:.3f} (the flagship's: the beam's "
           f"2.05; the laser adds none)", flush=True)
     # the laser's own device work per slice, each part timed alone on the
-    # path's shapes: the advance (its complex K3 solve apart) and the |a|^2
-    # gathers of the deposit and of the push on the plasma's lanes
+    # path's shapes: the advance (its complex K3 solve apart) and the
+    # deposit's |a|^2 gather on the plasma's lanes (the push's runs inside
+    # the fused plasma push)
     st = sim.slice_step
     lg = sim.laser_geom
     state = {k: res["laser_stream"][1][g.nz // 2] for k in
@@ -1782,10 +1919,10 @@ def laser_path(torch, counts, results):
     aabs = torch.abs(state["n00j00"]) ** 2
     gat_ms = cuda_ms(lambda: gather_laser_aabs(lanes["x"], lanes["y"], aabs,
                                                g, 2))
-    laser_ms = adv_ms + 2 * gat_ms
+    laser_ms = adv_ms + gat_ms
     print(f"laser path, the laser's device time per slice: advance "
-          f"{adv_ms:.3f} ms (with its complex K3 solve), |a|^2 gather "
-          f"{gat_ms:.3f} ms x 2 (deposit and push) = {laser_ms:.3f} ms, "
+          f"{adv_ms:.3f} ms (with its complex K3 solve), the deposit's "
+          f"|a|^2 gather {gat_ms:.3f} ms = {laser_ms:.3f} ms, "
           f"{100 * laser_ms / (1e3 * t_step / slices):.1f}% of the wall "
           f"time per slice; {CARD['line']}", flush=True)
     print(f"laser path real V-cycles per slice of the last step, head "
@@ -2223,8 +2360,7 @@ def ionization_path(torch, counts, results):
     cfgs = sim.plasma_cfgs
     per_step = {"K1": sum(int(p.neutralize_background) for p in cfgs)
                 + g.nz * (len(cfgs) + 2),
-                "K2": g.nz * (sum(p.n_subcycles for p in cfgs)
-                              + beam_k2(sim) + 1),
+                "K2": g.nz * (plasma_k2(sim) + beam_k2(sim) + 1),
                 "K3": g.nz, "K2 ionization": g.nz}
     n = int(sim.binned["valid"].sum())
     finite = bool(torch.isfinite(res["diag"]).all())
@@ -2258,8 +2394,9 @@ def ionization_path(torch, counts, results):
     for k, count in counts.items():
         print(f"ionization path launches {k}: {count} (slice structure "
               f"predicts {per_step[k] * steps}: per slice two species' "
-              f"deposits and pushes, the beam's fused push (K2 in its loop: "
-              f"{beam_k2(sim)}), one ionization gather)", flush=True)
+              f"deposits and fused pushes, the beam's fused push (K2 in the "
+              f"loops: {plasma_k2(sim) + beam_k2(sim)}), one ionization "
+              f"gather)", flush=True)
     # the module and its gather alone, on the kept call's arguments
     args = kept["args"]
     draw = torch.rand(args[0]["x"].numel(), device="cuda")
@@ -2372,7 +2509,7 @@ def collision_path(torch, counts, results):
                    "K3": mg_solve.launches})
     pcfg, bcfg = sim.plasma_cfgs[0], sim.beam_cfgs[0]
     per_step = {"K1": int(pcfg.neutralize_background) + 3 * g.nz,
-                "K2": g.nz * (pcfg.n_subcycles + beam_k2(sim)),
+                "K2": g.nz * (plasma_k2(sim) + beam_k2(sim)),
                 "K3": g.nz}
     slices = g.nz * (steps - 1)
     t_step = sum(times[1:])
@@ -2641,7 +2778,7 @@ def pdf_path(torch):
           f"rel {w_rel:.3e}, tol 1e-5)", flush=True)
     pcfg = sim.plasma_cfgs[0]
     per_step = {"K1": int(pcfg.neutralize_background) + 3 * g.nz,
-                "K2": g.nz * (pcfg.n_subcycles + beam_k2(sim)),
+                "K2": g.nz * (plasma_k2(sim) + beam_k2(sim)),
                 "K3": g.nz}
     for k, count in counts.items():
         print(f"pdf path launches {k}: {count} (slice structure predicts "
@@ -3007,11 +3144,11 @@ def salame_path(torch, counts, results):
     pcfg = sim.plasma_cfgs[0]
     it = sim.cfg.salame_n_iter
     base = {"K1": int(pcfg.neutralize_background) + 3 * g.nz,
-            "K2": g.nz * (pcfg.n_subcycles + sub), "K3": g.nz}
+            "K2": g.nz * (plasma_k2(sim) + sub), "K3": g.nz}
     # per SALAME slice and iteration: K1 the trial jx/jy, SALAME's jz, the
-    # plasma's response, the jz redeposit; K2 the trial push and SALAME's
-    # B gather; K3 two solves
-    extra = {"K1": 4 * it, "K2": 2 * it, "K3": 2 * it}
+    # plasma's response, the jz redeposit; K2 SALAME's B gather (and the
+    # trial push where it keeps the loop); K3 two solves
+    extra = {"K1": 4 * it, "K2": (1 + plasma_k2(sim)) * it, "K3": 2 * it}
     want = [{k: base[k] + extra[k] * n for k in base} for n in (n_sal, 0)]
     counts.update({k: per_step[0][k] + per_step[1][k] for k in fns})
     # K3's own count inside SALAME's calls, both steps
@@ -3137,12 +3274,14 @@ def mr_path(torch, counts, results):
     counts["K2 fine"] = k2p.launches
     counts["K3 fine"] = k3.launches
     pcfg = sim.plasma_cfgs[0]
-    # on the level's active slices every beam push keeps the subcycle loop
-    # and gathers on both levels; on the others the fused push takes it
+    # on the level's active slices every plasma and beam push keeps its
+    # loop and gathers on both levels; on the others the fused pushes take
+    # them
     all_sub = sum(c.n_subcycles for c in sim.beam_cfgs)
     per_step = {"K1": 2 * int(pcfg.neutralize_background) + 3 * (g.nz + n_act),
-                "K2": (g.nz + n_act) * pcfg.n_subcycles
-                + (g.nz - n_act) * beam_k2(sim) + 2 * n_act * all_sub,
+                "K2": 2 * n_act * pcfg.n_subcycles
+                + (g.nz - n_act) * (plasma_k2(sim) + beam_k2(sim))
+                + 2 * n_act * all_sub,
                 "K3": g.nz + n_act, "K1 fine": n_act,
                 "K2 fine": n_act * (pcfg.n_subcycles + all_sub),
                 "K3 fine": n_act,
@@ -3184,9 +3323,10 @@ def mr_path(torch, counts, results):
     for k, count in counts.items():
         print(f"MR path launches {k}: {count} (slice structure predicts "
               f"{per_step[k] * steps}: per slice 3 / "
-              f"{pcfg.n_subcycles} + the beam's / 1 on each running level, "
-              f"the beam's K2 {all_sub} per level on the {n_act} active "
-              f"slices and {beam_k2(sim)} on the others, one background "
+              f"{pcfg.n_subcycles} + the beam's / 1 on each running level "
+              f"on the {n_act} active slices (the loops' K2, the beam's "
+              f"{all_sub} per level), 3 / {plasma_k2(sim) + beam_k2(sim)} / "
+              f"1 on the others (the fused pushes), one background "
               f"deposit per level and step)", flush=True)
     # a coupler product on the card against the CPU's in float64
     coup = sim.slice_step.couplers[0]
@@ -3465,7 +3605,7 @@ def pipeline_path(torch, counts):
     cycles = [c for s in keeper.steps for c in s["mg_cycles"]]
     n = int(sim.binned["valid"].sum())
     pipe_binned = sim.binned
-    pcfg, loop_k2 = sim.plasma_cfgs[0], beam_k2(sim)
+    pcfg, loop_k2 = sim.plasma_cfgs[0], plasma_k2(sim) + beam_k2(sim)
     del sim
     torch.cuda.empty_cache()
 
@@ -3490,7 +3630,7 @@ def pipeline_path(torch, counts):
     spread = beam_rel(torch, finals[1], finals[0], sort=True)
 
     per_step = {"K1": int(pcfg.neutralize_background) + 3 * g.nz,
-                "K2": g.nz * (pcfg.n_subcycles + loop_k2),
+                "K2": g.nz * loop_k2,
                 "K3": g.nz}
     slices = g.nz * steps
     print(f"pipeline path {NXY}^2 x {NZ} float32, {NPART} beam particles, "
@@ -3701,11 +3841,13 @@ def bench_phase(torch):
     """The port's bench (hipace_tpu_torch.bench) in this process on its
     pdf deck at 1023^2 x 64: one warm-up step, then 3 runs of 2 measured
     steps; its JSON line on a line of its own. It must name this card and
-    have launched K1, K2 and K3 on every slice."""
+    have launched K1, K3 and the fused beam and plasma pushes on every slice
+    (K2 runs inside the fused pushes on this deck)."""
     from hipace_tpu_torch import bench
     rec = bench.run(nxy=NXY, nz=NZ, steps=3, runs=3, log=sys.stdout)
     print(json.dumps(rec), flush=True)
-    low = [k for k, n in rec["launches_per_slice"].items() if n < 1]
+    low = [k for k, n in rec["launches_per_slice"].items()
+           if n < 1 and k != "K2"]
     if rec["device"] != torch.cuda.get_device_name(0) or low:
         raise AssertionError(f"bench on {rec['device']}, kernels under one "
                              f"launch per slice: {low}")
@@ -3722,7 +3864,9 @@ def gate_phase(torch):
     from hipace_tpu_torch.ops.deposit import deposit
     from hipace_tpu_torch.ops.gather import gather_main
     from hipace_tpu_torch.ops.mg_kernel import mg_solve
-    kernels = {"K1": deposit, "K2": gather_main, "K3": mg_solve}
+    from hipace_tpu_torch.ops.plasma_push import plasma_push
+    kernels = {"K1": deposit, "K2": gather_main, "K3": mg_solve,
+               "plasma push": plasma_push}
     for fn in kernels.values():
         fn.launches = 0
     record = gpu_check.gate([c.name for c in gpu_check.CASES[:GATE_CASES]],
@@ -3805,6 +3949,7 @@ def main() -> int:
         k2_phase(torch, g, dtype, lc, results)
         k3_phase(torch, g, dtype, results)
     beam_push_phase(torch, g, results)
+    plasma_push_phase(torch, g, results)
     reference_phase(torch)
     counts: dict = {}
     main_path(torch, sim, counts)
@@ -3876,8 +4021,9 @@ def main() -> int:
     entries += [("K1", "K1 PC plasma C=2",
                  "K1 deposit, PC path (trial plasma jx/jy, C=2)",
                  pc_counts["K1"]),
-                ("K2", "K2", "K2 gather_main, PC path (plasma pushes)",
-                 pc_counts["K2"]),
+                ("plasma push", "plasma push",
+                 "plasma push, PC path (the push and every trial push)",
+                 pc_counts["plasma push"]),
                 ("K3", "K3 CC Bx/By",
                  "K3 mg_solve, even path (cell-centered Bx/By, C=2)",
                  even_counts["K3"]),
@@ -3909,6 +4055,10 @@ def main() -> int:
     entries += [("beam push", "beam push",
                  "beam push, main path (the beam's subcycles, one launch "
                  "per slice)", counts["beam push"])]
+    # the fused plasma push: the flagship's species, the flagship's count
+    entries += [("plasma push", "plasma push",
+                 "plasma push, main path (the plasma's push, one launch per "
+                 "species and slice)", counts["plasma push"])]
     # the pipelined flagship runs the flagship's calls: their times, the
     # pipeline path's counts
     entries += [(k, k, f"{k} {fn}, pipelined flagship ({PIPE_STAGES} stages "

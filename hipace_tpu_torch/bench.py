@@ -20,12 +20,12 @@ run.
 
 Stderr: the measured seconds and pushes, ns/push (subcycles counted) and
 ns/cell (ref Hipace.cpp:509-553, counted as bench.py counts them), K1/K2/K3
-and fused beam push launches per slice from the wrappers' counters, the
-peak device memory and the kernels' build seconds. The last line of stdout
-is one JSON object: metric, value (the median slices/s), unit, runs (each
-run's slices/s), ns_per_push, ns_per_cell, device (the card's name) and
-power_limit (the ``nvidia-smi --query-gpu=name,power.limit`` line, or "not
-read").
+and fused beam and plasma push launches per slice from the wrappers'
+counters, the peak device memory and the kernels' build seconds. The last
+line of stdout is one JSON object: metric, value (the median slices/s),
+unit, runs (each run's slices/s), ns_per_push, ns_per_cell, device (the
+card's name) and power_limit (the ``nvidia-smi
+--query-gpu=name,power.limit`` line, or "not read").
 
 The card is the default and the bench raises without one. ``--device cpu``
 is the rehearsal: the plain PyTorch versions in float64; its line says
@@ -56,6 +56,7 @@ from .ops.beam_push import beam_push
 from .ops.deposit import deposit
 from .ops.gather import gather_main
 from .ops.mg_kernel import mg_solve
+from .ops.plasma_push import plasma_push
 from .pipeline.simulation import Simulation
 
 
@@ -108,7 +109,7 @@ def run(nxy: int = 1023, nz: int = 128, steps: int = 4, runs: int = 5,
     measured = max(1, steps - 1)
     n_slices = nz * measured
     kernels = {"K1": deposit, "K2": gather_main, "K3": mg_solve,
-               "beam push": beam_push}
+               "beam push": beam_push, "plasma push": plasma_push}
     for fn in kernels.values():
         fn.launches = 0
     walls, step = [], 1

@@ -39,13 +39,13 @@
 // is ceil(N / block).
 
 #include "gather.cuh"
+#include "push_common.cuh"
 
 #include <climits>
 
 namespace hipace {
 
 constexpr int kPushBlock = 128;   // lanes per block
-enum Boundary { kPeriodic = 0, kReflecting = 1, kAbsorbing = 2 };
 
 // the push's scalars, as the plain loop's Python floats (the order of
 // PARAMS in ops/beam_push.py)
@@ -65,27 +65,6 @@ struct PushParams {
     double inv_dx, inv_dy;         // 1/dx, 1/dy in double
 };
 constexpr int kParams = sizeof(PushParams) / sizeof(double);
-
-__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ double mul(double a, double b) { return __dmul_rn(a, b); }
-__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ double add(double a, double b) { return __dadd_rn(a, b); }
-__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
-__device__ __forceinline__ double sub(double a, double b) { return __dsub_rn(a, b); }
-__device__ __forceinline__ float quot(float a, float b) { return __fdiv_rn(a, b); }
-__device__ __forceinline__ double quot(double a, double b) { return __ddiv_rn(a, b); }
-__device__ __forceinline__ float root(float a) { return __fsqrt_rn(a); }
-__device__ __forceinline__ double root(double a) { return __dsqrt_rn(a); }
-__device__ __forceinline__ float fmod_t(float a, float b) { return fmodf(a, b); }
-__device__ __forceinline__ double fmod_t(double a, double b) { return fmod(a, b); }
-
-// torch.remainder: the sign of the divisor (not C's remainder)
-template <typename T>
-__device__ __forceinline__ T floor_mod(T a, T b) {
-    T mod = fmod_t(a, b);
-    if (mod != T(0) && ((b < T(0)) != (mod < T(0)))) mod = add(mod, b);
-    return mod;
-}
 
 // 1 / sqrt(1 + (a^2 + b^2 + c^2) / c^2), the loop's gamma inverse
 template <typename T>
@@ -127,9 +106,8 @@ beam_push_kernel(const LanesOut<T> out, const Lanes<T> in, const Planes<T> pl,
     const T min_z = T(prm.min_z), half_dt = T(prm.half_dt), dt = T(prm.dt);
     const T dt_qm = T(prm.dt_qm), half_dt_qm = T(prm.half_dt_qm);
     const T clight = T(prm.clight), inv_c2 = T(prm.inv_c2);
-    const T lo0 = T(prm.lo0), lo1 = T(prm.lo1), hi0 = T(prm.hi0), hi1 = T(prm.hi1);
-    const T lx = T(prm.lx), ly = T(prm.ly);
-    const T two_lx = T(prm.two_lx), two_ly = T(prm.two_ly);
+    const Box<T> box{T(prm.lo0), T(prm.lo1), T(prm.hi0), T(prm.hi1),
+                     T(prm.lx), T(prm.ly), T(prm.two_lx), T(prm.two_ly)};
     const T x_off = T(prm.x_off), y_off = T(prm.y_off);
     const T inv_dx_pos = T(prm.inv_dx_pos), inv_dy_pos = T(prm.inv_dy_pos);
     const T guards = T(prm.guards);
@@ -148,26 +126,7 @@ beam_push_kernel(const LanesOut<T> out, const Lanes<T> in, const Planes<T> pl,
         // the transverse boundary (plasma.enforce_particle_bc)
         T ux_b = ux, uy_b = uy, w_b = w;
         bool val_b = valid;
-        const bool outside = xh < lo0 || xh > hi0 || yh < lo1 || yh > hi1;
-        if (boundary == kPeriodic) {
-            if (outside) {
-                xh = add(floor_mod(sub(xh, lo0), lx), lo0);
-                yh = add(floor_mod(sub(yh, lo1), ly), lo1);
-            }
-        } else if (boundary == kReflecting) {
-            const T xm = floor_mod(sub(xh, lo0), two_lx);
-            const T ym = floor_mod(sub(yh, lo1), two_ly);
-            const bool refx = xm > lx, refy = ym > ly;
-            if (outside) {
-                xh = add(refx ? sub(two_lx, xm) : xm, lo0);
-                yh = add(refy ? sub(two_ly, ym) : ym, lo1);
-                if (refx) ux_b = -ux;
-                if (refy) uy_b = -uy;
-            }
-        } else if (outside) {   // Absorbing
-            w_b = T(0);
-            val_b = false;
-        }
+        particle_boundary(box, boundary, xh, yh, ux_b, uy_b, w_b, val_b);
         // K2 at the half-step position (plasma.gather_fields): guard-offset
         // cell positions, masked-out lanes at the dead-lane sentinel
         const T ymc = val_b ? add(mul(sub(yh, y_off), inv_dy_pos), guards) : T(2.0 * NY);

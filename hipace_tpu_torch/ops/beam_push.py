@@ -35,7 +35,6 @@ from .gather import plane_pointers
 # the lanes' floating-point attributes the push reads and writes, in the
 # kernel's order
 LANE_ATTRS = ("x", "y", "z", "ux", "uy", "uz", "w")
-BOUNDARIES = {"Periodic": 0, "Reflecting": 1, "Absorbing": 2}
 # the kernel's scalars (PushParams in csrc/beam_push.cu), in its order
 PARAMS = ("min_z", "half_dt", "dt", "dt_qm", "half_dt_qm", "clight",
           "inv_c2", "lo0", "lo1", "hi0", "hi1", "lx", "ly", "two_lx",
@@ -266,7 +265,7 @@ def beam_push_cuda(bp: dict, fields: dict, geom: Geometry, cfg,
     (every lane where None) pushed through every subcycle."""
     if not 0 <= order <= 3:
         raise ValueError(f"unsupported order {order}")
-    if cfg.particle_boundary not in BOUNDARIES:
+    if cfg.particle_boundary not in cuda_lib.BOUNDARIES:
         raise ValueError(f"unknown particle boundary "
                          f"{cfg.particle_boundary!r}")
     ptrs, NY, NX, dtype, device = plane_pointers(field_planes(fields))
@@ -296,7 +295,7 @@ def beam_push_cuda(bp: dict, fields: dict, geom: Geometry, cfg,
             None if species is None else bp["beam_id"].data_ptr(), planes,
             prm, N, NY, NX, order, cfg.n_subcycles,
             -1 if species is None else species,
-            BOUNDARIES[cfg.particle_boundary], int(cfg.do_z_push),
+            cuda_lib.BOUNDARIES[cfg.particle_boundary], int(cfg.do_z_push),
             cuda_lib.stream_ptr(bp["x"]), what="beam_push")
         beam_push.launches += 1
     res = dict(bp)

@@ -31,6 +31,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 LIB_NAME = "libhipace_tpu_torch.so"
 LOG_NAME = "nvcc.log"   # the build's compiler output, kept beside the library
 
+# the particle boundaries' codes in the fused pushes (csrc/push_common.cuh)
+BOUNDARIES = {"Periodic": 0, "Reflecting": 1, "Absorbing": 2}
+
 _P, _I, _LL, _U, _D = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                        ctypes.c_uint, ctypes.c_double)
 # C signatures, one per dtype suffix (_f32, _f64)
@@ -41,6 +44,9 @@ SIGNATURES = {
                            _P],
     "hipace_beam_push": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I,
                          _I, _I, _I, _I, _I, _P],
+    "hipace_plasma_push": [_P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I,
+                           _I, _I, _I, _P],
+    "hipace_laser_gather": [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _P],
     "hipace_mg_solve": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                         _I, _D, _D, _I, _D, _I, _I, _P, _P, _P, _I, _P],
 }

@@ -4,9 +4,10 @@ Port of ``hipace_tpu/particles/plasma.py`` for both Bx/By solvers (ref
 PlasmaParticleContainer, PlasmaParticleAdvance.cpp:29-305,
 PlasmaDepositCurrent.cpp, ExplicitDeposition.cpp): any number of species
 (electrons, positrons, ions by element or mass), temperature (u_std), a
-density table, the leapfrog and AB5 pushers and the explicit solver's
-deposit for every derivative type. A species is a dict of flat (N,)
-tensors. The leapfrog's second-order dual-number correction (ref
+density table, the leapfrog and AB5 pushers (their loop in
+``ops/plasma_push.py``, the leapfrog one kernel on the card) and the
+explicit solver's deposit for every derivative type. A species is a dict of
+flat (N,) tensors. The leapfrog's second-order dual-number correction (ref
 PlasmaParticleAdvance.cpp:136-217), a jax.jvp in the JAX package, is the
 explicit directional derivative of the momentum derivative along itself.
 Deposits go through K1 (``ops/deposit.py``) and the gather through K2
@@ -57,8 +58,9 @@ import numpy as np
 import torch
 
 from ..constants import SI_c, PhysConst
-from ..fields.mr import in_level_bounds
 from ..geometry import Geometry
+from ..ops import cuda_lib
+from ..ops import plasma_push as push_ops
 from ..ops.deposit import deposit
 from ..ops.gather import PLANE_NAMES, gather_laser_aabs, gather_main
 from ..ops.shape import DW_KIND, W_KIND
@@ -544,126 +546,23 @@ def advance_plasma(p: dict, fields: dict, geom: Geometry, cfg: PlasmaConfig,
                    pc: PhysConst, order: int = 2, temp_slice: bool = False,
                    pusher: str = "leapfrog", use_laser: bool = False,
                    fine_levels=(), tag=None):
-    """Advance plasma particles one zeta slice (ref
-    PlasmaParticleAdvance.cpp:29-305), by the leapfrog or, with pusher
-    "ab5", the Adams-Bashforth 5 multistep push (ref
-    PlasmaParticleAdvance.cpp:218-305 under HIPACE_USE_AB5_PUSH), whose
-    state carries init_plasma(ab5=True)'s force history. With use_laser the
-    ponderomotive terms of fields["aabs"] join each subcycle's push. With
-    temp_slice
-    (the predictor-corrector's trial push on its current Bx/By guess) every
-    subcycle gathers at the unchanged x_prev/y_prev and pushes from the
-    unchanged half-step momenta, and only x, y, ux, uy, psi, w and valid
-    come back updated; otherwise the half-step state (and the AB5 history)
-    advances too. fine_levels: (fields, geometry) of each fine level, level
-    1 first (None for a level no lane is tagged with), with tag the lanes'
-    levels (fields.mr.tag_by_level): a tagged
-    lane gathers from its level (K2 on the level's grid), and where a
-    subcycle has moved it out of the level it keeps the values of the
-    subcycle before (ref PlasmaParticleAdvance.cpp:94,114-135)."""
-    clight_inv = 1.0 / pc.c
-    q_m_c = cfg.charge / (cfg.mass * pc.c)
-    dz = geom.dz / cfg.n_subcycles
-    x, y = p["x"], p["y"]
-    xprev, yprev = p["x_prev"], p["y_prev"]
-    ux_h, uy_h, psi_h = p["ux_half"], p["uy_half"], p["psi_half"]
-    valid, w = p["valid"], p["w"]
-    planes = field_planes(fields)
-    lnorm = laser_norm(cfg, pc)
-    if cfg.can_ionize:
-        # each lane's charge is its level times the species' (R16)
-        ion = p["ion_lev"].to(x.dtype)
-        q_m_c = q_m_c * ion
-        lnorm = lnorm * ion * ion
-    laser = None
-    fine_planes = [field_planes(lvl[0]) if lvl is not None else None
-                   for lvl in fine_levels]
-    stale = None
-    for _ in range(cfg.n_subcycles):
-        exmby, eypbx, ez, bx, by, bz = gather_fields(planes, xprev, yprev,
-                                                     valid, geom, order)
-        fvals = (exmby, eypbx, ez, bx * pc.c, by * pc.c, bz)
-        if use_laser:
-            laser = _laser_terms(xprev, yprev, fields["aabs"], geom, order,
-                                 lnorm, pc)
-        if fine_levels:
-            vals = fvals + (laser if use_laser else ())
-            if stale is None:
-                stale = vals
-            for li, lvl in enumerate(fine_levels):
-                if lvl is None:
-                    continue
-                ff, fg = lvl
-                sel = tag == li + 1
-                e1, e2, e3, b1, b2, b3 = gather_fields(
-                    fine_planes[li], xprev, yprev, valid & sel, fg, order)
-                fine = (e1, e2, e3, b1 * pc.c, b2 * pc.c, b3)
-                if use_laser:
-                    fine = fine + _laser_terms(xprev, yprev, ff["aabs"], fg,
-                                               order, lnorm, pc)
-                inb = in_level_bounds(xprev, yprev, fg)
-                vals = tuple(torch.where(sel, torch.where(inb, fv, sv), cv)
-                             for fv, sv, cv in zip(fine, stale, vals))
-            stale = vals
-            fvals = vals[:6]
-            laser = vals[6:] if use_laser else None
-        if pusher == "ab5":
-            # the derivative at the current state becomes history slot 1;
-            # the push sums the five history terms
-            psi_inv_h = 1.0 / psi_h
-            dz_ux, dz_uy, dz_psi = _momentum_derivative(
-                ux_h, uy_h, psi_inv_h, *fvals, clight_inv, q_m_c, laser)
-            hist = {"Fx1": clight_inv * ux_h * psi_inv_h,
-                    "Fy1": clight_inv * uy_h * psi_inv_h,
-                    "Fux1": dz_ux, "Fuy1": dz_uy, "Fpsi1": dz_psi}
-            hist.update({f"{f}{i}": p[f"{f}{i}"] for i in range(2, 6)
-                         for f in AB5_FIELDS})
-            xnew, ynew = xprev, yprev
-            ux, uy, psi = ux_h, uy_h, psi_h
-            for i in range(5):
-                a_dz = AB5_COEFFS[i] * dz
-                xnew = xnew + a_dz * hist[f"Fx{i + 1}"]
-                ynew = ynew + a_dz * hist[f"Fy{i + 1}"]
-                ux = ux + a_dz * hist[f"Fux{i + 1}"]
-                uy = uy + a_dz * hist[f"Fuy{i + 1}"]
-                psi = psi + a_dz * hist[f"Fpsi{i + 1}"]
-            x, y, ux, uy, w, valid = enforce_particle_bc(
-                xnew, ynew, ux, uy, w, valid, geom, cfg.particle_boundary,
-                bounds=cfg.particle_bounds)
-            if not temp_slice:
-                ux_h, uy_h, psi_h = ux, uy, psi
-                xprev, yprev = x, y
-            continue
-        # full momentum push t-1/2 -> t+1/2 in 4 substeps
-        nsub = 4
-        sdz = dz / nsub
-        ux, uy, psi = ux_h, uy_h, psi_h
-        for _s in range(nsub):
-            ux, uy, psi = _second_order_substep(ux, uy, psi, sdz, fvals,
-                                                clight_inv, q_m_c, laser)
-        # position push t -> t+1 with momentum at t+1/2
-        xnew = xprev + dz * clight_inv * (ux / psi)
-        ynew = yprev + dz * clight_inv * (uy / psi)
-        x, y, ux, uy, w, valid = enforce_particle_bc(
-            xnew, ynew, ux, uy, w, valid, geom, cfg.particle_boundary,
-            bounds=cfg.particle_bounds)
-        if not temp_slice:
-            ux_h, uy_h, psi_h = ux, uy, psi
-            xprev, yprev = x, y
-        # half momentum push t+1/2 -> t+1 (deposit values only)
-        for _s in range(nsub // 2):
-            ux, uy, psi = _second_order_substep(ux, uy, psi, sdz, fvals,
-                                                clight_inv, q_m_c, laser)
-    out = dict(p)
-    out.update(x=x, y=y, w=w, valid=valid, ux=ux, uy=uy, psi=psi)
-    if not temp_slice:
-        out.update(x_prev=xprev, y_prev=yprev, ux_half=ux_h, uy_half=uy_h,
-                   psi_half=psi_h)
-        if pusher == "ab5":
-            # shift the force history (ref PlasmaParticleAdvance.cpp:276-305)
-            out.update({f"{f}{i}": hist[f"{f}{i - 1}"] for f in AB5_FIELDS
-                        for i in range(5, 1, -1)})
-    return out
+    """Advance plasma particles one zeta slice (ops/plasma_push.py
+    plasma_push_plain says how). A push that takes_kernel (the leapfrog, no
+    fine level active) is one kernel launch on the card (plasma_push); every
+    other (the AB5 pusher, an active fine level) runs the loop
+    (plasma_push_plain), counted on the card in
+    advance_plasma.general_calls."""
+    if push_ops.takes_kernel(pusher, fine_levels):
+        return push_ops.plasma_push(p, fields, geom, cfg, pc, order,
+                                    temp_slice, use_laser)
+    if cuda_lib.use_kernel(p["x_prev"]):
+        advance_plasma.general_calls += 1
+    return push_ops.plasma_push_plain(p, fields, geom, cfg, pc, order,
+                                      temp_slice, pusher, use_laser,
+                                      fine_levels, tag)
+
+
+advance_plasma.general_calls = 0
 
 
 # ----------------------------------------------------------------------
