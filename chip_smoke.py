@@ -1,184 +1,43 @@
-"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+"""Build and kernel checks of the PyTorch/CUDA port on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels (K1 deposit, K2 gather, K3 multigrid, the
-fused beam and plasma pushes) from ``hipace_tpu_torch/csrc`` with nvcc,
+fused beam and plasma pushes) from ``hipace_tpu_torch/csrc`` with nvcc and
 prints each kernel's registers, stack frame and spills (K2's order-2 kernels
-must use no local memory), holds each kernel against its plain PyTorch
-version at the main path's shapes (1023^2 grid, ~1.05M plasma particles; K1
-and K2 also on the same lanes shuffled, moved by up to 40 cells, and on a
-30k-lane beam slice) in float32 and float64 (the fused beam push on the
-benchmark's 2047^2 beam slices of ~42k and ~95k lanes in float64 and the
-flagship's 30k in float32, equal valid lanes and resume counters; the fused
-plasma push on the benchmark cells' 2047^2 species in float64, with and
-without the laser, and the flagship's 1023^2 species in float32, every
-output bit for bit), checks a small time step on the kernels against the
-same step on the CPU plain path, then drives the port's main path -- a
-``Simulation`` of the flagship blowout-wake deck
-(``hipace_tpu_torch.decks.BLOWOUT_WAKE``) at 1023^2 x 64 slices in float32
--- for one warm-up and two timed steps, and checks that every kernel ran as
-often as the slice structure predicts (a beam species' push one fused launch
-per slice, unless it keeps the subcycle loop with its K2 launches: external
-fields, spin, radiation reaction, an active mesh-refinement level; a plasma
-species' push one fused launch per slice, unless the AB5 pusher or an
-active mesh-refinement level keeps its loop), that
-a multigrid solve is at most three device launches, and prints the share of
-deposit blocks that took the kernel's direct path. Two more timed steps
-follow the counted ones.
+must use no local memory). Then each kernel alone against its plain PyTorch
+version, in float32 and float64, timed on CUDA events beside its bound: K1
+and K2 at the main path's shapes (1023^2 grid, ~1.05M plasma lanes, also
+shuffled, moved by up to 40 cells and a 30k-lane beam slice), K3 at 1023^2
+and on the cell-centered and complex ladders, the Poisson solvers, the fused
+beam push on the benchmark's 2047^2 beam slices and the fused plasma push on
+both benchmark cells' 2047^2 species, bit for bit against their loops.
 
-Output: a 63^2 x 16 float64 run of the fixed_weight_pdf deck
-(``hipace_tpu_torch.decks.PDF_BEAM``) with named field diagnostics of every
-kind, beam output and in-situ records, json backend, on the card and on the
-CPU from the same beam, whose files must agree; then the pdf path, the same
-deck at 1023^2 x 64 in float32 with an xz diagnostic of every comp and rho
-(K1 at 14 channels), in-situ records every step and the beam at the last,
-checked for its files, finite fields, a conserved beam, the in-situ beam
-weight and the launch counts, and timed with and without output. Files go
-under ``build/chip_smoke``.
+Then the paths at production width (1023^2 or 1024^2 x 64 in float32 unless
+stated), each for a few steps with the checks that need that width: the
+launches of every kernel against what the slice structure predicts, the
+host's synchronizing reads of the device (``sync_counted``), finite fields
+and conserved beams, and float32 against float64 where the path has such a
+check. The paths: the flagship blowout wake (main), the predictor-corrector
+with open boundaries, the pdf beam with output (json files, the in-situ beam
+weight), the two-species even deck (and one step on MGDirichlet), drive +
+witness beams (K2 on the witness's own lanes), the laser (complex K3, the
+peak |a|, the laser's own device time, step 0 against float64 and the plain
+float32 step), adaptive dt, ionization (K2 at the ions' x_prev), collisions
+(ROADMAP R19 in float32; a float64 step's energy against the same step
+without collisions), SALAME (a fresh step 0 with SALAME and step 1 without;
+the on-axis Ez spread; K3 on a SALAME solve), mesh refinement (a 511^2
+level; K1, K2 and K3 at the level's shapes; a coupler product against the
+CPU's), the pipeline (two stages on cuda:0, the final beam against the
+serial loop's within PIPE_F32_TOL) and the ranks (two processes on cuda:0
+over gloo; with two cards, also one NCCL rank per card). Files go under
+``build/chip_smoke``. No phase times whole steps: the benchmark
+(``python3 -m benchmark.run``) measures the program.
 
-The predictor-corrector: a 63^2 x 16 float64 step of the
-predictor-corrector deck with open boundaries
-(``hipace_tpu_torch.decks.PC_OPEN``) on the card against the CPU, with equal
-iterations on every slice, and the open boundary and the MGDirichlet and
-FFTPeriodic Poisson solvers on the card against the CPU; then the PC path,
-that deck at 1023^2 x 64 in float32 for one warm-up and two timed steps,
-whose K1 and K2 launches must equal what its slice structure and its own
-iteration counts predict (no K3 launch), and whose host reads of the device
-per slice (counted in the warm-up step) must be the beam's two plus one per
-iteration, within 0.15; then MGDirichlet through K3 at 1023^2 with three
-channels and a scalar zero acf against its plain version in float32 and
-float64, and the open boundary's time per call. K1 is also checked and
-timed at the PC path's channel counts (plasma 4 and 2, beam 3 and 2).
-
-Even sizes and the plasma paths: K3's cell-centered levels against their
-plain version in float32 and float64 (1024^2, 1024 x 512, 96 x 64 whose
-ladder ends at 3 cells, 64 x 32 and 32^2; C = 2 with a 2-D acf, C = 3 with
-MGDirichlet's scalar zero acf; equal V-cycle counts; the full-width solves
-timed); a 64^2 x 16 float64 step of the two-species
-``hipace_tpu_torch.decks.ION_MOTION_EVEN`` on the card against the CPU, from
-the same beam and temperature draws, with the leapfrog, AB5 and derivative
-types 0 and 1; then the even path, that deck at 1024^2 x 64 in float32 for
-one warm-up and two timed steps, its launches against the slice structure
-with two species, and one 1024^2 x 16 step of it on MGDirichlet.
-
-The beam paths: "beam paths, small", 63^2 x 16 float64 runs of two steps on
-the card against the CPU from the same beams, fields within 1e-8 and equal
-V-cycles on every slice, for the drive + witness deck
-(``hipace_tpu_torch.decks.DRIVE_WITNESS``: spin tracking and radiation
-reaction on the witness), the same with external fields (E under beams.,
-the witness's own B, a function of t) and a grid-current deck
-(``hipace_tpu_torch.decks.GRID_CURRENT``); then the witness path,
-DRIVE_WITNESS at 1023^2 x 64 in float32 for one warm-up and two timed
-steps: the K1/K2/K3 launches against the slice structure with two beam
-species (K2 1 + 10 + 10 per slice), finite fields, each beam's count
-conserved, the witness's |s| within 1e-5 of 1, and K2 held against its
-plain version on the witness path's own beam lanes.
-
-The laser and adaptive dt: K3's complex path (the laser envelope's solve)
-against its plain version in float32 and float64, node-centered at 1023^2
-with the laser's own acf (a chi plane plus an imaginary scalar), 255^2 and
-63 x 31, cell-centered at 1024^2, 96 x 64 and 32^2, equal V-cycle counts,
-the full-width solves timed beside a real C = 2 solve; "laser, small", two
-63^2 x 16 float64 steps of ``hipace_tpu_torch.decks.LASER_WAKE`` on both
-laser solvers and both Bx/By solvers with laser_diag output and in-situ
-laser records, on the card against the CPU (fields and envelope within
-1e-8, real and complex V-cycles and PC iterations equal on every slice,
-every output file within 1e-8); the laser path, LASER_WAKE at 1023^2 x 64
-in float32 for one warm-up and two timed steps: the launches of K1, K2 and
-real and complex K3 against the slice structure, the envelope finite, the
-peak |a| of step 0 within 5% of a0, the host's reads per slice, the laser's
-own time per slice, and the same deck's first step in float64 for its
-V-cycles; "adaptive dt, small", ``ADAPTIVE_VACUUM`` at 32^2 x 32 float64
-for 20 steps on the card against the CPU (the dt sequence equal to 1e-12,
-landing on max_time, then a dt = 0 step); and the flagship with
-``hipace.dt = adaptive`` at 1023^2 x 16, its dt per step and its host reads
-against a fixed-dt step.
-
-Ionization and collisions: "ionization, small", a 64^2 x 16 float64 step of
-``hipace_tpu_torch.decks.IONIZATION_WAKE`` and of the same under
-LASER_WAKE's pulse, and "collisions, small", one of ``COLLISION_WAKE``, on
-the card against the CPU from the same beam and the same slice draws
-(recorded on the CPU, replayed on the card): fields within 1e-8, equal ion
-levels and electron lanes, spawned positions within 1e-12, momenta within
-1e-10, V-cycles equal; one slice's beam-plasma collision with many beam
-lanes sharing a plasma lane, and the case where the last picker's kick
-must stay (ROADMAP R17), on the card as on the CPU. Then the ionization
-path, IONIZATION_WAKE at 1023^2 x 64 in float32 (K1/K2/K3 against the slice
-structure with one ionization gather per slice, the events per step, no
-charge ahead of the beam, the host's reads, the module's time, K2 on the
-ions' x_prev against its plain version with its bound), and the collision
-path, COLLISION_WAKE at 1023^2 x 64 in float32 (the flagship's launch
-counts, the host's reads, the collisions' time and launches per slice,
-the non-finite lanes that float32 leaves, ROADMAP R19, in the JAX package
-as here, and float32's kicks against float64's on one slice), then one
-float64 step of it at full width, its fields and momenta finite and the
-plasma's energy within 1e-3 of the same step without collisions.
-
-SALAME and mesh refinement: "SALAME, small", step 0 of
-``hipace_tpu_torch.decks.SALAME_WAKE`` at 32^2 x 64 in float64, alone and
-with a level, on the card against the CPU from the same beams (fields of
-every level within 1e-8, the SALAME slices equal, W within 1e-10, the
-witness's weights within 1e-10, V-cycles equal on every slice); "MR, small",
-the JAX package's MR test deck in float64 on the card against the CPU with
-an even and an odd level, the predictor-corrector, two levels and a laser
-(fields of every level within 1e-8, equal V-cycles and iterations), then in
-float32 the level's Ez against a uniformly fine 128^2 run at the JAX test's
-thresholds; the SALAME path, SALAME_WAKE at 1023^2 x 64 in float32 (a
-warm-up simulation, then a fresh one's step 0 with SALAME and step 1
-without: launches against the slice structure and its SALAME slices, one
-host read more at step 0 than without SALAME, the witness's weights, the
-on-axis Ez spread across the witness below 0.4 of the spread without
-SALAME, K3 on one of SALAME's solves); the MR path, ``MR_WAKE`` at 1023^2 x
-64 in float32 with a 511^2 level (launches against the slice structure and
-the level's 33 slices, the flagship's host reads, the fine on-axis Ez
-within MR_AXIS_BOUND of the coarse, a coupler product on the card against
-the CPU's in float64, and K1, K2 and K3 at the level's shapes against their
-plain versions, with K1's direct-path share).
-
-The pipeline: "pipeline, small", the flagship at 63^2 x 16 in float64
-through ``Simulation.evolve_pipelined`` with two stages on cuda:0 (one
-window, then the serial tail) against the same on the CPU and against the
-card's serial loop from the same beam (fields and the final beam within
-1e-8, equal V-cycles on every slice of every stage, every per-step openPMD
-and in-situ file within 1e-8); then the pipeline path, the flagship at
-1023^2 x 64 in float32 with two stages on cuda:0: a warm-up window in
-which the host's reads of the device are counted (at most two per slice,
-one per tick and five more), two timed windows whose
-K1/K2/K3 launches must equal the serial slice structure's for their 4
-steps, finite fields on every stage, a conserved beam, the peak memory, and
-the serial loop's 4 steps from the same beam twice: its slices/s and peak
-memory, the pipelined final beam against the serial one within
-PIPE_F32_TOL, beside the spread of the two serial runs.
-
-The ranks (one process per stage, ``hipace_tpu_torch.parallel.ranks``,
-``Simulation.evolve_ranks``): "ranks, small", two ranks sharing cuda:0 over
-gloo, spawned with ``ranks.spawn``, run the 63^2 x 16 float64 flagship of
-"pipeline, small" from its beam, and every openPMD and in-situ file, the
-final beam and the V-cycles of every slice must agree with the single-process
-two-stage runs on cuda:0 and on the CPU within 1e-8; then the ranks path,
-the 1023^2 x 64 float32 flagship as two ranks on cuda:0, one warm-up window
-and two timed ones from the pipeline path's beam: each rank's K1/K2/K3
-launches against the serial slice structure of the steps it ran, finite
-fields, a conserved beam, equal generator draws on every rank and in this
-process, the final beam against the single-process pipeline's within
-PIPE_F32_TOL, slices/s over all ranks' slices against the pipeline path's
-serial loop and single-process pipeline, and each rank's peak memory.
-Where there are two cards, the same on one NCCL rank per card.
-
-The bench and the physics gate: "bench" runs the port's bench
-(``hipace_tpu_torch.bench``) on its pdf deck at 1023^2 x 64, one warm-up
-step and three runs of two measured steps, and prints its JSON line;
-"physics gate" runs ``hipace_tpu_torch.gpu_check``: the first seven of its
-nine decks (GATE_CASES) at small size for two steps on the CPU in float64,
-on the card in float64 and on the card in float32 from one beam and one
-set of draws, held by the checksum method's sums (card f64 within 1e-8 of
-the CPU, card f32 within each case's pinned tolerance of card f64), and the
-flagship at 1023^2 x 64 in float32 against float64 on the card, with K1, K2
-and K3 counted over the phase; its record goes to
-``build/chip_smoke/gpu_check.json``; its reference leg does not run (it
-runs only on a reference checkout named to the gate). Each phase prints its
-seconds. It imports nothing but the port.
+Card against CPU at small sizes in float64 is the ``gpu`` tests' job
+(``tests/test_torch_gpu*.py``), and the float32 physics gate is ``python -m
+hipace_tpu_torch.gpu_check``. Each phase prints its seconds. It imports
+nothing but the port.
 
 Beside each kernel's time (CUDA events around calls queued behind a device
 sleep) it prints the kernel's bound: the least time the card could take, the
@@ -187,15 +46,15 @@ output written once; for K2 the plane cells under the live lanes' stencils)
 over the HBM rate and its operations over the peak rate of their type
 (NVIDIA's H100 SXM data sheet).
 
-The second-to-last line is a JSON summary of the kernels; the last line is
-``{"ok": true, "device": {...}}``. Any failed phase exits non-zero before
-that line. Without a usable GPU, or without the repository beside this
-script, it exits non-zero and prints no result.
+The second-to-last line is a JSON summary of the kernels (per entry its
+launches in the path named); the last line is ``{"ok": true, "device":
+{...}}``. Any failed phase exits non-zero before that line. Without a usable
+GPU, or without the repository beside this script, it exits non-zero and
+prints no result.
 """
 
 from __future__ import annotations
 
-import io
 import json
 import re
 import subprocess
@@ -207,37 +66,10 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 NXY, NZ = 1023, 64
-NPART = NXY * NXY * 10 * NZ // 1000   # the bench's beam scaling
-SMALL_NXY, SMALL_NZ = 63, 16
+# the reference deck's beam: nxy^2 * 10 particles per 1000 slices
+NPART = NXY * NXY * 10 * NZ // 1000
+SMALL_NZ = 16      # the even path's step on MGDirichlet
 OUT = ROOT / "build" / "chip_smoke"
-# named field diagnostics of every kind, beam output and the three in-situ
-# records (the CPU tests' set, tests/test_torch_diagnostics.py)
-NAMED_DIAGS = """
-max_step = 1
-hipace.openpmd_backend = json
-diagnostic.output_period = 1
-diagnostic.names = lev0 side top integ coarse2 coarse3 patch
-diagnostic.field_data = all remove_Sx rho
-side.diag_type = xz
-top.diag_type = yz
-top.field_data = Ez rho_plasma jz_beam
-top.output_period = 2
-integ.diag_type = xy_integrated
-integ.field_data = Ez Psi rho
-coarse2.coarsening = 2 2 2
-coarse2.field_data = Ez Bx jx
-coarse3.diag_type = xz
-coarse3.coarsening = 3 3 3
-coarse3.include_ghost_cells = 1
-coarse3.field_data = Psi By rho_plasma
-patch.patch_lo = -2. -1. -4.
-patch.patch_hi = 2. 3. 0.
-patch.field_data = Ez ExmBy chi
-diagnostic.beam_data = beam
-beams.insitu_period = 1
-plasmas.insitu_period = 1
-fields.insitu_period = 1
-"""
 # the pdf path's output: an xz diagnostic of every comp and rho, in-situ
 # records every step, the beam at the last step
 PDF_OUTPUT = """
@@ -280,10 +112,6 @@ ALL_KERNELS = dict(KERNELS, **{"beam push": (
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {4: 67e12, 8: 34e12}
 
-# the physics gate's ladder cases run here, cut from the end to keep the two
-# last phases near 90 s: salame_wake and mr_wake run in `python -m
-# hipace_tpu_torch.gpu_check`
-GATE_CASES = 7
 
 # ~25 ms of device clock cycles: longer than the host takes to enqueue the
 # calls that cuda_ms times
@@ -955,38 +783,6 @@ def k3_cc_phase(torch, results):
                 results[(key, name)] = (err, ms, plain_ms, b_ms, by)
 
 
-@phase("reference")
-def reference_phase(torch):
-    """A 63^2 x 16 float64 step on the kernels against the same step on the
-    CPU plain path (which the CPU tests hold to the JAX package)."""
-    from hipace_tpu_torch.convert import carry_state
-    from hipace_tpu_torch.decks import blowout_wake
-    from hipace_tpu_torch.pipeline.simulation import Simulation
-    cpu = Simulation(blowout_wake(SMALL_NXY, SMALL_NZ, 4000), device="cpu",
-                     verbose=0)
-    gpu = Simulation(blowout_wake(SMALL_NXY, SMALL_NZ, 4000), device="cuda",
-                     dtype=torch.float64, verbose=0)
-    carry_state(gpu, {k: v.numpy() for k, v in cpu.binned.items()
-                      if torch.is_tensor(v)}, cpu.dt, cpu.time)
-    ref = cpu.run_step(0)
-    got = gpu.run_step(0)
-    d_ref, d_got = ref["diag"], got["diag"].cpu()
-    rel = float((d_got - d_ref).abs().max() / d_ref.abs().max())
-    v = ref["binned"]["valid"]
-    same_valid = bool((got["binned"]["valid"].cpu() == v).all())
-    zrel = float((got["binned"]["uz"].cpu()[v] - ref["binned"]["uz"][v])
-                 .abs().max() / ref["binned"]["uz"][v].abs().max())
-    ok = rel < 1e-8 and same_valid and zrel < 1e-12 \
-        and got["mg_cycles"] == ref["mg_cycles"]
-    print(f"reference {SMALL_NXY}^2 x {SMALL_NZ} float64, kernels vs CPU "
-          f"plain path: fields max rel err {rel:.3e} (tol 1e-8), beam uz "
-          f"{zrel:.3e} (tol 1e-12), same valid lanes {same_valid}, MG "
-          f"cycles equal {got['mg_cycles'] == ref['mg_cycles']} "
-          f"{'ok' if ok else 'FAIL'}", flush=True)
-    if not ok:
-        raise AssertionError("small-step reference mismatch")
-
-
 @phase("main path")
 def main_path(torch, sim, counts):
     from hipace_tpu_torch.ops.deposit import (deposit, direct_block_count,
@@ -998,30 +794,15 @@ def main_path(torch, sim, counts):
     from hipace_tpu_torch.particles.beam import advance_beam_slice
     from hipace_tpu_torch.particles.plasma import advance_plasma
     n0 = int(sim.binned["valid"].sum())
-    steps, extra_steps = 3, 2
+    steps = 3
     for fn in (deposit, gather_main, mg_solve, beam_push, plasma_push):
         fn.launches = 0
     advance_beam_slice.general_calls = 0
     advance_plasma.general_calls = 0
     mg_solve.kernel_launches = 0
     reset_block_counts()
-    step_seconds = []
-    for step in range(steps + extra_steps):
-        if step == steps:
-            # the counted run ends here; the extra steps are only timed
-            counts.update({"K1": deposit.launches, "K2": gather_main.launches,
-                           "K3": mg_solve.launches,
-                           "beam push": beam_push.launches,
-                           "beam loop": advance_beam_slice.general_calls,
-                           "plasma push": plasma_push.launches,
-                           "plasma loop": advance_plasma.general_calls})
-            mg_launches = mg_solve.kernel_launches
-            direct, blocks = direct_block_count("cuda"), deposit.blocks
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
+    for step in range(steps):
         res = sim.run_step(step)
-        torch.cuda.synchronize()
-        step_seconds.append(time.perf_counter() - t0)
         sim.binned = res["binned"]
         sim.time += sim.dt
         finite = bool(torch.isfinite(res["diag"]).all())
@@ -1032,6 +813,13 @@ def main_path(torch, sim, counts):
               f"{max(res['mg_cycles'])}", flush=True)
         if not finite or n != n0:
             raise AssertionError("non-finite fields or beam particles lost")
+    counts.update({"K1": deposit.launches, "K2": gather_main.launches,
+                   "K3": mg_solve.launches, "beam push": beam_push.launches,
+                   "beam loop": advance_beam_slice.general_calls,
+                   "plasma push": plasma_push.launches,
+                   "plasma loop": advance_plasma.general_calls})
+    mg_launches = mg_solve.kernel_launches
+    direct, blocks = direct_block_count("cuda"), deposit.blocks
     g = sim.geom
     pcfg = sim.plasma_cfgs[0]
     per_step = {"K1": int(pcfg.neutralize_background) + 3 * g.nz,
@@ -1039,14 +827,6 @@ def main_path(torch, sim, counts):
                 "K3": g.nz, "beam push": g.nz * fused_pushes(sim),
                 "beam loop": 0, "plasma push": g.nz * plasma_pushes(sim),
                 "plasma loop": 0}
-    t_timed = sum(step_seconds[1:steps])
-    slices = g.nz * (steps - 1)
-    print(f"main path {NXY}^2 x {NZ} float32, {NPART} beam particles: "
-          f"{slices / t_timed:.3f} slices/s, {1e3 * t_timed / slices:.3f} "
-          "ms/slice over 2 timed steps after 1 warm-up", flush=True)
-    print("main path slices/s per timed step: "
-          + ", ".join(f"{g.nz / t:.3f}" for t in step_seconds[1:]),
-          flush=True)
     print(f"main path K1 blocks on the direct path: {direct} of {blocks} "
           f"({100 * direct / blocks:.2f}%)", flush=True)
     print(f"main path K3 device launches per solve: "
@@ -1065,69 +845,11 @@ def main_path(torch, sim, counts):
             raise AssertionError(f"{k} launch count {counts[k]} != {want}")
 
 
-@phase("PC, small")
-def pc_small_phase(torch):
-    """A 63^2 x 16 float64 step of PC_OPEN on the kernels against the same
-    step on the CPU plain path: fields within 1e-8, equal iterations on
-    every slice; then the open boundary and the MGDirichlet and FFTPeriodic
-    solvers on the card against the CPU."""
-    from hipace_tpu_torch.convert import carry_state
-    from hipace_tpu_torch.decks import pc_open
-    from hipace_tpu_torch.fields.open_boundary import OpenBoundary
-    from hipace_tpu_torch.fields.poisson import make_poisson_solver
-    from hipace_tpu_torch.pipeline.simulation import Simulation
-    cpu = Simulation(pc_open(SMALL_NXY, SMALL_NZ, 4000), device="cpu",
-                     verbose=0)
-    gpu = Simulation(pc_open(SMALL_NXY, SMALL_NZ, 4000), device="cuda",
-                     dtype=torch.float64, verbose=0)
-    carry_state(gpu, {k: v.numpy() for k, v in cpu.binned.items()
-                      if torch.is_tensor(v)}, cpu.dt, cpu.time)
-    ref, got = cpu.run_step(0), gpu.run_step(0)
-    d_ref, d_got = ref["diag"], got["diag"].cpu()
-    rel = float((d_got - d_ref).abs().max() / d_ref.abs().max())
-    same_iters = got["pc_iters"] == ref["pc_iters"]
-    ok = rel < 1e-8 and same_iters
-    print(f"PC, small: {SMALL_NXY}^2 x {SMALL_NZ} float64 PC_OPEN step, "
-          f"kernels vs CPU plain path: fields max rel err {rel:.3e} (tol "
-          f"1e-8), iterations per slice equal {same_iters} "
-          f"({sum(ref['pc_iters'])} in all, {min(ref['pc_iters'])}-"
-          f"{max(ref['pc_iters'])} per slice) {'ok' if ok else 'FAIL'}",
-          flush=True)
-    g = cpu.geom
-    rhs = torch.randn((3, g.ny, g.nx), dtype=torch.float64,
-                      generator=torch.Generator().manual_seed(5))
-    worst = {}
-    for name, on_card, on_cpu in (
-            ("OpenBoundary.apply monopole",
-             OpenBoundary(g, device="cuda").apply(rhs.cuda(), True),
-             OpenBoundary(g, device="cpu").apply(rhs, True)),
-            ("OpenBoundary.apply no monopole",
-             OpenBoundary(g, device="cuda").apply(rhs.cuda(), False),
-             OpenBoundary(g, device="cpu").apply(rhs, False))):
-        worst[name] = float((on_card.cpu() - on_cpu).abs().max()
-                            / on_cpu.abs().max())
-    for name in ("MGDirichlet", "FFTPeriodic"):
-        card = make_poisson_solver(name, g, "cuda", torch.float64)
-        host = make_poisson_solver(name, g, "cpu", torch.float64)
-        on_card, on_cpu = card.solve(rhs.cuda()).cpu(), host.solve(rhs)
-        worst[name] = float((on_card - on_cpu).abs().max()
-                            / on_cpu.abs().max())
-        if name == "MGDirichlet" and card.mg.last_cycles != \
-                host.mg.last_cycles:
-            worst[name + " V-cycles"] = float("inf")
-    print("PC, small: card vs CPU, float64, C=3: " + ", ".join(
-        f"{k} {v:.3e}" for k, v in worst.items()) + " (tol 1e-9)",
-        flush=True)
-    if not ok or max(worst.values()) > 1e-9:
-        raise AssertionError("PC small step or solver mismatch")
-
-
 @phase("PC path")
 def pc_path(torch, counts):
-    """PC_OPEN at 1023^2 x 64 in float32: one warm-up step, in which the
-    host's synchronizing reads of the device are counted, two timed steps;
-    finite fields, the beam conserved, the launch counts against the run's
-    own iterations."""
+    """PC_OPEN at 1023^2 x 64 in float32 for three steps, the host's
+    synchronizing reads of the device counted in the first; finite fields,
+    the beam conserved, the launch counts against the run's own iterations."""
     from hipace_tpu_torch.decks import pc_open
     from hipace_tpu_torch.ops.deposit import deposit
     from hipace_tpu_torch.ops.gather import gather_main
@@ -1142,18 +864,14 @@ def pc_path(torch, counts):
     steps = 3
     for fn in (deposit, gather_main, mg_solve, plasma_push):
         fn.launches = 0
-    iters, step_seconds, copies = [], [], None
+    iters, copies = [], None
     for step in range(steps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         if step == 0:
             # every read of a device value by the host synchronizes: count
             # them through the sync debug mode's warnings
             res, copies = sync_counted(torch, lambda: sim.run_step(step))
         else:
             res = sim.run_step(step)
-        torch.cuda.synchronize()
-        step_seconds.append(time.perf_counter() - t0)
         sim.binned = res["binned"]
         sim.time += sim.dt
         iters.append(res["pc_iters"])
@@ -1176,16 +894,9 @@ def pc_path(torch, counts):
     print(f"PC path iterations per slice over {steps} steps: min {flat[0]}, "
           f"median {median}, max {flat[-1]}, total {total}, mean "
           f"{total / len(flat):.3f}", flush=True)
-    t_timed = sum(step_seconds[1:])
-    slices = g.nz * (steps - 1)
-    print(f"PC path {NXY}^2 x {NZ} float32, {NPART} beam particles: "
-          f"{slices / t_timed:.3f} slices/s, {1e3 * t_timed / slices:.3f} "
-          f"ms/slice, {1e3 * t_timed / sum(map(sum, iters[1:])):.3f} ms per "
-          f"iteration over {steps - 1} timed steps after 1 warm-up",
-          flush=True)
     mean0 = sum(iters[0]) / g.nz
     print(f"PC path device-to-host copies per slice (synchronizing reads, "
-          f"warm-up step): {copies / g.nz:.3f}, with {mean0:.3f} iterations "
+          f"first step): {copies / g.nz:.3f}, with {mean0:.3f} iterations "
           f"per slice (at least the beam's 2 + iterations = "
           f"{2 + mean0:.3f}; limit 2.05 + iterations + 0.1 = "
           f"{2.15 + mean0:.3f})", flush=True)
@@ -1259,77 +970,12 @@ def poisson_phase(torch, g, results):
 
 
 EVEN_NXY = 1024          # ION_MOTION_EVEN's full width
-EVEN_SMALL = 64
-# the "even, small" variants: deck lines added to ION_MOTION_EVEN
-EVEN_VARIANTS = (("leapfrog, deriv_type 2", ""),
-                 ("AB5", "hipace.plasma_pusher = ab5\n"),
-                 ("deriv_type 0", "hipace.depos_derivative_type = 0\n"),
-                 ("deriv_type 1", "hipace.depos_derivative_type = 1\n"))
-
-
-def same_draws(torch, cpu):
-    """Make the next two steps -- the CPU simulation's, then the card's --
-    draw the same temperature normals: the CPU generator's, moved to the
-    card for the second. Returns the function that undoes it."""
-    from hipace_tpu_torch.particles import plasma as pl
-    orig = pl.plasma_draws
-    draws = [orig(p, cpu.geom, cpu.generator, "cpu", torch.float64)
-             for p in cpu.plasma_cfgs]
-    queue = draws + draws
-
-    def fake(cfg, geom, generator, device, dtype):
-        d = queue.pop(0)
-        return None if d is None else d.to(device=device, dtype=dtype)
-
-    pl.plasma_draws = fake
-
-    def undo():
-        pl.plasma_draws = orig
-    return undo
-
-
-@phase("even, small")
-def even_small_phase(torch):
-    """A 64^2 x 16 float64 step of ION_MOTION_EVEN (two species, electron
-    temperature, cell-centered Bx/By) on the kernels against the same step
-    on the CPU plain path, from the same beam and temperature draws, for
-    the leapfrog, AB5 and derivative types 0 and 1: fields within 1e-8,
-    equal V-cycles on every slice."""
-    from hipace_tpu_torch.convert import carry_state
-    from hipace_tpu_torch.decks import ion_motion_even
-    from hipace_tpu_torch.pipeline.simulation import Simulation
-    bad = []
-    for label, extra in EVEN_VARIANTS:
-        deck = ion_motion_even(EVEN_SMALL, SMALL_NZ, 4000, extra)
-        cpu = Simulation(deck, device="cpu", verbose=0)
-        gpu = Simulation(ion_motion_even(EVEN_SMALL, SMALL_NZ, 4000, extra),
-                         device="cuda", dtype=torch.float64, verbose=0)
-        carry_state(gpu, {k: v.numpy() for k, v in cpu.binned.items()
-                          if torch.is_tensor(v)}, cpu.dt, cpu.time)
-        undo = same_draws(torch, cpu)
-        try:
-            ref, got = cpu.run_step(0), gpu.run_step(0)
-        finally:
-            undo()
-        d_ref, d_got = ref["diag"], got["diag"].cpu()
-        rel = float((d_got - d_ref).abs().max() / d_ref.abs().max())
-        same = got["mg_cycles"] == ref["mg_cycles"]
-        ok = rel < 1e-8 and same and gpu.slice_step.mg.cell_centered
-        print(f"even, small: {EVEN_SMALL}^2 x {SMALL_NZ} float64 "
-              f"ION_MOTION_EVEN, {label}, kernels vs CPU plain path: fields "
-              f"max rel err {rel:.3e} (tol 1e-8), V-cycles per slice equal "
-              f"{same} ({min(ref['mg_cycles'])}-{max(ref['mg_cycles'])}) "
-              f"{'ok' if ok else 'FAIL'}", flush=True)
-        if not ok:
-            bad.append(label)
-    if bad:
-        raise AssertionError(f"even small step mismatch: {bad}")
 
 
 @phase("even path")
 def even_path(torch, counts):
-    """ION_MOTION_EVEN at 1024^2 x 64 in float32: one warm-up and two timed
-    steps; finite fields, the beam conserved, V-cycles per slice, the K1/K2/
+    """ION_MOTION_EVEN at 1024^2 x 64 in float32 for three steps; finite
+    fields, the beam conserved, V-cycles per slice, the K1/K2/
     K3 launches against the slice structure with two species. Then one
     1024^2 x 16 step of the deck on MGDirichlet (cell-centered K3 at C = 3
     for the Poisson solve), its K3 solves counted."""
@@ -1348,7 +994,7 @@ def even_path(torch, counts):
     for fn in (deposit, gather_main, mg_solve, plasma_push):
         fn.launches = 0
     reset_block_counts()
-    res, times = timed_steps(torch, sim, steps, write=False)
+    res = run_steps(sim, steps)
     counts.update({"K1": deposit.launches, "K2": gather_main.launches,
                    "K3": mg_solve.launches,
                    "plasma push": plasma_push.launches})
@@ -1366,12 +1012,6 @@ def even_path(torch, counts):
           f"{tuple(res['diag'].shape)} finite {finite}, beam particles {n} "
           f"(start {n0}), V-cycles per slice {min(cyc)}-{max(cyc)} (mean "
           f"{sum(cyc) / len(cyc):.3f}, last step)", flush=True)
-    slices = g.nz * (steps - 1)
-    t_step = sum(t for t, _ in times[1:])
-    print(f"even path: {slices / t_step:.3f} slices/s, "
-          f"{1e3 * t_step / slices:.3f} ms/slice over {steps - 1} timed "
-          f"steps after 1 warm-up; per timed step "
-          + ", ".join(f"{g.nz / t:.3f}" for t, _ in times[1:]), flush=True)
     cfgs = sim.plasma_cfgs
     per_step = {
         "K1": sum(int(p.neutralize_background) for p in cfgs)
@@ -1388,17 +1028,12 @@ def even_path(torch, counts):
         EVEN_NXY, SMALL_NZ, NPART // 4, "fields.poisson_solver = "
         "MGDirichlet\n"), device="cuda", dtype=torch.float32, verbose=0)
     mg_solve.launches = 0
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     mres = mgd.run_step(0)
-    torch.cuda.synchronize()
-    t_mgd = time.perf_counter() - t0
     mg_finite = bool(torch.isfinite(mres["diag"]).all())
     counts["K3 MGDirichlet"] = mg_solve.launches - SMALL_NZ
     print(f"even path on MGDirichlet, {EVEN_NXY}^2 x {SMALL_NZ} float32: "
           f"K3 solves {mg_solve.launches} (Bx/By and Poisson per slice: "
-          f"{2 * SMALL_NZ} predicted), fields finite {mg_finite}, "
-          f"{1e3 * t_mgd / SMALL_NZ:.3f} ms/slice (one step, compiled)",
+          f"{2 * SMALL_NZ} predicted), fields finite {mg_finite}",
           flush=True)
     if (not finite or n != n0 or not mg_finite
             or mg_solve.launches != 2 * SMALL_NZ
@@ -1408,74 +1043,10 @@ def even_path(torch, counts):
                              "wrong")
 
 
-# the "beam paths, small" decks: (label, deck function, deck lines added)
-BEAM_VARIANTS = (
-    ("DRIVE_WITNESS", "drive_witness", ""),
-    ("DRIVE_WITNESS + external fields", "drive_witness",
-     "beams.external_E(x,y,z,t) = 0.02*x*(1.+0.1*t) 0.02*y 0.01\n"
-     "witness.external_B(x,y,z,t) = 0.01*y 0.005*x 0.\n"),
-    ("GRID_CURRENT", "grid_current", ""),
-)
-
-
-@phase("beam paths, small")
-def beam_small_phase(torch):
-    """Two 63^2 x 16 float64 steps of each BEAM_VARIANTS deck on the kernels
-    against the same steps on the CPU plain path from the same beams:
-    fields within 1e-8 of their largest value, equal V-cycles on every
-    slice, the same live lanes, the beams (positions, momenta, spins)
-    within 1e-8."""
-    from hipace_tpu_torch import decks
-    from hipace_tpu_torch.convert import carry_state
-    from hipace_tpu_torch.particles.beam import BEAM_ATTRS
-    from hipace_tpu_torch.pipeline.simulation import Simulation
-    bad = []
-    for label, fn, extra in BEAM_VARIANTS:
-        def deck():
-            return getattr(decks, fn)(SMALL_NXY, SMALL_NZ, 4000, extra)
-        cpu = Simulation(deck(), device="cpu", verbose=0)
-        gpu = Simulation(deck(), device="cuda", dtype=torch.float64,
-                         verbose=0)
-        carry_state(gpu, {k: v.numpy() for k, v in cpu.binned.items()
-                          if torch.is_tensor(v)}, cpu.dt, cpu.time,
-                    [b.total_charge for b in cpu.beam_cfgs])
-        rel, brel, same = 0.0, 0.0, True
-        for step in range(2):
-            ref = cpu.advance(step, write_output=False)
-            got = gpu.advance(step, write_output=False)
-            d_ref, d_got = ref["diag"], got["diag"].cpu()
-            rel = max(rel, float((d_got - d_ref).abs().max()
-                                 / d_ref.abs().max()))
-            same = same and got["mg_cycles"] == ref["mg_cycles"]
-            v = ref["binned"]["valid"]
-            same = same and bool((got["binned"]["valid"].cpu() == v).all())
-            for k in BEAM_ATTRS:
-                r = ref["binned"][k][v]
-                if r.numel() and float(r.abs().max()) > 0:
-                    brel = max(brel, float(
-                        (got["binned"][k].cpu()[v] - r).abs().max()
-                        / r.abs().max()))
-        cfgs = gpu.beam_cfgs
-        ok = rel < 1e-8 and brel < 1e-8 and same
-        print(f"beam paths, small: {SMALL_NXY}^2 x {SMALL_NZ} float64 "
-              f"{label}, {len(cfgs)} beam(s) (spin "
-              f"{[b.do_spin_tracking for b in cfgs]}, radiation reaction "
-              f"{[b.do_radiation_reaction for b in cfgs]}, external fields "
-              f"{[b.use_external_fields for b in cfgs]}, grid current "
-              f"{gpu.cfg.grid_current is not None}), 2 steps, kernels vs CPU"
-              f" plain path: fields max rel err {rel:.3e} (tol 1e-8), beams "
-              f"{brel:.3e} (tol 1e-8), V-cycles per slice and live lanes "
-              f"equal {same} {'ok' if ok else 'FAIL'}", flush=True)
-        if not ok:
-            bad.append(label)
-    if bad:
-        raise AssertionError(f"beam paths small step mismatch: {bad}")
-
-
 @phase("witness path")
 def witness_path(torch, counts, results):
-    """DRIVE_WITNESS at 1023^2 x 64 in float32: one warm-up and two timed
-    steps; finite fields and momenta, each beam's count conserved (by
+    """DRIVE_WITNESS at 1023^2 x 64 in float32 for three steps; finite
+    fields and momenta, each beam's count conserved (by
     beam_id), the witness's |s| within 1e-5 of 1, the K1/K2/K3 launches
     against the slice structure with two beam species (the beam pushes'
     K2 launches counted apart: the witness's loop; the drive's fused beam
@@ -1516,7 +1087,7 @@ def witness_path(torch, counts, results):
         fn.launches = 0
     bm.advance_all_beams = counted
     try:
-        res, times = timed_steps(torch, sim, steps, write=False)
+        res = run_steps(sim, steps)
     finally:
         bm.advance_all_beams = orig
     counts.update({"K1": deposit.launches, "K2": gather_main.launches,
@@ -1544,13 +1115,6 @@ def witness_path(torch, counts, results):
           f"max {sdev:.3e} (tol 1e-5), spin turned by up to {turned:.3e}, "
           f"witness mean gamma {float(gam.mean()):.6f}, V-cycles per slice "
           f"{min(cyc)}-{max(cyc)} (last step); {CARD['line']}", flush=True)
-    slices = g.nz * (steps - 1)
-    t_step = sum(t for t, _ in times[1:])
-    print(f"witness path: {slices / t_step:.3f} slices/s, "
-          f"{1e3 * t_step / slices:.3f} ms/slice over {steps - 1} timed "
-          f"steps after 1 warm-up; per timed step "
-          + ", ".join(f"{g.nz / t:.3f}" for t, _ in times[1:])
-          + f"; {CARD['line']}", flush=True)
     pcfg = sim.plasma_cfgs[0]
     # the drive beam takes the fused push, the witness (spin, radiation
     # reaction) keeps the subcycle loop
@@ -1601,27 +1165,6 @@ def witness_path(torch, counts, results):
 K3C_GRIDS = ((1023, 1023), (255, 255), (31, 63), (1024, 1024), (64, 96),
              (32, 32))
 LASER_NZ = 64
-LASER_BOX = ("geometry.prob_lo = -10. -10. -7.5\n"
-             "geometry.prob_hi = 10. 10. 6.\n")
-# "laser, small": (label, deck lines); both laser solvers, both Bx/By
-# solvers. The predictor-corrector runs in a (-10..10)^2 box: in
-# LASER_WAKE's own (-20..20)^2 box at 63^2 its loop runs 30 iterations on
-# every slice and its fields depend on the last bits of a0 (the JAX
-# package's as the port's), so no two runs can agree there
-LASER_VARIANTS = (
-    ("explicit + multigrid", ""),
-    ("predictor-corrector + FFT, (-10..10)^2 box",
-     "hipace.bxby_solver = predictor-corrector\nlasers.solver_type = fft\n"
-     + LASER_BOX),
-)
-LASER_OUTPUT = """
-max_step = 1
-diagnostic.output_period = 1
-hipace.openpmd_backend = json
-diagnostic.names = lev0 laser_diag
-lev0.field_data = all
-lasers.insitu_period = 1
-"""
 
 
 def laser_acf(torch, mg, gen, dtype):
@@ -1734,108 +1277,14 @@ def sync_counted(torch, fn):
                     for w in caught)
 
 
-def all_files(folder):
-    return sorted(p for p in folder.rglob("*") if p.is_file())
-
-
-@phase("laser, small")
-def laser_small_phase(torch):
-    """Two 63^2 x 16 float64 steps of LASER_WAKE per LASER_VARIANTS on the
-    kernels against the same steps on the CPU plain path, each writing
-    openPMD files (json; lev0 with every field and laser_diag,
-    laserEnvelope included) and in-situ laser records: each field of the
-    stack and the laser stream within 1e-8, real
-    and complex V-cycles and PC iterations equal on every slice, every
-    output file within 1e-8."""
-    import shutil
-    from hipace_tpu_torch.decks import laser_wake
-    from hipace_tpu_torch.pipeline.simulation import Simulation
-    bad = []
-    for i, (label, extra) in enumerate(LASER_VARIANTS):
-        sims, res = {}, {}
-        for dev in ("cpu", "cuda"):
-            folder = OUT / f"laser_small_{i}_{dev}"
-            shutil.rmtree(folder, ignore_errors=True)
-            sims[dev] = Simulation(laser_wake(
-                SMALL_NXY, SMALL_NZ, 0, extra + LASER_OUTPUT
-                + f"hipace.file_prefix = {folder}/openpmd\n"
-                + f"lasers.insitu_file_prefix = {folder}/laser_insitu\n"),
-                device=dev, dtype=torch.float64, verbose=0)
-            res[dev] = []
-            for step in range(2):
-                sims[dev].set_dt()
-                res[dev].append(sims[dev].advance(step))
-        # each field of the lev0 stack (field_data = all) on its own scale
-        rel, srel, same = 0.0, 0.0, True
-        comps = sims["cpu"].cfg.diag_comps
-        for ref, got in zip(res["cpu"], res["cuda"]):
-            d_ref, d_got = ref["diag"], got["diag"].cpu()
-            per = ((d_got - d_ref).abs().amax(dim=(0, 2, 3))
-                   / d_ref.abs().amax(dim=(0, 2, 3)).clamp_min(1e-300))
-            rel = max(rel, float(per.max()))
-            for k in (0, 1):
-                s_ref = ref["laser_stream"][k]
-                srel = max(srel, float(
-                    (got["laser_stream"][k].cpu() - s_ref).abs().max()
-                    / s_ref.abs().max()))
-            for key in ("mg_cycles", "laser_cycles", "pc_iters"):
-                same = same and got[key] == ref[key]
-        files = {dev: all_files(OUT / f"laser_small_{i}_{dev}")
-                 for dev in sims}
-        names = [f.relative_to(OUT / f"laser_small_{i}_cpu")
-                 for f in files["cpu"]]
-        worst = [0.0, ""]
-        if [f.relative_to(OUT / f"laser_small_{i}_cuda")
-                for f in files["cuda"]] != names or len(names) != 3:
-            raise AssertionError(f"the runs wrote different files: {files}")
-        # the first |a|^2 moments in x and y cancel over the symmetric
-        # pulse: they are held on the scale of the sum of |a|^2 times the
-        # box's half width
-        g = sims["cpu"].geom
-        half = max(abs(v) for v in g.prob_lo[:2] + g.prob_hi[:2])
-        for got_f, ref_f in zip(files["cuda"], files["cpu"]):
-            if got_f.suffix == ".json":
-                compare_tree(json.loads(got_f.read_text()),
-                             json.loads(ref_f.read_text()), got_f.name,
-                             worst)
-                continue
-            got_r, ref_r = read_insitu(got_f), read_insitu(ref_f)
-            first = ("[|a|^2*x]", "[|a|^2*y]")
-            for k in ref_r.dtype.names:
-                if k not in first:
-                    compare_tree(got_r[k], ref_r[k], f"{got_f.name}[{k}]",
-                                 worst)
-            scale = half * float(abs(ref_r["[|a|^2]"]).max())
-            for k in first:
-                mrel = float(abs(got_r[k] - ref_r[k]).max()) / scale
-                if mrel > worst[0]:
-                    worst[:] = [mrel, f"{got_f.name}[{k}] (/ half width x "
-                                      "sum |a|^2)"]
-        last = res["cuda"][-1]
-        ok = rel < 1e-8 and srel < 1e-8 and same and worst[0] < 1e-8
-        print(f"laser, small: {SMALL_NXY}^2 x {SMALL_NZ} float64 LASER_WAKE "
-              f"{label}, 2 steps, kernels vs CPU plain path: fields "
-              f"({len(comps)}: {' '.join(comps)}) max rel err {rel:.3e} (each "
-              f"on its own max), envelope {srel:.3e}, {len(names)} files "
-              f"({', '.join(map(str, names))}) worst {worst[0]:.3e} "
-              f"({worst[1]}) (tol 1e-8); real V-cycles, complex V-cycles "
-              f"and PC iterations per slice equal {same} (last step: "
-              f"{last['mg_cycles']}, {last['laser_cycles']}, "
-              f"{last['pc_iters']}) {'ok' if ok else 'FAIL'}", flush=True)
-        if not ok:
-            bad.append(label)
-    if bad:
-        raise AssertionError(f"laser small step mismatch: {bad}")
-
-
 @phase("laser path")
 def laser_path(torch, counts, results):
-    """LASER_WAKE at 1023^2 x 64 in float32: one warm-up step, in which the
-    host's reads of the device are counted, and two timed steps; the
-    launches of K1, K2, real and complex K3 against the slice structure,
-    finite fields and envelope, the peak |a| of step 0 within 5% of a0; the
-    laser's time per slice from its own calls; step 0 against the same step
-    in float64 and in float32 on the plain versions."""
+    """LASER_WAKE at 1023^2 x 64 in float32 for three steps, the host's reads
+    of the device counted in the first; the launches of K1, K2, real and
+    complex K3 against the slice structure, finite fields and envelope, the
+    peak |a| of step 0 within 5% of a0; the laser's own device time per
+    slice from its own calls; step 0 against the same step in float64 and
+    in float32 on the plain versions."""
     import math
     from hipace_tpu_torch.decks import laser_wake
     from hipace_tpu_torch.ops.deposit import deposit
@@ -1851,16 +1300,12 @@ def laser_path(torch, counts, results):
     for fn in (deposit, gather_main, mg_solve, plasma_push):
         fn.launches = 0
     mg_solve.complex_launches = 0
-    times, peaks, copies = [], [], None
+    peaks, copies = [], None
     for step in range(steps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         if step == 0:
             res, copies = sync_counted(torch, lambda: sim.run_step(0))
         else:
             res = sim.run_step(step)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
         sim.time += sim.dt
         n00, np1 = res["laser_stream"][1], res["laser_stream"][0]
         if step == 0:       # held against the float64 step below
@@ -1891,16 +1336,8 @@ def laser_path(torch, counts, results):
               f"{per_step[k] * steps}: per slice one plasma deposit, fused "
               f"push and Bx/By solve and one envelope solve; no beam)",
               flush=True)
-    slices = g.nz * (steps - 1)
-    t_step = sum(times[1:])
-    print(f"laser path {NXY}^2 x {g.nz} float32, {sim.laser_geom.slice_shape}"
-          f" complex envelope, no beam: {slices / t_step:.3f} slices/s, "
-          f"{1e3 * t_step / slices:.3f} ms/slice over {steps - 1} timed "
-          f"steps after 1 warm-up; per timed step "
-          + ", ".join(f"{g.nz / t:.3f}" for t in times[1:])
-          + f"; {CARD['line']}", flush=True)
     print(f"laser path device-to-host copies per slice (synchronizing reads, "
-          f"warm-up step): {copies / g.nz:.3f} (the flagship's: the beam's "
+          f"first step): {copies / g.nz:.3f} (the flagship's: the beam's "
           f"2.05; the laser adds none)", flush=True)
     # the laser's own device work per slice, each part timed alone on the
     # path's shapes: the advance (its complex K3 solve apart) and the
@@ -1922,9 +1359,8 @@ def laser_path(torch, counts, results):
     laser_ms = adv_ms + gat_ms
     print(f"laser path, the laser's device time per slice: advance "
           f"{adv_ms:.3f} ms (with its complex K3 solve), the deposit's "
-          f"|a|^2 gather {gat_ms:.3f} ms = {laser_ms:.3f} ms, "
-          f"{100 * laser_ms / (1e3 * t_step / slices):.1f}% of the wall "
-          f"time per slice; {CARD['line']}", flush=True)
+          f"|a|^2 gather {gat_ms:.3f} ms = {laser_ms:.3f} ms; "
+          f"{CARD['line']}", flush=True)
     print(f"laser path real V-cycles per slice of the last step, head "
           f"first: {res['mg_cycles']}", flush=True)
     sim_comps = sim.cfg.diag_comps
@@ -2001,38 +1437,6 @@ def laser_path(torch, counts, results):
                              "reads or float32 against float64 wrong")
 
 
-@phase("adaptive dt, small")
-def adaptive_small_phase(torch):
-    """ADAPTIVE_VACUUM at 32^2 x 32 float64 through the time loop for 20
-    steps on the kernels and on the CPU plain path: equal dt sequences to
-    1e-12, landing on max_time, then one step with dt = 0."""
-    from hipace_tpu_torch.decks import adaptive_vacuum
-    from hipace_tpu_torch.pipeline.simulation import Simulation
-    dts = {}
-    for dev in ("cpu", "cuda"):
-        sim = Simulation(adaptive_vacuum(32, 32, 20, 80.0), device=dev,
-                         dtype=torch.float64, verbose=0)
-        dts[dev] = []
-        for step in range(sim.max_step + 1):
-            sim.set_dt()
-            dts[dev].append(sim.dt)
-            sim.advance(step, write_output=False)
-            if sim._has_last_step:
-                break
-        dts[dev + " time"] = sim.time
-    ref, got = dts["cpu"], dts["cuda"]
-    rel = max(abs(a - b) / max(abs(b), 1e-300) for a, b in zip(got, ref))
-    ok = (len(got) == len(ref) == 20 and rel <= 1e-12 and got[-1] == 0.0
-          and dts["cuda time"] == 80.0)
-    print(f"adaptive dt, small: 32^2 x 32 float64 ADAPTIVE_VACUUM, "
-          f"{len(got)} steps on the card (CPU {len(ref)}), dt max rel err "
-          f"{rel:.3e} (tol 1e-12), time at the end {dts['cuda time']!r} "
-          f"(max_time 80.0), dt per step {', '.join(f'{d:.9g}' for d in got)}"
-          f" {'ok' if ok else 'FAIL'}", flush=True)
-    if not ok:
-        raise AssertionError("adaptive dt sequence mismatch")
-
-
 @phase("adaptive flagship")
 def adaptive_flagship(torch):
     """The flagship deck with hipace.dt = adaptive at 1023^2 x 16 float32,
@@ -2073,218 +1477,10 @@ def adaptive_flagship(torch):
 
 
 # ------------------------------------------------- ionization, collisions
-ION_SMALL = 64
-# LASER_WAKE's pulse (a0 4.5, w0 4 and L0 2 plasma skin depths, at the
-# origin, lambda0 0.8 um) over IONIZATION_WAKE's plasma, in its SI units
-ION_LASER = """
-lasers.names = laser
-lasers.lambda0 = .8e-6
-lasers.solver_type = multigrid
-laser.a0 = 4.5
-laser.position_mean = 0. 0. 0.
-laser.w0 = 4. * kp_inv
-laser.L0 = 2. * kp_inv
-"""
-
-
-def card_and_cpu(torch, deck_fn):
-    """One float64 step of the deck deck_fn() on the CPU plain path and on
-    the kernels, from the CPU simulation's beam and with its slice draws
-    (recorded on the CPU, replayed on the card). Returns (cpu simulation,
-    card simulation, CPU result, card result)."""
-    from hipace_tpu_torch.convert import carry_state
-    from hipace_tpu_torch.pipeline.simulation import Simulation
-    cpu = Simulation(deck_fn(), device="cpu", verbose=0)
-    gpu = Simulation(deck_fn(), device="cuda", dtype=torch.float64,
-                     verbose=0)
-    carry_state(gpu, {k: v.numpy() for k, v in cpu.binned.items()
-                      if torch.is_tensor(v)}, cpu.dt, cpu.time,
-                [b.total_charge for b in cpu.beam_cfgs])
-    drawn, own = [], cpu.slice_step.draws
-
-    def record(name, *shape):
-        drawn.append(own(name, *shape))
-        return drawn[-1]
-
-    cpu.slice_step.draws = record
-    ref = cpu.run_step(0)
-    gpu.slice_step.draws = lambda name, *shape: drawn.pop(0).to("cuda")
-    got = gpu.run_step(0)
-    if drawn:
-        raise AssertionError(f"the card took {len(drawn)} draws fewer")
-    return cpu, gpu, ref, got
-
-
 def rel_err(got, ref):
     got, ref = got.cpu().double(), ref.cpu().double()
     scale = float(ref.abs().max())
     return float((got - ref).abs().max()) / (scale if scale > 0 else 1.0)
-
-
-def a0_sensitivity(torch):
-    """How far the spawned electrons' positions of the laser variant move
-    on the CPU when a0 moves by one unit in the last place: the deck's own
-    sensitivity to roundoff (electrons born at rest inside a pulse of a0
-    4.5 reach |u| ~ 10^5 c)."""
-    from hipace_tpu_torch.decks import ionization_wake
-    from hipace_tpu_torch.pipeline.simulation import Simulation
-    elec = []
-    for a0 in ("4.5", "4.500000000000001"):
-        sim = Simulation(ionization_wake(ION_SMALL, SMALL_NZ, 0, ION_LASER
-                                         .replace("laser.a0 = 4.5",
-                                                  f"laser.a0 = {a0}")),
-                         device="cpu", verbose=0)
-        elec.append(sim.run_step(0)["plasma"][0])
-    live = elec[0]["valid"] & elec[1]["valid"]
-    return max(rel_err(elec[1][k][live], elec[0][k][live])
-               for k in ("x", "y"))
-
-
-@phase("ionization, small")
-def ionization_small_phase(torch):
-    """A 64^2 x 16 float64 step of IONIZATION_WAKE, and of the same with
-    LASER_WAKE's pulse over its plasma, on the kernels against the CPU plain
-    path from the same beam and draws: fields within 1e-8, the ions' levels
-    and the electrons' live lanes equal, V-cycles equal on every slice, the
-    spawned electrons' positions within 1e-12, with the laser within a
-    hundred times the distance a one-ulp change of a0 moves them on the CPU
-    (the kernels' atomics reorder sums on every slice, not once)."""
-    from hipace_tpu_torch.decks import ionization_wake
-    bad = []
-    for label, extra in (("", ""), (", with a laser", ION_LASER)):
-        pos_tol = 100 * a0_sensitivity(torch) if extra else 1e-12
-        _, _, ref, got = card_and_cpu(torch, lambda: ionization_wake(
-            ION_SMALL, SMALL_NZ, 0, extra))
-        rel = rel_err(got["diag"], ref["diag"])
-        (e_ref, i_ref), (e_got, i_got) = ref["plasma"], got["plasma"]
-        same_lev = bool((i_got["ion_lev"].cpu() == i_ref["ion_lev"]).all())
-        live = e_ref["valid"]
-        same_live = bool((e_got["valid"].cpu() == live).all())
-        pos = max(rel_err(e_got[k][live.cuda()], e_ref[k][live])
-                  for k in ("x", "y"))
-        cycles = got["mg_cycles"] == ref["mg_cycles"]
-        events = (int(got["ionized"]), int(ref["ionized"]))
-        ok = (rel < 1e-8 and same_lev and same_live and pos < pos_tol
-              and cycles and events[0] == events[1] > 0)
-        print(f"ionization, small: {ION_SMALL}^2 x {SMALL_NZ} float64 "
-              f"IONIZATION_WAKE{label}, kernels vs CPU plain path: fields max"
-              f" rel err {rel:.3e} (tol 1e-8), ion levels equal {same_lev}, "
-              f"electron lanes equal {same_live} ({int(live.sum())} live), "
-              f"spawned positions {pos:.3e} (tol {pos_tol:.3e}), ionization "
-              f"events "
-              f"{events[0]} (CPU {events[1]}), V-cycles equal {cycles} "
-              f"{'ok' if ok else 'FAIL'}", flush=True)
-        if not ok:
-            bad.append(label or "no laser")
-    if bad:
-        raise AssertionError(f"ionization small step mismatch: {bad}")
-
-
-def duplicate_partner_case(torch, device, order):
-    """The R17 case: beam lanes A and B in one cell with one plasma lane, A
-    rejecting the plasma lane's kick and B taking it, in the given order.
-    Returns whether the plasma lane moved."""
-    from hipace_tpu_torch.decks import collision_wake
-    from hipace_tpu_torch.particles import collisions as coll
-    from hipace_tpu_torch.pipeline.simulation import Simulation
-    sim = Simulation(collision_wake(16, 4, 100), device="cpu", verbose=0)
-    g, f64 = sim.geom, dict(dtype=torch.float64, device=device)
-    x0, y0 = g.prob_lo[0] + 5.5 * g.dx, g.prob_lo[1] + 7.5 * g.dy
-    lanes = {"A": (0.3, -0.2, 1500., 0.5, 0.9),
-             "B": (-0.1, 0.4, 2500., 0.5, 0.1)}
-    ux, uy, uz, w, r2 = (torch.tensor(v, **f64)
-                         for v in zip(*(lanes[c] for c in order)))
-    beam = {"x": torch.full((2,), x0, **f64), "y": torch.full((2,), y0, **f64),
-            "ux": ux, "uy": uy, "uz": uz, "w": w,
-            "valid": torch.ones(2, dtype=torch.bool, device=device)}
-    plasma = {"x": torch.tensor([x0 + 0.1 * g.dx], **f64),
-              "y": torch.tensor([y0], **f64),
-              "ux": torch.tensor([0.01], **f64),
-              "uy": torch.tensor([-0.02], **f64),
-              "psi": torch.ones(1, **f64), "w": torch.ones(1, **f64),
-              "valid": torch.ones(1, dtype=torch.bool, device=device)}
-    draws = {"sort": torch.tensor([0.5], **f64),
-             "pick": torch.tensor([0.3, 0.6], **f64),
-             "kick": torch.stack([torch.full((2,), 0.4, **f64),
-                                  torch.full((2,), 0.7, **f64),
-                                  torch.zeros(2, **f64), r2])}
-    _, out = coll.beam_plasma_collision(
-        beam, plasma, g, sim.beam_cfgs[0], sim.plasma_cfgs[0], sim.pc, -1.0,
-        1e24, True, draws, 1.0)
-    return bool(out["ux"][0] != plasma["ux"][0])
-
-
-@phase("collisions, small")
-def collisions_small_phase(torch):
-    """A 64^2 x 16 float64 step of COLLISION_WAKE on the kernels against
-    the CPU plain path from the same beam and draws: the plasma's and the
-    beam's momenta within 1e-10, fields within 1e-8. Then the duplicate
-    partners: one slice's beam-plasma collision on the card against the CPU
-    with the same draws, many beam lanes sharing a plasma lane, within
-    1e-10; and the R17 case, where the card must keep the last picker's
-    kick as the CPU does."""
-    from hipace_tpu_torch.decks import collision_wake
-    from hipace_tpu_torch.particles import collisions as coll
-    cap = {}
-    cpu, gpu, ref, got = card_and_cpu(torch, lambda: collision_wake(
-        ION_SMALL, SMALL_NZ, 4000))
-    rel = rel_err(got["diag"], ref["diag"])
-    p_ref, p_got = ref["plasma"][0], got["plasma"][0]
-    prel = max(rel_err(p_got[k], p_ref[k]) for k in ("ux", "uy", "psi"))
-    v = ref["binned"]["valid"]
-    brel = max(rel_err(got["binned"][k][v.cuda()], ref["binned"][k][v])
-               for k in ("ux", "uy", "uz"))
-    cycles = got["mg_cycles"] == ref["mg_cycles"]
-    # one slice's beam-plasma collision from the CPU run's own state
-    orig = cpu.slice_step.collide
-
-    def capture(plasmas, emit, dt):
-        if len(emit["x"]) > len(cap.get("emit", {"x": ()})["x"]):
-            cap.update(plasma=plasmas[0], emit=emit, dt=dt)
-        return orig(plasmas, emit, dt)
-
-    cpu.slice_step.collide = capture
-    cpu.run_step(1)
-    emit, plasma = cap["emit"], cap["plasma"]
-    cells, _ = coll._cell_of(emit["x"], emit["y"], cpu.geom)
-    per_cell = torch.bincount(cells, minlength=cpu.geom.nx * cpu.geom.ny + 1)
-    shared = int((per_cell[:-1] > 1).sum())
-    gen = torch.Generator().manual_seed(5)
-    nb, n = emit["x"].numel(), plasma["x"].numel()
-    draws = {"sort": torch.rand(n, generator=gen, dtype=torch.float64),
-             "pick": torch.rand(nb, generator=gen, dtype=torch.float64),
-             "kick": torch.rand((4, nb), generator=gen, dtype=torch.float64)}
-    args = (cpu.geom, cpu.beam_cfgs[0], cpu.plasma_cfgs[0], cpu.pc, -1.0,
-            1e24, True)
-    b_ref, q_ref = coll.beam_plasma_collision(emit, plasma, *args, draws,
-                                              cap["dt"])
-
-    def on_card(d):
-        return {k: t.cuda() for k, t in d.items()}
-
-    b_got, q_got = coll.beam_plasma_collision(
-        on_card(emit), on_card(plasma), *args, on_card(draws), cap["dt"])
-    drel = max([rel_err(b_got[k], b_ref[k]) for k in ("ux", "uy", "uz")]
-               + [rel_err(q_got[k], q_ref[k]) for k in ("ux", "uy", "psi")])
-    moved = ((q_got["ux"].cpu() != plasma["ux"])
-             == (q_ref["ux"] != plasma["ux"])).all()
-    r17 = {(dev, order): duplicate_partner_case(torch, dev, order)
-           for dev in ("cpu", "cuda") for order in ("AB", "BA")}
-    r17_ok = all(r17[(dev, "AB")] and not r17[(dev, "BA")]
-                 for dev in ("cpu", "cuda"))
-    ok = (rel < 1e-8 and prel < 1e-10 and brel < 1e-10 and cycles
-          and drel < 1e-10 and bool(moved) and r17_ok and shared > 0)
-    print(f"collisions, small: {ION_SMALL}^2 x {SMALL_NZ} float64 "
-          f"COLLISION_WAKE, kernels vs CPU plain path: fields max rel err "
-          f"{rel:.3e} (tol 1e-8), plasma momenta {prel:.3e}, beam momenta "
-          f"{brel:.3e} (tol 1e-10), V-cycles equal {cycles}; one slice's "
-          f"beam-plasma collision ({nb} beam lanes, {shared} cells where "
-          f"several pick the cell's one plasma lane) card vs CPU {drel:.3e} "
-          f"(tol 1e-10), the same plasma lanes kicked {bool(moved)}; R17 "
-          f"case (the plasma lane moves when the accepting lane is last): "
-          f"{r17} {'ok' if ok else 'FAIL'}", flush=True)
-    if not ok:
-        raise AssertionError("collision small step mismatch")
 
 
 def counted_ionization(torch):
@@ -2313,14 +1509,14 @@ def counted_ionization(torch):
 
 @phase("ionization path")
 def ionization_path(torch, counts, results):
-    """IONIZATION_WAKE at 1023^2 x 64 in float32 with rho deposited: one
-    warm-up step and two timed steps, in the first of which the host's
-    reads of the device are counted; the K1/K2/K3 launches against the slice structure with
-    two species and one ionization gather per slice, finite fields, the
-    beam's lanes conserved, the ionization events per step, no charge ahead
-    of the beam's head (below 1e-3 qe ne, test_ionization.py's bound); then
-    the ionization module's device time per slice and K2 on the path's own
-    ion lanes at x_prev against its plain version, timed, with its bound."""
+    """IONIZATION_WAKE at 1023^2 x 64 in float32 with rho deposited, three
+    steps, the host's reads of the device counted in the second; the
+    K1/K2/K3 launches against the slice structure with two species and one
+    ionization gather per slice, finite fields, the beam's lanes conserved,
+    the ionization events per step, no charge ahead of the beam's head
+    (below 1e-3 qe ne, test_ionization.py's bound); then the ionization
+    module's device time per slice and K2 on the path's own ion lanes at
+    x_prev against its plain version, timed, with its bound."""
     from hipace_tpu_torch.decks import ionization_wake
     from hipace_tpu_torch.ops import gather as gat
     from hipace_tpu_torch.ops.deposit import deposit
@@ -2338,18 +1534,15 @@ def ionization_path(torch, counts, results):
     for fn in (deposit, gather_main, mg_solve):
         fn.launches = 0
     ion_k2, kept, undo = counted_ionization(torch)
-    times, events, copies = [], [], 0
+    events, copies = [], 0
     try:
         for step in range(steps):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
             if step == 1:
-                # counted after the warm-up's one-time copies (the ADK table)
+                # counted after the first step's one-time copies (the ADK
+                # table)
                 res, copies = sync_counted(torch, lambda: sim.run_step(1))
             else:
                 res = sim.run_step(step)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
             events.append(int(res["ionized"]))
             sim.binned = res["binned"]
             sim.time += sim.dt
@@ -2380,15 +1573,8 @@ def ionization_path(torch, counts, results):
           f"{int((ion['ion_lev'] > 0).sum())}; |rho| ahead of the beam's "
           f"head {ahead:.3e} qe ne (tol 1e-3), largest {near:.3e} qe ne; "
           f"{CARD['line']}", flush=True)
-    slices = g.nz * (steps - 1)
-    t_step = sum(times[1:])
-    print(f"ionization path: {slices / t_step:.3f} slices/s, "
-          f"{1e3 * t_step / slices:.3f} ms/slice over {steps - 1} timed steps"
-          f" after 1 warm-up; per timed step "
-          + ", ".join(f"{g.nz / t:.3f}" for t in times[1:])
-          + f"; {CARD['line']}", flush=True)
     print(f"ionization path device-to-host copies per slice (synchronizing "
-          f"reads, first timed step): {copies / g.nz:.3f} (the flagship's, "
+          f"reads, second step): {copies / g.nz:.3f} (the flagship's, "
           f"the beam's two per slice and the step's own four: "
           f"{(2 * g.nz + 4) / g.nz:.3f})", flush=True)
     for k, count in counts.items():
@@ -2403,8 +1589,7 @@ def ionization_path(torch, counts, results):
     mod_ms = cuda_ms(lambda: pl.ionization_module(*args[:-1], draw))
     print(f"ionization path, the ionization module's device time per slice "
           f"(one call on the path's state, its K2 gather included): "
-          f"{mod_ms:.4f} ms, {100 * mod_ms / (1e3 * t_step / slices):.1f}% "
-          f"of the wall time per slice; {CARD['line']}", flush=True)
+          f"{mod_ms:.4f} ms; {CARD['line']}", flush=True)
     ion_state, fields = args[0], args[2]
     planes = pl.field_planes(fields)
     ym, xm = cell_positions(ion_state["x_prev"], ion_state["y_prev"],
@@ -2455,13 +1640,12 @@ def nonfinite(res, beam):
 
 @phase("collision path")
 def collision_path(torch, counts, results):
-    """COLLISION_WAKE at 1023^2 x 64 in float32: one warm-up step and two
-    timed steps, in the first of which the host's reads of the device are
-    counted; the
-    K1/K2/K3 launches equal to the flagship's (collisions launch none of
-    the three), the collisions' device time and launches per slice on the
-    path's own state, and what float32 does to them (ROADMAP R19: their
-    guards and products leave float32's range, in the JAX package as here,
+    """COLLISION_WAKE at 1023^2 x 64 in float32 for three steps, the host's
+    reads of the device counted in the second; the K1/K2/K3 launches equal
+    to the flagship's (collisions launch none of the three), the
+    collisions' device time and launches per slice on the path's own state,
+    and what float32 does to them (ROADMAP R19: their guards and products
+    leave float32's range, in the JAX package as here,
     tools/collision_f32.py): the non-finite lanes after each step, and one
     slice's kicks against float64's. Then one step in float64 at 1023^2 x
     64 with collisions and one without from the same beam: fields and
@@ -2481,7 +1665,7 @@ def collision_path(torch, counts, results):
     orig, kept = st.collide, {"nb": 0}
 
     def keep(plasmas, emit, dt):
-        # the warm-up step's fullest slice: float32 leaves later steps'
+        # the first step's fullest slice: float32 leaves later steps'
         # states non-finite (R19)
         if sim.time == 0.0 and emit["x"].numel() >= kept["nb"]:
             kept.update(args=(plasmas, emit, dt), nb=emit["x"].numel())
@@ -2491,16 +1675,12 @@ def collision_path(torch, counts, results):
     steps = 3
     for fn in (deposit, gather_main, mg_solve):
         fn.launches = 0
-    times, copies, bad = [], 0, []
+    copies, bad = 0, []
     for step in range(steps):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         if step == 1:
             res, copies = sync_counted(torch, lambda: sim.run_step(1))
         else:
             res = sim.run_step(step)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
         bad.append(nonfinite(res, res["binned"]))
         sim.binned = res["binned"]
         sim.time += sim.dt
@@ -2511,23 +1691,18 @@ def collision_path(torch, counts, results):
     per_step = {"K1": int(pcfg.neutralize_background) + 3 * g.nz,
                 "K2": g.nz * (plasma_k2(sim) + beam_k2(sim)),
                 "K3": g.nz}
-    slices = g.nz * (steps - 1)
-    t_step = sum(times[1:])
     print(f"collision path {NXY}^2 x {NZ} float32, {NPART} beam particles, "
           f"collisions {sim.cfg.collisions}: non-finite (plasma lanes, beam "
           f"lanes, field values) after each step {bad} (ROADMAP R19); "
-          f"{slices / t_step:.3f} slices/s, {1e3 * t_step / slices:.3f} "
-          f"ms/slice over {steps - 1} timed steps after 1 warm-up; per timed "
-          f"step " + ", ".join(f"{g.nz / t:.3f}" for t in times[1:])
-          + f"; {CARD['line']}", flush=True)
+          f"{CARD['line']}", flush=True)
     print(f"collision path device-to-host copies per slice (synchronizing "
-          f"reads, first timed step): {copies / g.nz:.3f} (the flagship's, "
+          f"reads, second step): {copies / g.nz:.3f} (the flagship's, "
           f"the beam's two per slice and the step's own four: "
           f"{(2 * g.nz + 4) / g.nz:.3f})", flush=True)
     for k, count in counts.items():
         print(f"collision path launches {k}: {count} (the flagship's "
               f"{per_step[k] * steps})", flush=True)
-    # the collisions alone on the warm-up's fullest slice: device time and
+    # the collisions alone on the first step's fullest slice: device time and
     # launches per call (one call per slice)
     plasmas, emit, dt = kept["args"]
     ms = cuda_ms(lambda: st.collide(plasmas, emit, dt))
@@ -2549,12 +1724,11 @@ def collision_path(torch, counts, results):
     pp_ms = cuda_ms(lambda: coll.plasma_plasma_collision(
         plasmas[0], None, g, pcfg, pcfg, cfg.pc, -1.0,
         cfg.background_density_SI, True, dpp, True))
-    print(f"collision path, the collisions of one slice (the warm-up "
-          f"step's fullest slice, {kept['nb']} beam lanes, "
+    print(f"collision path, the collisions of one slice (the first step's "
+          f"fullest slice, {kept['nb']} beam lanes, "
           f"{plasmas[0]['x'].numel()} plasma lanes): {ms:.4f} ms (CUDA "
-          f"events), {launches} launches, "
-          f"{100 * ms / (1e3 * t_step / slices):.1f}% of the wall time per "
-          f"slice; the same-species collision alone {pp_ms:.4f} ms; "
+          f"events), {launches} launches; the same-species collision "
+          f"alone {pp_ms:.4f} ms; "
           f"{CARD['line']}", flush=True)
     # float32 against float64 on that state, the same draws
     for dtype in (torch.float32, torch.float64):
@@ -2617,41 +1791,6 @@ def read_insitu(path):
     return np.frombuffer(raw, dtype=np.dtype(head), offset=offset)
 
 
-def worst_rel(got, ref, where, worst):
-    """Record max|got - ref| / max|ref| of one dataset in worst[0], and raise
-    where the shapes or the integer and string values differ."""
-    import numpy as np
-    got, ref = np.asarray(got), np.asarray(ref)
-    if got.shape != ref.shape:
-        raise AssertionError(f"{where}: shape {got.shape} != {ref.shape}")
-    if ref.dtype.kind not in "fc":
-        if not np.array_equal(got, ref):
-            raise AssertionError(f"{where}: {got} != {ref}")
-        return
-    scale = float(np.abs(ref).max()) if ref.size else 0.0
-    err = float(np.abs(got - ref).max()) if ref.size else 0.0
-    rel = err / scale if scale > 0 else err
-    if rel > worst[0]:
-        worst[:] = [rel, where]
-
-
-def compare_tree(got, ref, where, worst):
-    """Walk two openPMD json documents or in-situ records together."""
-    if isinstance(ref, dict):
-        if sorted(got) != sorted(ref):
-            raise AssertionError(f"{where}: keys {sorted(got)} != "
-                                 f"{sorted(ref)}")
-        for k in ref:
-            compare_tree(got[k], ref[k], f"{where}/{k}", worst)
-    elif getattr(getattr(ref, "dtype", None), "names", None):
-        for k in ref.dtype.names:
-            compare_tree(got[k], ref[k], f"{where}[{k}]", worst)
-    elif isinstance(ref, (list, float, int)) or hasattr(ref, "dtype"):
-        worst_rel(got, ref, where, worst)
-    elif got != ref:
-        raise AssertionError(f"{where}: {got!r} != {ref!r}")
-
-
 def output_files(folder):
     """The openPMD files and in-situ files a run wrote under folder."""
     files = sorted((folder / "openpmd").glob("openpmd_*.json"))
@@ -2671,75 +1810,24 @@ def output_deck(deck_fn, nxy, nz, npart, extra, folder):
     return deck_fn(nxy, nz, npart, extra + output_lines(folder))
 
 
-@phase("output, small")
-def output_small_phase(torch):
-    """The 63^2 x 16 float64 pdf deck with named diagnostics of every kind,
-    beam output and in-situ records on the card and on the CPU from the same
-    beam: every dataset and record within 1e-8, equal V-cycle counts."""
-    import shutil
-    from hipace_tpu_torch.convert import carry_state
-    from hipace_tpu_torch.decks import pdf_beam
-    from hipace_tpu_torch.pipeline.simulation import Simulation
-    sims, cycles = {}, {}
-    for dev in ("cpu", "cuda"):
-        folder = OUT / f"small_{dev}"
-        shutil.rmtree(folder, ignore_errors=True)
-        sims[dev] = Simulation(
-            output_deck(pdf_beam, SMALL_NXY, SMALL_NZ, 4000, NAMED_DIAGS,
-                        folder), device=dev, dtype=torch.float64, verbose=0)
-    cpu, gpu = sims["cpu"], sims["cuda"]
-    carry_state(gpu, {k: v.numpy() for k, v in cpu.binned.items()
-                      if torch.is_tensor(v)}, cpu.dt, cpu.time)
-    for dev, sim in sims.items():
-        cycles[dev] = [sim.advance(step)["mg_cycles"]
-                       for step in range(sim.max_step + 1)]
-    files = {dev: output_files(OUT / f"small_{dev}") for dev in sims}
-    names = [f.relative_to(OUT / "small_cpu") for f in files["cpu"]]
-    if [f.relative_to(OUT / "small_cuda") for f in files["cuda"]] != names \
-            or len(names) != 5 or not all(f.exists() for f in files["cuda"]):
-        raise AssertionError(f"the runs wrote different files: {files}")
-    worst = [0.0, ""]
-    for got, ref in zip(files["cuda"], files["cpu"]):
-        if got.suffix == ".json":
-            compare_tree(json.loads(got.read_text()),
-                         json.loads(ref.read_text()), got.name, worst)
-        else:
-            compare_tree(read_insitu(got), read_insitu(ref), got.name, worst)
-    ok = worst[0] < 1e-8 and cycles["cuda"] == cycles["cpu"]
-    print(f"output, small: {SMALL_NXY}^2 x {SMALL_NZ} float64 pdf deck, "
-          f"{len(names)} files ({', '.join(map(str, names))}), kernels vs "
-          f"CPU plain path: worst dataset max rel err {worst[0]:.3e} "
-          f"({worst[1]}; tol 1e-8), MG cycles equal "
-          f"{cycles['cuda'] == cycles['cpu']} {'ok' if ok else 'FAIL'}",
-          flush=True)
-    if not ok:
-        raise AssertionError("small output run mismatch")
-
-
-def timed_steps(torch, sim, steps, write):
-    """Run `steps` steps from step 0; per step (step seconds, write
-    seconds), the step on the host clock around a synchronize."""
-    times = []
+def run_steps(sim, steps, write=False):
+    """Run `steps` steps from step 0, writing each step's output with
+    write=True; the last step's result."""
     for step in range(steps):
         pre = sim.binned
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
         res = sim.run_step(step)
-        torch.cuda.synchronize()
-        t1 = time.perf_counter()
         if write:
             sim.write_output(step, res, pre)
-        times.append((t1 - t0, time.perf_counter() - t1))
         sim.binned = res["binned"]
         sim.time += sim.dt
-    return res, times
+    return res
 
 
 @phase("pdf path")
 def pdf_path(torch):
     """PDF_BEAM at 1023^2 x 64 float32 with its output: files, finite
-    fields, the beam count, the in-situ beam weight and the launch counts;
-    slices/s with and without output."""
+    fields, the beam count, the in-situ beam weight and the launch
+    counts."""
     import shutil
     from hipace_tpu_torch.decks import pdf_beam
     from hipace_tpu_torch.ops.deposit import deposit
@@ -2758,7 +1846,7 @@ def pdf_path(torch):
     w0 = float(sim.binned["w"][sim.binned["valid"]].double().sum())
     for fn in (deposit, gather_main, mg_solve):
         fn.launches = 0
-    res, times = timed_steps(torch, sim, steps, write=True)
+    res = run_steps(sim, steps, write=True)
     counts = {"K1": deposit.launches, "K2": gather_main.launches,
               "K3": mg_solve.launches}
     n = int(sim.binned["valid"].sum())
@@ -2783,22 +1871,6 @@ def pdf_path(torch):
     for k, count in counts.items():
         print(f"pdf path launches {k}: {count} (slice structure predicts "
               f"{per_step[k] * steps})", flush=True)
-    slices = g.nz * (steps - 1)
-    t_step = sum(t for t, _ in times[1:])
-    t_write = sum(w for _, w in times[1:])
-    print(f"pdf path with output: {slices / (t_step + t_write):.3f} slices/s"
-          f" with the writes, {slices / t_step:.3f} slices/s for the steps "
-          f"alone over {steps - 1} timed steps after 1 warm-up; seconds "
-          f"writing per step: "
-          + ", ".join(f"{w:.3f}" for _, w in times), flush=True)
-    del res, sim
-    quiet = Simulation(pdf_beam(NXY, NZ, NPART), device="cuda",
-                       dtype=torch.float32, verbose=0)
-    _, qtimes = timed_steps(torch, quiet, steps, write=False)
-    q_step = sum(t for t, _ in qtimes[1:])
-    print(f"pdf path without output (output periods 0): "
-          f"{slices / q_step:.3f} slices/s over {steps - 1} timed steps",
-          flush=True)
     if (not finite or n != n0 or missing or w_rel > 1e-5
             or channels != 14
             or any(c != per_step[k] * steps for k, c in counts.items())):
@@ -2807,199 +1879,10 @@ def pdf_path(torch):
 
 
 # ------------------------------------------------- SALAME, mesh refinement
-# the JAX package's MR test deck (tests/test_mr.py:15-55): a 32^2 x 24 grid
-# with a 32^2 level over (-2..2)^2 at z -4..0 and an 8 x 8 ppc fine plasma
-# patch; {nx} the coarse width, {extra} the MR lines or none
-MR_TEST_BASE = """
-amr.n_cell = {nx} {nx} 24
-hipace.normalized_units = 1
-max_step = 0
-hipace.dt = 1.0
-boundary.field = Dirichlet
-boundary.particle = Periodic
-geometry.prob_lo = -8. -8. -6.
-geometry.prob_hi =  8.  8.  2.
-beams.names = beam
-beam.injection_type = fixed_weight
-beam.num_particles = 30000
-beam.profile = gaussian
-beam.position_mean = 0. 0. -1.
-beam.position_std = 0.3 0.3 1.0
-beam.zmin = -5.9
-beam.zmax = 1.9
-beam.density = 0.01
-beam.u_mean = 0. 0. 1000.
-beam.u_std = 0. 0. 0.
-plasmas.names = plasma
-plasma.density(x,y,z) = 1.
-plasma.ppc = 2 2
-plasma.element = electron
-diagnostic.output_period = 1
-hipace.openpmd_backend = json
-{extra}
-"""
-MR_TEST_LEVEL = """amr.max_level = 1
-mr_lev1.n_cell = 32 32
-mr_lev1.patch_lo = -2. -2. -4.
-mr_lev1.patch_hi =  2.  2.  0.
-plasma.fine_patch(x,y) = (abs(x)<2.3)*(abs(y)<2.3)
-plasma.fine_ppc = 8 8
-diagnostic.names = lev0 lev1
-lev1.base_geometry = level_1
-lev1.field_data = all
-"""
-# "MR, small": (label, deck lines added to the MR test deck)
-MR_VARIANTS = (
-    ("explicit, even 32^2 level (cell-centered fine K3)", ""),
-    ("explicit, odd 33^2 level (node-centered fine K3)",
-     "mr_lev1.n_cell = 33 33\n"),
-    # 4 x 4 fine ppc: the CPU half of 8 x 8 takes ~1 min
-    ("predictor-corrector, fine ppc 4 x 4",
-     "hipace.bxby_solver = predictor-corrector\nplasma.fine_ppc = 4 4\n"),
-    ("two levels", "amr.max_level = 2\nmr_lev2.n_cell = 32 32\n"
-     "mr_lev2.patch_lo = -0.9 -0.9 -3.\nmr_lev2.patch_hi = 0.9 0.9 -1.\n"
-     "diagnostic.names = lev0 lev1 lev2\nlev2.base_geometry = level_2\n"
-     "lev2.field_data = all\n"),
-    ("laser", "lasers.names = laser\nlasers.lambda0 = .8e-6\n"
-     "lasers.solver_type = multigrid\nlaser.a0 = 1.\n"
-     "laser.position_mean = 0. 0. 0.\nlaser.w0 = 2.\nlaser.L0 = 1.\n"),
-)
-# test_salame_with_mr's level over SALAME_WAKE, with the level's fields
-SALAME_MR = ("amr.max_level = 1\nmr_lev1.n_cell = 32 32\n"
-             "mr_lev1.patch_lo = -2. -2. -7.\nmr_lev1.patch_hi = 2. 2. 5.\n"
-             "plasma.fine_patch(x,y) = (abs(x)<2.3)*(abs(y)<2.3)\n"
-             "plasma.fine_ppc = 4 4\ndiagnostic.names = lev0 lev1\n"
-             "lev1.base_geometry = level_1\nlev1.field_data = all\n"
-             "lev1.output_period = 1\nhipace.openpmd_backend = json\n")
 # the MR path: inside the level, away from its edge (|x| < 1.5), the fine
 # on-axis Ez within this fraction of the coarse on-axis Ez's largest value
 # (PERF.md, written before the first call from CPU runs at 127^2 and 255^2)
 MR_AXIS_BOUND = 0.05
-
-
-def same_cycles(got, ref):
-    """Equal V-cycles (and PC iterations) on every slice, every solve."""
-    keys = [k for k in ref if k in ("mg_cycles", "pc_iters", "salame_cycles")
-            or k.startswith("mg_cycles_lev") or k == "laser_cycles"]
-    return all(got[k] == ref[k] for k in keys), keys
-
-
-def level_errors(got, ref):
-    """rel_err of level 0's fields and of each level's diagnostic."""
-    errs = {"level 0": rel_err(got["diag"], ref["diag"])}
-    for k in ref:
-        if k.startswith("diagf_"):
-            errs[k[6:]] = rel_err(got[k], ref[k])
-    return errs
-
-
-@phase("SALAME, small")
-def salame_small_phase(torch):
-    """SALAME_WAKE at 32^2 x 64 in float64, step 0 on the kernels against
-    the CPU plain path from the same beams, alone and with
-    test_salame_with_mr's level: fields of every level within 1e-8, the
-    SALAME slices equal, W within 1e-10, the witness's weights within 1e-10
-    of their largest, V-cycles equal on every slice (the level-0 solve,
-    SALAME's solves, the level's)."""
-    from hipace_tpu_torch.decks import salame_wake
-    bad = []
-    for label, extra in (("SALAME_WAKE", ""), ("with MR", SALAME_MR)):
-        cpu, gpu, ref, got = card_and_cpu(
-            torch, lambda: salame_wake(32, 64, 30000, extra))
-        errs = level_errors(got, ref)
-        w_err = float((got["salame_W"].cpu() - ref["salame_W"]).abs().max())
-        sal_eq = torch.equal(got["salame_is_sal"].cpu(), ref["salame_is_sal"])
-        b = ref["binned"]
-        wit = b["valid"] & (b["beam_id"] == 1)
-        w_rel = rel_err(got["binned"]["w"].cpu()[wit], b["w"][wit])
-        cyc_eq, _ = same_cycles(got, ref)
-        n_sal = int(ref["salame_is_sal"].sum())
-        sal_cyc = [c for v in ref["salame_cycles"].values() for c in v]
-        ok = (max(errs.values()) < 1e-8 and w_err < 1e-10 and sal_eq
-              and w_rel < 1e-10 and cyc_eq and n_sal > 0)
-        print(f"SALAME, small: 32^2 x 64 float64 {label}, {n_sal} SALAME "
-              f"slices, SALAME's V-cycles {min(sal_cyc)}-{max(sal_cyc)}, "
-              f"kernels vs CPU plain path: fields "
-              + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
-              + f" (tol 1e-8), W max abs err {w_err:.3e} (tol 1e-10), "
-              f"SALAME slices equal {sal_eq}, witness weights {w_rel:.3e} "
-              f"(tol 1e-10), V-cycles per slice equal {cyc_eq} "
-              f"{'ok' if ok else 'FAIL'}", flush=True)
-        if not ok:
-            bad.append(label)
-    if bad:
-        raise AssertionError(f"SALAME small step mismatch: {bad}")
-
-
-@phase("MR, small")
-def mr_small_phase(torch):
-    """The JAX package's MR test deck in float64 on the kernels against the
-    CPU plain path from the same beam, in each MR_VARIANTS form: fields of
-    every level within 1e-8, each level's diagnostic of the CPU's shape,
-    V-cycles and PC iterations equal on every slice. Then in float32 on the
-    card, the level's Ez against a uniformly fine 128^2 run at slices 14
-    and 7, at the JAX test's thresholds (test_mr.py:81-86): within 0.10 of
-    the truth's largest value and within 0.35 of the coarse run's error."""
-    from hipace_tpu_torch.parser import Inputs
-    from hipace_tpu_torch.pipeline.simulation import Simulation
-    bad = []
-    for label, extra in MR_VARIANTS:
-        deck = MR_TEST_BASE.format(nx=32, extra=MR_TEST_LEVEL + extra)
-        t0 = time.perf_counter()
-        cpu, gpu, ref, got = card_and_cpu(torch, lambda: Inputs(deck))
-        errs = level_errors(got, ref)
-        shapes = all(got[k].shape == ref[k].shape for k in ref
-                     if k.startswith("diagf_"))
-        cyc_eq, keys = same_cycles(got, ref)
-        ok = max(errs.values()) < 1e-8 and shapes and cyc_eq
-        print(f"MR, small: {label}, levels "
-              f"{[lv.geom.n_cell[:2] for lv in gpu.mr_levels]} float64, "
-              f"kernels vs CPU plain path: fields "
-              + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
-              + f" (tol 1e-8), diagnostic shapes equal {shapes}, {keys} "
-              f"equal on every slice {cyc_eq}, PC iterations "
-              f"{sum(ref['pc_iters'])}; {time.perf_counter() - t0:.1f} s "
-              f"{'ok' if ok else 'FAIL'}", flush=True)
-        if not ok:
-            bad.append(label)
-    # float32 on the card: the level against a uniformly fine truth
-    runs = {}
-    for name, nx, extra in (("mr", 32, MR_TEST_LEVEL), ("truth", 128, ""),
-                            ("coarse", 32, "")):
-        sim = Simulation(Inputs(MR_TEST_BASE.format(nx=nx, extra=extra)),
-                         device="cuda", dtype=torch.float32, verbose=0)
-        runs[name] = (sim, sim.run_step(0))
-    s_mr, r_mr = runs["mr"]
-    gf = s_mr.mr_levels[0].geom
-    xt = (torch.arange(gf.nx, dtype=torch.float64) + 0.5) * gf.dx \
-        + gf.prob_lo[0]
-    it = torch.round((xt + 8.0) / 0.125 - 0.5).long()
-    itc = torch.round((xt + 8.0) / 0.5 - 0.5).long()
-    errs32 = []
-    for z in (14, 7):
-        fine = r_mr["diagf_lev1"][z, s_mr.cfg.diags[1].comps.index("Ez")]
-        fine = fine.double().cpu()
-        tr = runs["truth"][1]["diag"][z, runs["truth"][0].cfg.diag_comps
-                                      .index("Ez")].double().cpu()
-        co = runs["coarse"][1]["diag"][z, runs["coarse"][0].cfg.diag_comps
-                                       .index("Ez")].double().cpu()
-        truth = tr[it][:, it]
-        coarse = co[itc][:, itc]
-        den = float(truth.abs().max())
-        e_f = float((fine - truth).abs().max()) / den
-        e_c = float((coarse - truth).abs().max()) / den
-        errs32.append((z, e_f, e_c))
-    ok32 = all(e_f < 0.10 and e_f < 0.35 * e_c for _, e_f, e_c in errs32)
-    print("MR, small: float32 on the card, the level's Ez against a "
-          "uniformly fine 128^2 run: "
-          + "; ".join(f"slice {z}: fine {e_f:.4f} (tol 0.10), coarse "
-                      f"{e_c:.4f}, ratio {e_f / e_c:.3f} (tol 0.35)"
-                      for z, e_f, e_c in errs32)
-          + f" {'ok' if ok32 else 'FAIL'}; {CARD['line']}", flush=True)
-    if not ok32:
-        bad.append("float32 fine vs truth")
-    if bad:
-        raise AssertionError(f"MR small mismatch: {bad}")
 
 
 class CallKeeper:
@@ -3072,8 +1955,8 @@ def on_axis_ez(res, sim):
 def salame_path(torch, counts, results):
     """SALAME_WAKE at 1023^2 x 64 in float32 (a 669,778-particle drive and a
     223,259-particle witness with do_salame): a first simulation's step 0
-    warms the kernels; a fresh one's step 0 (SALAME) and step 1 (none) are
-    timed apart, their host reads counted, their K1/K2/K3 launches held to
+    warms the kernels; a fresh one's step 0 (SALAME) and step 1 (none)
+    have their host reads counted, their K1/K2/K3 launches held to
     the slice structure with the step's SALAME slices; the witness's
     weights finite and not all zero, the drive's unchanged; the on-axis Ez
     spread across the witness below 0.4 of the same deck's with
@@ -3118,16 +2001,12 @@ def salame_path(torch, counts, results):
         return orig_solve(*args, **kwargs)
 
     stp.salame_slice, sim.slice_step.mg.solve = sal, solve
-    res, times, copies, per_step = [], [], [], []
+    res, copies, per_step = [], [], []
     try:
         for step in range(2):
             for f in fns.values():
                 f.launches = 0
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
             r, c = sync_counted(torch, lambda: sim.run_step(step))
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
             copies.append(c)
             per_step.append({k: f.launches for k, f in fns.items()})
             res.append(r)
@@ -3181,11 +2060,6 @@ def salame_path(torch, counts, results):
           f"V-cycles {min(sal_cyc)}-{max(sal_cyc)} over {len(sal_cyc)} "
           f"solves, K3 launches inside salame_slice {keep['K3']} (predicted"
           f" {extra['K3'] * n_sal}); {CARD['line']}", flush=True)
-    print(f"SALAME path: step 0 (SALAME) {g.nz / times[0]:.3f} slices/s, "
-          f"{1e3 * times[0] / g.nz:.3f} ms/slice; step 1 "
-          f"{g.nz / times[1]:.3f} slices/s, {1e3 * times[1] / g.nz:.3f} "
-          f"ms/slice (a first simulation's step 0 warmed the kernels); "
-          f"{CARD['line']}", flush=True)
     print(f"SALAME path host reads of the device (synchronizing copies): "
           f"step 0 {copies[0]}, step 1 {copies[1]}, step 0 of the same deck "
           f"without SALAME {copies_n}", flush=True)
@@ -3208,8 +2082,8 @@ def salame_path(torch, counts, results):
 @phase("MR path")
 def mr_path(torch, counts, results):
     """MR_WAKE at 1023^2 x 64 in float32 with a 511^2 level (4,186,116
-    plasma slots), one warm-up and two timed steps, the host's reads
-    counted in the first timed one: finite fields on both levels, the
+    plasma slots), three steps, the host's reads counted in the second:
+    finite fields on both levels, the
     beam's lanes conserved, the K1/K2/K3 launches against the slice
     structure and the level's active slices, the fine on-axis Ez inside the
     level within MR_AXIS_BOUND of the coarse; a coupler product on the card
@@ -3236,7 +2110,7 @@ def mr_path(torch, counts, results):
         return tuple(planes[0].shape) == fine_shape
 
     # the level's K1 plasma deposit (13 channels), K2 gathers and K3 solve;
-    # each kept at the middle active slice of the first timed step
+    # each kept at the middle active slice of the second step
     middle = n_act + n_act // 2
     k1 = CallKeeper(pl, "deposit", lambda a, k: tuple(a[0].shape[1:])
                     == fine_shape and a[0].shape[0] == 13, dep.deposit,
@@ -3251,17 +2125,13 @@ def mr_path(torch, counts, results):
                     lambda a, k: True, mg_solve, keep=middle)
     for f in (dep.deposit, gat.gather_main, mg_solve, beam_push):
         f.launches = 0
-    steps, times, copies = 3, [], 0
+    steps, copies = 3, 0
     try:
         for step in range(steps):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
             if step == 1:
                 res, copies = sync_counted(torch, lambda: sim.run_step(1))
             else:
                 res = sim.run_step(step)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
             sim.binned = res["binned"]
             sim.time += sim.dt
     finally:
@@ -3303,8 +2173,6 @@ def mr_path(torch, counts, results):
     coarse_f = coarse[:, i] * (1 - t) + coarse[:, i + 1] * t
     axis_err = float((fine_line[:, inside] - coarse_f).abs().max()
                      / coarse_f.abs().max())
-    slices = g.nz * (steps - 1)
-    t_step = sum(times[1:])
     print(f"MR path {NXY}^2 x {NZ} float32 with a {fg.nx}^2 level over "
           f"slices {lv.zeta_lo}-{lv.zeta_hi} ({n_act} active), "
           f"{pl.plasma_count(pcfg, g)} plasma slots, {n0} beam particles: "
@@ -3312,13 +2180,8 @@ def mr_path(torch, counts, results):
           f"{n0}); fine on-axis Ez inside |x| < 1.5 within {axis_err:.4f} of "
           f"the coarse's largest (bound {MR_AXIS_BOUND}); {CARD['line']}",
           flush=True)
-    print(f"MR path: {slices / t_step:.3f} slices/s, "
-          f"{1e3 * t_step / slices:.3f} ms/slice over {steps - 1} timed steps"
-          f" after 1 warm-up; per timed step "
-          + ", ".join(f"{g.nz / t:.3f}" for t in times[1:])
-          + f"; {CARD['line']}", flush=True)
     print(f"MR path device-to-host copies per slice (synchronizing reads, "
-          f"first timed step): {copies / g.nz:.3f} (the flagship's: "
+          f"second step): {copies / g.nz:.3f} (the flagship's: "
           f"{(2 * g.nz + 4) / g.nz:.3f})", flush=True)
     for k, count in counts.items():
         print(f"MR path launches {k}: {count} (slice structure predicts "
@@ -3400,25 +2263,15 @@ PIPE_STAGES = 2
 # and differ by the order of float32 atomic adds, which moves two serial
 # runs' ux by ~7e-5 of its largest value (NVIDIA H100 80GB HBM3, 700 W)
 PIPE_F32_TOL = 5e-4
-# a window and the serial tail, every kind of per-step output but the named
-# diagnostics (the output phase's)
-PIPE_OUTPUT = """
-max_step = 2
-hipace.openpmd_backend = json
-diagnostic.output_period = 1
-beams.insitu_period = 1
-plasmas.insitu_period = 1
-fields.insitu_period = 1
-"""
 
 
 class StepKeeper:
     """Keeps, per time step of a simulation's time loop in step order, its
-    V-cycles per slice, with fields=True its fields on the host, else a
-    device flag of their finiteness: from sim.run_step (the serial loop)
-    and from each stage of every pipelined window; undo() restores both."""
+    V-cycles per slice and a device flag of its fields' finiteness: from
+    sim.run_step (the serial loop) and from each stage of every pipelined
+    window; undo() restores both."""
 
-    def __init__(self, torch, sim, fields):
+    def __init__(self, torch, sim):
         from hipace_tpu_torch.parallel import pipeline as pp
         self.pp, self.sim, self.steps = pp, sim, []
         self.window = pp.pipelined_window
@@ -3430,7 +2283,6 @@ class StepKeeper:
             # of it and add to the peak memory the path reports
             finite = torch.stack([torch.isfinite(d).all() for d in diag])
             self.steps.append({"mg_cycles": res["mg_cycles"],
-                               "diag": diag.cpu() if fields else None,
                                "finite": finite.all()})
 
         def run_step(step):
@@ -3469,87 +2321,16 @@ def beam_rel(torch, got, ref, sort=False):
     return worst
 
 
-@phase("pipeline, small")
-def pipeline_small_phase(torch):
-    """The flagship at 63^2 x 16 in float64, two pipeline stages on cuda:0
-    (one window, then the serial tail) against the same on the CPU and
-    against the card's serial loop, from the same beam: fields and the beam
-    at the end within 1e-8, equal V-cycles on every slice of every stage,
-    and every per-step openPMD and in-situ file within 1e-8."""
-    import shutil
-    from hipace_tpu_torch.convert import carry_state
-    from hipace_tpu_torch.decks import blowout_wake
-    from hipace_tpu_torch.pipeline.simulation import Simulation
-    runs = {}
-    for name, dev, piped in (("cpu", "cpu", True), ("card", "cuda", True),
-                             ("serial", "cuda", False)):
-        folder = OUT / f"pipe_{name}"
-        shutil.rmtree(folder, ignore_errors=True)
-        sim = Simulation(blowout_wake(SMALL_NXY, SMALL_NZ, 4000,
-                                      PIPE_OUTPUT + output_lines(folder)),
-                         device=dev, dtype=torch.float64, verbose=0)
-        if runs:
-            cpu = runs["cpu"][0]
-            carry_state(sim, {k: v.numpy() for k, v in cpu.binned0.items()
-                              if torch.is_tensor(v)}, cpu.dt, 0.0)
-        sim.binned0 = sim.binned
-        keeper = StepKeeper(torch, sim, fields=True)
-        try:
-            if piped:
-                sim.evolve_pipelined(devices=[torch.device(dev)]
-                                     * PIPE_STAGES)
-            else:
-                sim.evolve()
-        finally:
-            keeper.undo()
-        runs[name] = (sim, keeper.steps, output_files(folder))
-    ref_sim, ref_steps, ref_files = runs["card"]
-    lines, ok = [], len(ref_steps) == 3
-    for name in ("cpu", "serial"):
-        sim, steps, files = runs[name]
-        fields = max(float((a["diag"] - b["diag"]).abs().max()
-                           / b["diag"].abs().max())
-                     for a, b in zip(ref_steps, steps))
-        same_cycles = [a["mg_cycles"] for a in ref_steps] == [
-            b["mg_cycles"] for b in steps]
-        beam = beam_rel(torch, ref_sim.binned, sim.binned)[0]
-        worst = [0.0, ""]
-        if [f.name for f in files] != [f.name for f in ref_files] or \
-                not all(f.exists() for f in files):
-            raise AssertionError(f"the runs wrote different files: {files}")
-        for got, ref in zip(ref_files, files):
-            if got.suffix == ".json":
-                compare_tree(json.loads(got.read_text()),
-                             json.loads(ref.read_text()), got.name, worst)
-            else:
-                compare_tree(read_insitu(got), read_insitu(ref), got.name,
-                             worst)
-        ok &= (fields < 1e-8 and beam < 1e-8 and worst[0] < 1e-8
-               and same_cycles and len(steps) == 3)
-        lines.append(f"against the {name} run: fields {fields:.3e}, beam "
-                     f"{beam:.3e}, worst file dataset {worst[0]:.3e} "
-                     f"({worst[1]}) over {len(files)} files, V-cycles equal "
-                     f"on every slice of every stage {same_cycles}")
-    print(f"pipeline, small: {SMALL_NXY}^2 x {SMALL_NZ} float64 flagship, "
-          f"{PIPE_STAGES} stages on cuda:0 (steps 0-1 in one window, step 2 "
-          "serial): " + "; ".join(lines) + f" (tol 1e-8) "
-          f"{'ok' if ok else 'FAIL'}", flush=True)
-    if not ok:
-        raise AssertionError("small pipelined run mismatch")
-    return runs
-
-
 @phase("pipeline path")
 def pipeline_path(torch, counts):
     """The flagship at 1023^2 x 64 in float32 through evolve_pipelined with
-    two stages on cuda:0: one warm-up window, in which the host's reads of
-    the device are counted (the stages built before it), then two timed
-    windows (4 steps) from the same beam: the K1/K2/K3 launches against the
-    serial slice structure, the slices per second over all stages' slices,
-    finite fields on every stage, a conserved beam and the peak memory; then
-    the serial loop's 4 steps from the same beam, twice, timed, with their
-    peak memory: the pipelined final beam held to the serial one, beside the
-    spread between the two serial runs."""
+    two stages on cuda:0: one window, in which the host's reads of the
+    device are counted (the stages built before it), then two windows (4
+    steps) from the same beam: the K1/K2/K3 launches against the serial
+    slice structure, finite fields on every stage, a conserved beam and the
+    peak memory; then the serial loop's 4 steps from the same beam, twice,
+    with their peak memory: the pipelined final beam held to the serial
+    one, beside the spread between the two serial runs."""
     from hipace_tpu_torch.decks import blowout_wake
     from hipace_tpu_torch.ops.deposit import deposit
     from hipace_tpu_torch.ops.gather import gather_main
@@ -3569,8 +2350,8 @@ def pipeline_path(torch, counts):
                       for k, v in beam0.items()}
         sim.time, sim.dt, sim.max_step = 0.0, dt0, max_step
 
-    # the stages built first, then a warm-up window in which the host's
-    # reads are counted, then the timed windows from the same beam
+    # the stages built first, then a window in which the host's reads are
+    # counted, then the counted windows from the same beam
     sim = flagship(PIPE_STAGES - 1)
     g = sim.geom
     probe = generator_probe(sim)
@@ -3578,24 +2359,17 @@ def pipeline_path(torch, counts):
              for k, v in sim.binned.items()}
     dt0, n0 = sim.dt, int(beam0["valid"].sum())
     sim.stage_slice_steps(devices)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
     _, reads = sync_counted(torch, lambda: sim.evolve_pipelined(
         devices=devices, write_output=False))
-    torch.cuda.synchronize()
-    t_warm = time.perf_counter() - t0
     from_start(sim, steps - 1)
-    keeper = StepKeeper(torch, sim, fields=False)
+    keeper = StepKeeper(torch, sim)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     held = torch.cuda.memory_allocated()
     for fn in (deposit, gather_main, mg_solve):
         fn.launches = 0
-    t0 = time.perf_counter()
     try:
         sim.evolve_pipelined(devices=devices, write_output=False)
-        torch.cuda.synchronize()
-        t_pipe = time.perf_counter() - t0
         counts.update({"K1": deposit.launches, "K2": gather_main.launches,
                        "K3": mg_solve.launches})
     finally:
@@ -3609,8 +2383,8 @@ def pipeline_path(torch, counts):
     del sim
     torch.cuda.empty_cache()
 
-    # the serial loop twice from the same beam: its time and peak memory,
-    # and how far f32 atomics alone move the final beam
+    # the serial loop twice from the same beam: its peak memory, and how
+    # far f32 atomics alone move the final beam
     finals = []
     for _ in range(2):
         serial = flagship(steps - 1)
@@ -3618,10 +2392,7 @@ def pipeline_path(torch, counts):
                          for k, v in beam0.items()}
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        t0 = time.perf_counter()
         serial.evolve(write_output=False)
-        torch.cuda.synchronize()
-        t_serial = time.perf_counter() - t0
         peak_serial = torch.cuda.max_memory_allocated()
         finals.append(serial.binned)
         del serial
@@ -3632,28 +2403,21 @@ def pipeline_path(torch, counts):
     per_step = {"K1": int(pcfg.neutralize_background) + 3 * g.nz,
                 "K2": g.nz * loop_k2,
                 "K3": g.nz}
-    slices = g.nz * steps
-    print(f"pipeline path {NXY}^2 x {NZ} float32, {NPART} beam particles, "
-          f"{PIPE_STAGES} stages on one card: {slices / t_pipe:.3f} slices/s"
-          f" over {steps} steps in {steps // PIPE_STAGES} timed windows "
-          f"(every stage's slices; {1e3 * t_pipe / slices:.3f} ms/slice); "
-          f"the serial loop from the same beam {slices / t_serial:.3f} "
-          f"slices/s; warm-up window {t_warm:.3f} s; "
-          f"{CARD['line']}",
-          flush=True)
     # the serial structure (two lane counts per slice, at the beam push),
     # one receive-row binning per tick and a few per window
     read_bound = (2 * PIPE_STAGES * g.nz + g.nz + 2 * (PIPE_STAGES - 1)
                   + 5)
-    print(f"pipeline path host reads of the device per slice (the warm-up "
+    print(f"pipeline path host reads of the device per slice (the first "
           f"window, all stages' slices): "
           f"{reads / (PIPE_STAGES * g.nz):.3f} "
           f"({reads} reads over {PIPE_STAGES * g.nz} slices; bound "
           f"{read_bound})", flush=True)
-    print(f"pipeline path peak memory: {peak_pipe / 2 ** 30:.3f} GiB with "
-          f"{PIPE_STAGES} stages ({held / 2 ** 30:.3f} GiB held before the "
-          f"timed windows), {peak_serial / 2 ** 30:.3f} GiB serial (ratio "
-          f"{peak_pipe / peak_serial:.3f})", flush=True)
+    print(f"pipeline path {NXY}^2 x {NZ} float32, {NPART} beam particles, "
+          f"{PIPE_STAGES} stages on one card, peak memory: "
+          f"{peak_pipe / 2 ** 30:.3f} GiB ({held / 2 ** 30:.3f} GiB held "
+          f"before the counted windows), {peak_serial / 2 ** 30:.3f} GiB "
+          f"serial (ratio {peak_pipe / peak_serial:.3f}); {CARD['line']}",
+          flush=True)
     print(f"pipeline path: fields finite on every stage {finite}, V-cycles "
           f"per slice {min(cycles)}-{max(cycles)} over {len(keeper.steps)} "
           f"steps, beam particles {n} (start {n0}); final beam against the "
@@ -3672,9 +2436,7 @@ def pipeline_path(torch, counts):
         raise AssertionError("pipeline path failed its checks")
     # the references of the ranks path
     return {"beam": pipe_binned, "serial": finals[0], "spread": spread[0],
-            "lanes": n0, "probe": probe, "per_step": per_step,
-            "slices_per_s": slices / t_pipe,
-            "serial_slices_per_s": slices / t_serial}
+            "lanes": n0, "probe": probe, "per_step": per_step}
 
 
 # ------------------------------------------------------------- the ranks
@@ -3691,81 +2453,18 @@ def card_steps(results):
     return steps, owner
 
 
-@phase("ranks, small")
-def ranks_small_phase(torch, pipe):
-    """The 63^2 x 16 float64 flagship of "pipeline, small" (one window, then
-    the serial tail, every per-step output) as two ranks sharing cuda:0
-    over gloo (ranks.spawn, Simulation.evolve_ranks) from the CPU run's
-    beam: every openPMD and in-situ file and the final beam within 1e-8 of
-    the single-process two-stage runs on cuda:0 and on the CPU, equal
-    V-cycles on every slice of every step, each step on its rank."""
-    import shutil
-    from hipace_tpu_torch.decks import BLOWOUT_WAKE
-    from hipace_tpu_torch.parallel import ranks
-    if pipe is None:
-        raise AssertionError('"pipeline, small" did not run')
-    folder = OUT / "ranks_small"
-    shutil.rmtree(folder, ignore_errors=True)
-    folder.mkdir(parents=True)
-    cpu = pipe["cpu"][0]
-    start = folder / "start.pt"
-    torch.save({"binned": {k: v for k, v in cpu.binned0.items()
-                           if torch.is_tensor(v)}, "dt": cpu.dt}, start)
-    deck = (BLOWOUT_WAKE.format(nxy=SMALL_NXY, nz=SMALL_NZ, npart=4000)
-            + PIPE_OUTPUT + output_lines(folder))
-    t0 = time.perf_counter()
-    res = ranks.spawn(ranks.Job(deck, dtype="float64", start=str(start),
-                                keep_steps=True, verbose=0),
-                      ["cuda:0"] * PIPE_STAGES, timeout=RANK_TIMEOUT)
-    t_spawn = time.perf_counter() - t0
-    final = res[0]["final"]["binned"]
-    steps, owner = card_steps(res)
-    files = output_files(folder)
-    lines = []
-    ok = (sorted(steps) == [0, 1, 2] and owner == {0: 0, 1: 1, 2: 0}
-          and all(f.exists() for f in files))
-    for name in ("card", "cpu"):
-        sim, ref_steps, ref_files = pipe[name]
-        same_cycles = [steps[s]["mg_cycles"] for s in sorted(steps)] == [
-            r["mg_cycles"] for r in ref_steps]
-        beam = beam_rel(torch, final, sim.binned)[0]
-        worst = [0.0, ""]
-        if [f.name for f in files] != [f.name for f in ref_files]:
-            raise AssertionError(f"the ranks wrote {files}")
-        for got, ref in zip(files, ref_files):
-            if got.suffix == ".json":
-                compare_tree(json.loads(got.read_text()),
-                             json.loads(ref.read_text()), got.name, worst)
-            else:
-                compare_tree(read_insitu(got), read_insitu(ref), got.name,
-                             worst)
-        ok &= beam < 1e-8 and worst[0] < 1e-8 and same_cycles
-        lines.append(f"against the single-process {name} run: beam "
-                     f"{beam:.3e}, worst file dataset {worst[0]:.3e} "
-                     f"({worst[1]}) over {len(files)} files, V-cycles equal "
-                     f"on every slice of every step {same_cycles}")
-    print(f"ranks, small: {SMALL_NXY}^2 x {SMALL_NZ} float64 flagship, "
-          f"{PIPE_STAGES} ranks on cuda:0 (steps 0-1 in one window, step 2 "
-          f"serial on rank 0; spawn {t_spawn:.1f} s): " + "; ".join(lines)
-          + f" (tol 1e-8) {'ok' if ok else 'FAIL'}", flush=True)
-    if not ok:
-        raise AssertionError("small rank run mismatch")
-
-
 @phase("ranks path")
 def ranks_path(torch, pipe, counts):
     """The 1023^2 x 64 float32 flagship of the pipeline path as two ranks on
-    cuda:0 (gloo): one warm-up window, then two timed windows (4 steps)
-    from the same beam. Each rank's K1/K2/K3 launches in the timed windows
-    against the serial slice structure of its 2 steps, finite fields, a
-    conserved beam, every rank's generator draws equal to this process's,
-    the final beam against the pipeline path's single-process pipeline
-    within PIPE_F32_TOL (beside the serial loop's and the spread of two
-    serial runs), slices/s over all ranks' slices against the pipeline
-    path's two runs, each rank's peak memory. Where there are two cards,
-    the same with one rank per card over NCCL; counts gets the launches of
-    the ranks on cuda:0, summed."""
-    import os
+    cuda:0 (gloo): one window, then two windows (4 steps) from the same
+    beam. Each rank's K1/K2/K3 launches in the two windows against the
+    serial slice structure of its 2 steps, finite fields, a conserved beam,
+    every rank's generator draws equal to this process's, the final beam
+    against the pipeline path's single-process pipeline within PIPE_F32_TOL
+    (beside the serial loop's and the spread of two serial runs), each
+    rank's peak memory. Where there are two cards, the same with one rank
+    per card over NCCL; counts gets the launches of the ranks on cuda:0,
+    summed."""
     from hipace_tpu_torch.decks import BLOWOUT_WAKE
     from hipace_tpu_torch.parallel import ranks
     if pipe is None:
@@ -3783,17 +2482,14 @@ def ranks_path(torch, pipe, counts):
               f"{torch.cuda.device_count()} card", flush=True)
     ok = True
     for leg, devices in legs:
-        t0 = time.perf_counter()
         res = ranks.spawn(job, devices, timeout=RANK_TIMEOUT)
-        t_spawn = time.perf_counter() - t0
-        timed = [r["runs"][-1] for r in res]
+        counted = [r["runs"][-1] for r in res]
         rec, owner = card_steps(res)
         final = res[0]["final"]["binned"]
         n = int(final["valid"].sum())
         diff = beam_rel(torch, final, pipe["beam"], sort=True)
         vs_serial = beam_rel(torch, final, pipe["serial"], sort=True)
-        rate = NZ * steps / timed[0]["seconds"]
-        launches = [r["launches"] for r in timed]
+        launches = [r["launches"] for r in counted]
         want = {k: v * steps // PIPE_STAGES
                 for k, v in pipe["per_step"].items()}
         good = (sorted(rec) == list(range(steps))
@@ -3805,17 +2501,10 @@ def ranks_path(torch, pipe, counts):
                 and all(c == want for c in launches))
         ok &= good
         cycles = [c for r in rec.values() for c in r["mg_cycles"]]
-        print(f"ranks path {NXY}^2 x {NZ} float32, {leg} "
-              f"({res[0]['runs'][0]['seconds']:.3f} s warm-up window, spawn "
-              f"{t_spawn:.1f} s): {rate:.3f} slices/s over {steps} steps "
-              f"(every rank's slices; {rate / pipe['slices_per_s']:.3f}x the "
-              f"single-process pipeline's {pipe['slices_per_s']:.3f}, "
-              f"{rate / pipe['serial_slices_per_s']:.3f}x the serial "
-              f"loop's {pipe['serial_slices_per_s']:.3f}); peak memory per "
+        print(f"ranks path {NXY}^2 x {NZ} float32, {leg}: peak memory per "
               "rank " + ", ".join(f"{r['peak_bytes'] / 2 ** 30:.3f}"
-                                  for r in timed)
-              + f" GiB; {os.cpu_count()} host cores; {CARD['line']}",
-              flush=True)
+                                  for r in counted)
+              + f" GiB; {CARD['line']}", flush=True)
         print(f"ranks path {leg}: launches per rank "
               + "; ".join(", ".join(f"{k} {v}" for k, v in c.items())
                           for c in launches)
@@ -3834,66 +2523,6 @@ def ranks_path(torch, pipe, counts):
             counts.update({k: sum(c[k] for c in launches) for k in want})
     if not ok:
         raise AssertionError("ranks path failed its checks")
-
-
-@phase("bench")
-def bench_phase(torch):
-    """The port's bench (hipace_tpu_torch.bench) in this process on its
-    pdf deck at 1023^2 x 64: one warm-up step, then 3 runs of 2 measured
-    steps; its JSON line on a line of its own. It must name this card and
-    have launched K1, K3 and the fused beam and plasma pushes on every slice
-    (K2 runs inside the fused pushes on this deck)."""
-    from hipace_tpu_torch import bench
-    rec = bench.run(nxy=NXY, nz=NZ, steps=3, runs=3, log=sys.stdout)
-    print(json.dumps(rec), flush=True)
-    low = [k for k, n in rec["launches_per_slice"].items()
-           if n < 1 and k != "K2"]
-    if rec["device"] != torch.cuda.get_device_name(0) or low:
-        raise AssertionError(f"bench on {rec['device']}, kernels under one "
-                             f"launch per slice: {low}")
-
-
-@phase("physics gate")
-def gate_phase(torch):
-    """hipace_tpu_torch.gpu_check's small ladder (CPU f64, card f64, card
-    f32 from one beam and one set of draws) on its first GATE_CASES cases,
-    its full-width leg (card f32 against card f64 at 1023^2 x 64) and its
-    reference leg; the record under build/chip_smoke/gpu_check.json. Fails
-    where a case fails or a kernel was not launched."""
-    from hipace_tpu_torch import gpu_check
-    from hipace_tpu_torch.ops.deposit import deposit
-    from hipace_tpu_torch.ops.gather import gather_main
-    from hipace_tpu_torch.ops.mg_kernel import mg_solve
-    from hipace_tpu_torch.ops.plasma_push import plasma_push
-    kernels = {"K1": deposit, "K2": gather_main, "K3": mg_solve,
-               "plasma push": plasma_push}
-    for fn in kernels.values():
-        fn.launches = 0
-    record = gpu_check.gate([c.name for c in gpu_check.CASES[:GATE_CASES]],
-                            log=io.StringIO())
-    launches = {k: fn.launches for k, fn in kernels.items()}
-    OUT.mkdir(parents=True, exist_ok=True)
-    (OUT / "gpu_check.json").write_text(json.dumps(record, indent=1) + "\n")
-
-    def pair(e, k):
-        p = e[k]
-        return f"{p['max_rel']:.3e} ({p['key']}; tol {p['tol']:g})"
-
-    for e in record["cases"] + [record["full_width"]]:
-        legs = ", ".join(f"{leg} {e['mg_cycles'][leg]}/{e['pc_iters'][leg]}/"
-                         f"{e['seconds'][leg]:.1f} s" for leg in e["seconds"])
-        f64 = (f"card f64 vs CPU {pair(e, 'f64_vs_cpu')}, "
-               if "f64_vs_cpu" in e else "")
-        print(f"physics gate {e['case']}, {e['steps']} steps: {f64}card "
-              f"f32 vs f64 {pair(e, 'f32_vs_f64')}; V-cycles/PC iterations"
-              f"/seconds {legs} {'ok' if e['ok'] else 'FAIL'}", flush=True)
-    for s in record["skipped"]:
-        print(f"physics gate {s['case']}: skipped ({s['skipped']})")
-    print(f"physics gate reference leg: {record['reference']}")
-    print(f"physics gate record: {OUT / 'gpu_check.json'}; launches "
-          + ", ".join(f"{k} {n}" for k, n in launches.items()), flush=True)
-    if not record["ok"] or not all(launches.values()):
-        raise AssertionError("the physics gate failed")
 
 
 def main() -> int:
@@ -3950,65 +2579,47 @@ def main() -> int:
         k3_phase(torch, g, dtype, results)
     beam_push_phase(torch, g, results)
     plasma_push_phase(torch, g, results)
-    reference_phase(torch)
     counts: dict = {}
     main_path(torch, sim, counts)
     del sim
     torch.cuda.empty_cache()
-    pc_small_phase(torch)
     pc_counts: dict = {}
     pc_path(torch, pc_counts)
     torch.cuda.empty_cache()
     poisson_phase(torch, g, results)
-    output_small_phase(torch)
     pdf_path(torch)
     torch.cuda.empty_cache()
     k3_cc_phase(torch, results)
-    even_small_phase(torch)
     even_counts: dict = {}
     even_path(torch, even_counts)
     torch.cuda.empty_cache()
-    beam_small_phase(torch)
     witness_counts: dict = {}
     witness_path(torch, witness_counts, results)
     torch.cuda.empty_cache()
     k3_complex_phase(torch, results)
-    laser_small_phase(torch)
     laser_counts: dict = {}
     laser_path(torch, laser_counts, results)
     torch.cuda.empty_cache()
-    adaptive_small_phase(torch)
     adaptive_flagship(torch)
     torch.cuda.empty_cache()
-    ionization_small_phase(torch)
-    collisions_small_phase(torch)
     ion_counts: dict = {}
     ionization_path(torch, ion_counts, results)
     torch.cuda.empty_cache()
     collision_counts: dict = {}
     collision_path(torch, collision_counts, results)
     torch.cuda.empty_cache()
-    salame_small_phase(torch)
-    mr_small_phase(torch)
     salame_counts: dict = {}
     salame_path(torch, salame_counts, results)
     torch.cuda.empty_cache()
     mr_counts: dict = {}
     mr_path(torch, mr_counts, results)
     torch.cuda.empty_cache()
-    pipe_small = pipeline_small_phase(torch)
     pipe_counts: dict = {}
     pipe_ref = pipeline_path(torch, pipe_counts)
     torch.cuda.empty_cache()
-    ranks_small_phase(torch, pipe_small)
-    del pipe_small
     rank_counts: dict = {}
     ranks_path(torch, pipe_ref, rank_counts)
     del pipe_ref
-    torch.cuda.empty_cache()
-    bench_phase(torch)
-    torch.cuda.empty_cache()
-    gate_phase(torch)
 
     if failures:
         print(f"chip_smoke FAILED phases: {failures}", file=sys.stderr)

@@ -75,7 +75,8 @@ BEAM_MAP = {"x": "position/x", "y": "position/y", "z": "position/z",
             "ux": "momentum/x", "uy": "momentum/y", "uz": "momentum/z",
             "w": "weighting"}
 SXSYCHI = ("Sy", "Sx", "chi")
-# card float64 against the CPU's float64 (chip_smoke.py's small phases)
+# card float64 against the CPU's float64 (the gpu tests' card-against-CPU
+# comparisons, tests/test_torch_gpu_steps.py)
 F64_RTOL = 1e-8
 NXY, NZ = 63, 16
 # the CPU legs' worker processes and their threads (the card's legs hold a

@@ -5,7 +5,10 @@ launches.
 """
 
 import ast
+import contextlib
 import dataclasses
+import io
+import json
 import os
 import subprocess
 import sys
@@ -18,9 +21,11 @@ import __graft_entry__
 from hipace_tpu import constants as jconstants
 from hipace_tpu.geometry import Geometry as JGeometry
 from hipace_tpu.parser import Inputs as JInputs
+from hipace_tpu.pipeline.simulation import Simulation as JSimulation
 from hipace_tpu.utils.atomic_data import ATOMIC_WEIGHTS_DA as JWEIGHTS
 from hipace_tpu.utils.atomic_data import IONIZATION_ENERGIES_EV as JENERGIES
 from hipace_tpu_torch import constants as tconstants
+from hipace_tpu_torch import decks
 from hipace_tpu_torch.fields.multigrid import MultiGrid
 from hipace_tpu_torch.geometry import Geometry
 from hipace_tpu_torch.ops import deposit as tdeposit
@@ -62,7 +67,7 @@ def test_the_walk_finds_the_port():
     assert {"chip_smoke.py", "hipace_tpu_torch/parser.py",
             "hipace_tpu_torch/geometry.py", "hipace_tpu_torch/constants.py",
             "hipace_tpu_torch/utils/atomic_data.py",
-            "hipace_tpu_torch/ops/mg_kernel.py", "hipace_tpu_torch/bench.py",
+            "hipace_tpu_torch/ops/mg_kernel.py",
             "hipace_tpu_torch/gpu_check.py",
             "hipace_tpu_torch/parallel/ranks.py",
             "tools/pipeline_cards.py"} <= names
@@ -118,6 +123,122 @@ def test_cli_without_cpu_request_needs_the_card(tmp_path, argv):
     deck.write_text(__graft_entry__._DECK.format(nxy=15, nz=4, npart=200))
     with pytest.raises(RuntimeError, match="CUDA"):
         main([str(deck), "hipace.verbose=0"] + argv)
+
+
+# ------------------------------------------------------ the CLI's keys
+# the deck and overrides of the echo test, and two keys its echo must print
+# as given
+ECHO_NXY, ECHO_NZ = 15, 4
+ECHO_DECK = decks.PDF_BEAM.format(
+    nxy=ECHO_NXY, nz=ECHO_NZ,
+    npart=max(1024, int(ECHO_NXY * ECHO_NXY * 10 * ECHO_NZ / 1000)))
+ECHO_OVERRIDES = ["max_step=0", "hipace.dt=1.0", "diagnostic.output_period=0"]
+ECHO = ["hipace.output_input = 1", "my_constants.kp = 2.",
+        "plasma.radius = 1./kp"]
+
+
+@pytest.fixture(scope="module")
+def jax_sim():
+    """The JAX package's Simulation of the echo deck with the echo on, and
+    what its construction printed."""
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        sim = JSimulation(JInputs(ECHO_DECK,
+                                  overrides=ECHO_OVERRIDES + ECHO),
+                          verbose=0)
+    return sim, out.getvalue()
+
+
+def test_output_input_prints_the_jax_lines(jax_sim, capsys):
+    _, want = jax_sim
+    Simulation(Inputs(ECHO_DECK, overrides=ECHO_OVERRIDES + ECHO),
+               device="cpu", verbose=0)
+    got = capsys.readouterr().out
+    assert got == want
+    lines = got.splitlines()
+    assert lines == sorted(lines) and "plasma.radius = 1./kp" in lines
+    assert "hipace.output_input = 1" in lines and len(lines) > 20
+    Simulation(Inputs(ECHO_DECK, overrides=ECHO_OVERRIDES), device="cpu",
+               verbose=0)
+    assert capsys.readouterr().out == ""
+
+
+def test_profile_writes_a_trace(tmp_path, capsys):
+    from hipace_tpu_torch.__main__ import main as cli
+    deck = tmp_path / "deck"
+    deck.write_text(ECHO_DECK)
+    trace = tmp_path / "trace"
+    assert cli([str(deck), "--device", "cpu", "hipace.verbose=0",
+                f"hipace.profile={trace}"]) == 0
+    assert "Finished Evolve" in capsys.readouterr().out
+    files = list(trace.glob("*.pt.trace.json"))
+    assert len(files) == 1
+    events = json.loads(files[0].read_text())["traceEvents"]
+    assert any(e.get("cat") == "cpu_op" for e in events)
+    # the program's spans, as named ranges
+    names = {e.get("name") for e in events}
+    assert {"slice step", "field solve", "beam push"} <= names
+
+
+def test_no_trace_without_the_profile_key(tmp_path, capsys):
+    from hipace_tpu_torch.__main__ import main as cli
+    deck = tmp_path / "deck"
+    deck.write_text(ECHO_DECK)
+    assert cli([str(deck), "--device", "cpu", "hipace.verbose=0"]) == 0
+    capsys.readouterr()
+    assert [p.name for p in tmp_path.iterdir()] == ["deck"]
+
+
+# --------------------------------------------- the CLI's closing lines
+# decks that differ in what the closing lines count: (deck text, overrides)
+REPORT_DECKS = {
+    "ppc 2 x 3": (decks.BLOWOUT_WAKE, ["plasma.ppc = 2 3"]),
+    "two plasma species": (decks.ION_MOTION_EVEN, []),
+    "plasma subcycles": (decks.BLOWOUT_WAKE, ["plasma.n_subcycles = 3"]),
+    "two beams": (decks.DRIVE_WITNESS, []),
+    "beam subcycles, 3 steps": (decks.BLOWOUT_WAKE,
+                                ["beam.n_subcycles = 4", "max_step = 2"]),
+    "fixed_ppc beam": (decks.BLOWOUT_WAKE,
+                       ["beam.injection_type = fixed_ppc",
+                        "beam.num_particles = 0", "beam.ppc = 2 2 1",
+                        "beam.radius = 1."]),
+    "fixed_ppc beam in vacuum": (decks.ADAPTIVE_VACUUM, []),
+}
+
+
+@pytest.mark.parametrize("name", list(REPORT_DECKS))
+def test_report_prints_the_jax_closing_lines(name, tmp_path, monkeypatch,
+                                             capsys):
+    """The CLI's closing lines (__main__.report) against those of the JAX
+    package's CLI on the same deck, with the wall time fixed at 2.5 s and
+    the JAX run's evolve left out: the same seconds, time per particle push
+    and time per cell update; the port names the device besides."""
+    import types
+
+    import hipace_tpu.__main__ as jmain
+    from hipace_tpu.pipeline import simulation as jsimulation
+    from hipace_tpu_torch.__main__ import report
+    text, overrides = REPORT_DECKS[name]
+    text = text.format(nxy=15, nz=4, npart=400, nwit=100, max_step=1,
+                       max_time=80.0)
+    overrides = overrides + ["hipace.verbose = 0", "hipace.pipeline = 0"]
+    deck = tmp_path / "deck"
+    deck.write_text(text)
+    clock = iter([10.0, 12.5])
+    monkeypatch.setattr(jmain, "time",
+                        types.SimpleNamespace(perf_counter=clock.__next__))
+    monkeypatch.setattr(jsimulation.Simulation, "evolve", lambda self: None)
+    assert jmain.main([str(deck)] + overrides) == 0
+    out = capsys.readouterr().out.splitlines()
+    want = out[[i for i, line in enumerate(out)
+                if line.startswith("Finished Evolve")][-1]:]
+    sim = Simulation(Inputs(text, overrides=overrides), device="cpu",
+                     verbose=0)
+    report(sim, 2.5, 1)
+    got = capsys.readouterr().out.splitlines()
+    assert got == [want[0] + " on cpu"] + want[1:]
+    assert len(got) == (3 if sim.plasma_cfgs or any(
+        b.num_particles for b in sim.beam_cfgs) else 2)
 
 
 # ------------------------------------------------------ the port's copies

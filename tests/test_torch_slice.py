@@ -10,7 +10,6 @@ jax, accepts the TPU tuning keys as no-ops and refuses keys it lacks.
 """
 
 import os
-import re
 import subprocess
 import sys
 
@@ -24,7 +23,6 @@ import __graft_entry__
 import hipace_tpu.fields.multigrid as jmg
 from hipace_tpu.parser import Inputs
 from hipace_tpu.pipeline.simulation import Simulation as JSimulation
-from hipace_tpu_torch import unsupported
 from hipace_tpu_torch.convert import carry_state
 from hipace_tpu_torch.parser import Inputs as TInputs
 from hipace_tpu_torch.pipeline.simulation import Simulation
@@ -261,18 +259,6 @@ def test_unsupported_keys_raise(extra):
                                      verbose=0))
     assert got == PORT_REFUSES.get(extra, ref), (got, ref)
     assert got is not NotImplementedError
-
-
-def test_refusals_name_their_roadmap_item():
-    """Every item a refusal can name is that numbered item of ROADMAP.md's
-    port queue, and no refusal names an item that is done."""
-    with open(os.path.join(ROOT, "ROADMAP.md")) as f:
-        roadmap = f.read()
-    assert len(set(unsupported.ITEMS.values())) == len(unsupported.ITEMS)
-    for item, n in unsupported.ITEMS.items():
-        assert re.search(rf"^{n}\. \*\*{re.escape(item)}", roadmap,
-                         re.IGNORECASE | re.MULTILINE), (n, item)
-    assert not hasattr(unsupported, "OTHER_PATHS")
 
 
 def test_port_never_imports_jax(tmp_path):
