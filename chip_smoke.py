@@ -3,15 +3,17 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels (K1 deposit, K2 gather, K3 multigrid, the
-fused beam and plasma pushes) from ``hipace_tpu_torch/csrc`` with nvcc and
+fused beam and plasma pushes, the plasma deposit's values) from
+``hipace_tpu_torch/csrc`` with nvcc and
 prints each kernel's registers, stack frame and spills (K2's order-2 kernels
 must use no local memory). Then each kernel alone against its plain PyTorch
 version, in float32 and float64, timed on CUDA events beside its bound: K1
 and K2 at the main path's shapes (1023^2 grid, ~1.05M plasma lanes, also
 shuffled, moved by up to 40 cells and a 30k-lane beam slice), K3 at 1023^2
 and on the cell-centered and complex ladders, the Poisson solvers, the fused
-beam push on the benchmark's 2047^2 beam slices and the fused plasma push on
-both benchmark cells' 2047^2 species, bit for bit against their loops.
+beam push on the benchmark's 2047^2 beam slices and the fused plasma push and
+the deposit-values kernel on both benchmark cells' 2047^2 species, bit for
+bit against their plain versions.
 
 Then the paths at production width (1023^2 or 1024^2 x 64 in float32 unless
 stated), each for a few steps with the checks that need that width: the
@@ -106,7 +108,12 @@ ALL_KERNELS = dict(KERNELS, **{"beam push": (
     "its K2 calls, hipace_tpu/ops/pallas_banded.py:663"), "plasma push": (
     "plasma_push", "hipace_tpu_torch/csrc/plasma_push.cu",
     "hipace_tpu/particles/plasma.py:619 advance_plasma (the push loop) and "
-    "its K2 calls, hipace_tpu/ops/pallas_banded.py:663")})
+    "its K2 calls, hipace_tpu/ops/pallas_banded.py:663"), "deposit values": (
+    "deposit_values", "hipace_tpu_torch/csrc/deposit_values.cu",
+    "the lane algebra of hipace_tpu/particles/plasma.py "
+    "fused_plasma_deposits before its K1 call "
+    "(hipace_tpu/ops/pallas_banded.py:512) and its gather_laser_aabs, "
+    "both on XLA")})
 
 # NVIDIA H100 SXM data sheet: HBM3 bytes/s, non-tensor FLOP/s by itemsize
 HBM_BYTES_PER_S = 3.35e12
@@ -570,6 +577,34 @@ PLASMA_PUSH_FLOPS = 6 * 83 + 22 + 360
 LASER_PUSH_FLOPS = 6 * 10 + 150
 
 
+def species_slice(torch, pl, cfg, g, dtype, laser, seed):
+    """A species on g's lattice for the plasma push and deposit-values
+    phases: (lanes, fields). The lanes moved by a tenth of a cell, with
+    momenta (the half-step ones, which the push reads, and the same as the
+    current ones, which the deposit reads); the five planes and, with the
+    laser, an |a|^2 plane."""
+    gen = torch.Generator(device="cuda").manual_seed(seed + int(laser))
+
+    def noise(shape, scale):
+        return (scale * torch.randn(shape, generator=gen, device="cuda",
+                                    dtype=torch.float64)).to(dtype)
+
+    p = pl.init_plasma(cfg, g, "cuda", dtype)
+    n = p["x"].numel()
+    x = p["x"] + noise(n, 0.1 * g.dx)
+    y = p["y"] + noise(n, 0.1 * g.dy)
+    ux, uy = noise(n, 0.05), noise(n, 0.05)
+    psi = 1.0 + noise(n, 0.02).abs()
+    p.update(x=x, y=y, x_prev=x, y_prev=y, ux=ux, uy=uy, psi=psi, ux_half=ux,
+             uy_half=uy, psi_half=psi)
+    NY, NX = g.slice_shape
+    f = {c: noise((NY, NX), 0.05) for c in ("Psi", "Ez", "Bx", "By", "Bz")}
+    if laser:
+        f["aabs"] = (2.0 * torch.rand((NY, NX), generator=gen, device="cuda",
+                                      dtype=torch.float64)).to(dtype)
+    return p, f
+
+
 @phase("plasma push")
 def plasma_push_phase(torch, g_flag, results):
     """The fused plasma push on the cells' and the flagship's species
@@ -586,26 +621,9 @@ def plasma_push_phase(torch, g_flag, results):
     for label, nxy, name, box, laser in PLASMA_PUSH_CASES:
         dtype = getattr(torch, name)
         g = g_flag if box is None else Geometry((nxy, nxy, 32), *box)
-        gen = torch.Generator(device="cuda").manual_seed(nxy + int(laser))
-
-        def noise(shape, scale):
-            return (scale * torch.randn(shape, generator=gen, device="cuda",
-                                        dtype=torch.float64)).to(dtype)
-
-        p = pl.init_plasma(cfg, g, "cuda", dtype)
-        n = p["x"].numel()
-        x = p["x"] + noise(n, 0.1 * g.dx)
-        y = p["y"] + noise(n, 0.1 * g.dy)
-        p.update(x=x, y=y, x_prev=x, y_prev=y, ux_half=noise(n, 0.05),
-                 uy_half=noise(n, 0.05),
-                 psi_half=1.0 + noise(n, 0.02).abs())
+        p, f = species_slice(torch, pl, cfg, g, dtype, laser, nxy)
         NY, NX = g.slice_shape
-        f = {c: noise((NY, NX), 0.05) for c in ("Psi", "Ez", "Bx", "By",
-                                                "Bz")}
-        if laser:
-            f["aabs"] = (2.0 * torch.rand((NY, NX), generator=gen,
-                                          device="cuda",
-                                          dtype=torch.float64)).to(dtype)
+        n = p["x"].numel()
 
         def kernel():
             return ppo.plasma_push_cuda(p, f, g, cfg, pc, 2, False, laser)
@@ -642,6 +660,74 @@ def plasma_push_phase(torch, g_flag, results):
                               flops, size)
         # per dtype the last case's: float32 the flagship's
         results[("plasma push", name)] = (err, ms, plain_ms, b_ms, by)
+        del p, f, got, ref
+        torch.cuda.empty_cache()
+
+
+# per lane: the values' arithmetic (~60 operations: 1/psi, the velocities,
+# gamma, the main, coefficient and derivative channels, the positions); with
+# the laser its |a|^2 value (~60: the weights and 9 weighted taps at order 2)
+VALUES_FLOPS = 60
+LASER_VALUES_FLOPS = 60
+
+
+@phase("deposit values")
+def deposit_values_phase(torch, g_flag, results):
+    """The deposit-values kernel on the cells' and the flagship's species
+    (PLASMA_PUSH_CASES, the cells' four main channels) against its plain
+    version (the lane algebra) on the card: the rows, positions, w and
+    valid equal bit for bit; its device time, its bound (the lanes read
+    and the rows, positions, w and valid written once, the |a|^2 plane read
+    once) and the plain version's device and host times."""
+    from hipace_tpu_torch.constants import make_constants
+    from hipace_tpu_torch.geometry import Geometry
+    from hipace_tpu_torch.ops import deposit_values as dvo
+    from hipace_tpu_torch.particles import plasma as pl
+    pc = make_constants(True)
+    cfg = pl.PlasmaConfig()
+    comps = ["jx", "jy", "chi", "rhomjz"]
+    for label, nxy, name, box, laser in PLASMA_PUSH_CASES:
+        dtype = getattr(torch, name)
+        g = g_flag if box is None else Geometry((nxy, nxy, 32), *box)
+        p, f = species_slice(torch, pl, cfg, g, dtype, laser, nxy)
+        NY, NX = g.slice_shape
+        n = p["x"].numel()
+        args = (p, comps, f, g, cfg, pc, 2, True)
+
+        def kernel():
+            return dvo.deposit_values_cuda(*args, use_laser=laser)
+
+        def plain():
+            return dvo.deposit_values_plain(*args, use_laser=laser)
+
+        got, ref = kernel(), plain()
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, b) for a, b in zip(got, ref))
+        err = max(float((a.double() - b.double()).abs().max())
+                  for a, b in zip(got[:4], ref[:4]))
+        C = got[0].shape[0]
+        ms = cuda_ms(kernel)
+        plain_ms = cuda_ms(plain)
+        plain_wall = wall_ms(plain)
+        print(f"deposit values {name} {label} ({'with' if laser else 'no'} "
+              f"laser, C = {C}) on {NY}x{NX}, {n} lanes: every output equal "
+              f"{same}, floats max abs err {err:.3e} "
+              f"{'ok' if same else 'FAIL'}; kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.3f} ms on the device, {plain_wall:.3f} ms host "
+              f"wall; {CARD['line']}", flush=True)
+        if not same:
+            raise AssertionError(f"deposit values {name} {label} differ "
+                                 "from the plain version")
+        # each lane's six floats and valid read, C rows, two positions and
+        # w written and valid written, the |a|^2 plane read once
+        size = p["x"].element_size()
+        nbytes = (n * (6 * size + 1 + (C + 3) * size + 1)
+                  + int(laser) * NY * NX * size)
+        flops = n * (VALUES_FLOPS + LASER_VALUES_FLOPS * int(laser))
+        b_ms, by = bound_line("deposit values", f"{name} {label}", ms,
+                              nbytes, flops, size)
+        # per dtype the last case's: float32 the flagship's
+        results[("deposit values", name)] = (err, ms, plain_ms, b_ms, by)
         del p, f, got, ref
         torch.cuda.empty_cache()
 
@@ -790,12 +876,14 @@ def main_path(torch, sim, counts):
     from hipace_tpu_torch.ops.gather import gather_main
     from hipace_tpu_torch.ops.beam_push import beam_push
     from hipace_tpu_torch.ops.mg_kernel import mg_solve
+    from hipace_tpu_torch.ops.deposit_values import deposit_values
     from hipace_tpu_torch.ops.plasma_push import plasma_push
     from hipace_tpu_torch.particles.beam import advance_beam_slice
     from hipace_tpu_torch.particles.plasma import advance_plasma
     n0 = int(sim.binned["valid"].sum())
     steps = 3
-    for fn in (deposit, gather_main, mg_solve, beam_push, plasma_push):
+    for fn in (deposit, gather_main, mg_solve, beam_push, plasma_push,
+               deposit_values):
         fn.launches = 0
     advance_beam_slice.general_calls = 0
     advance_plasma.general_calls = 0
@@ -817,7 +905,8 @@ def main_path(torch, sim, counts):
                    "K3": mg_solve.launches, "beam push": beam_push.launches,
                    "beam loop": advance_beam_slice.general_calls,
                    "plasma push": plasma_push.launches,
-                   "plasma loop": advance_plasma.general_calls})
+                   "plasma loop": advance_plasma.general_calls,
+                   "deposit values": deposit_values.launches})
     mg_launches = mg_solve.kernel_launches
     direct, blocks = direct_block_count("cuda"), deposit.blocks
     g = sim.geom
@@ -826,7 +915,8 @@ def main_path(torch, sim, counts):
                 "K2": g.nz * (plasma_k2(sim) + beam_k2(sim)),
                 "K3": g.nz, "beam push": g.nz * fused_pushes(sim),
                 "beam loop": 0, "plasma push": g.nz * plasma_pushes(sim),
-                "plasma loop": 0}
+                "plasma loop": 0,
+                "deposit values": g.nz * len(sim.plasma_cfgs)}
     print(f"main path K1 blocks on the direct path: {direct} of {blocks} "
           f"({100 * direct / blocks:.2f}%)", flush=True)
     print(f"main path K3 device launches per solve: "
@@ -835,7 +925,8 @@ def main_path(torch, sim, counts):
         raise AssertionError("a multigrid solve took more than 3 launches")
     for k, fn_name in [(k, v[0]) for k, v in KERNELS.items()] + [
             ("beam push", "beam_push"), ("beam loop", "general_calls"),
-            ("plasma push", "plasma_push"), ("plasma loop", "general_calls")]:
+            ("plasma push", "plasma_push"), ("plasma loop", "general_calls"),
+            ("deposit values", "deposit_values")]:
         want = per_step[k] * steps
         print(f"launches {k} {fn_name}: {counts[k]} (slice structure "
               f"predicts {want})", flush=True)
@@ -1287,8 +1378,9 @@ def laser_path(torch, counts, results):
     in float32 on the plain versions."""
     import math
     from hipace_tpu_torch.decks import laser_wake
+    from hipace_tpu_torch.ops import deposit_values as dvo
     from hipace_tpu_torch.ops.deposit import deposit
-    from hipace_tpu_torch.ops.gather import gather_laser_aabs, gather_main
+    from hipace_tpu_torch.ops.gather import gather_main
     from hipace_tpu_torch.ops.mg_kernel import mg_solve
     from hipace_tpu_torch.ops.plasma_push import plasma_push
     from hipace_tpu_torch.pipeline.simulation import Simulation
@@ -1297,7 +1389,8 @@ def laser_path(torch, counts, results):
     g = sim.geom
     a0 = sim.laser_cfg.pulses[0].a0
     steps = 3
-    for fn in (deposit, gather_main, mg_solve, plasma_push):
+    for fn in (deposit, gather_main, mg_solve, plasma_push,
+               dvo.deposit_values):
         fn.launches = 0
     mg_solve.complex_launches = 0
     peaks, copies = [], None
@@ -1326,23 +1419,27 @@ def laser_path(torch, counts, results):
     counts.update({"K1": deposit.launches, "K2": gather_main.launches,
                    "K3": mg_solve.launches,
                    "K3 complex": mg_solve.complex_launches,
-                   "plasma push": plasma_push.launches})
+                   "plasma push": plasma_push.launches,
+                   "deposit values": dvo.deposit_values.launches})
     pcfg = sim.plasma_cfgs[0]
     per_step = {"K1": int(pcfg.neutralize_background) + g.nz,
                 "K2": g.nz * plasma_k2(sim), "K3": g.nz,
-                "K3 complex": g.nz, "plasma push": g.nz * plasma_pushes(sim)}
+                "K3 complex": g.nz, "plasma push": g.nz * plasma_pushes(sim),
+                "deposit values": g.nz * len(sim.plasma_cfgs)}
     for k, count in counts.items():
         print(f"laser path launches {k}: {count} (slice structure predicts "
-              f"{per_step[k] * steps}: per slice one plasma deposit, fused "
-              f"push and Bx/By solve and one envelope solve; no beam)",
+              f"{per_step[k] * steps}: per slice one plasma deposit with its "
+              f"values, fused push and Bx/By solve and one envelope solve; no "
+              f"beam)",
               flush=True)
     print(f"laser path device-to-host copies per slice (synchronizing reads, "
           f"first step): {copies / g.nz:.3f} (the flagship's: the beam's "
           f"2.05; the laser adds none)", flush=True)
     # the laser's own device work per slice, each part timed alone on the
-    # path's shapes: the advance (its complex K3 solve apart) and the
-    # deposit's |a|^2 gather on the plasma's lanes (the push's runs inside
-    # the fused plasma push)
+    # path's shapes: the advance (its complex K3 solve included) and the
+    # deposit's |a|^2 gather on the plasma's lanes, inside the values kernel
+    # (with the laser less without; the push's runs inside the fused plasma
+    # push)
     st = sim.slice_step
     lg = sim.laser_geom
     state = {k: res["laser_stream"][1][g.nz // 2] for k in
@@ -1353,13 +1450,20 @@ def laser_path(torch, counts, results):
     p = sim.plasma_cfgs[0]
     from hipace_tpu_torch.particles.plasma import init_plasma
     lanes = init_plasma(p, g, "cuda", torch.float32)
-    aabs = torch.abs(state["n00j00"]) ** 2
-    gat_ms = cuda_ms(lambda: gather_laser_aabs(lanes["x"], lanes["y"], aabs,
-                                               g, 2))
+    aabs = {"aabs": torch.abs(state["n00j00"]) ** 2}
+    comps = sim.slice_step._plasma_comps(p)
+
+    def values(laser):
+        return cuda_ms(lambda: dvo.deposit_values_cuda(
+            lanes, comps, aabs, g, p, sim.cfg.pc, 2, sim.cfg.normalized_units,
+            use_laser=laser))
+
+    gat_ms = values(True) - values(False)
     laser_ms = adv_ms + gat_ms
     print(f"laser path, the laser's device time per slice: advance "
           f"{adv_ms:.3f} ms (with its complex K3 solve), the deposit's "
-          f"|a|^2 gather {gat_ms:.3f} ms = {laser_ms:.3f} ms; "
+          f"|a|^2 gather inside the values kernel {gat_ms:.3f} ms = "
+          f"{laser_ms:.3f} ms; "
           f"{CARD['line']}", flush=True)
     print(f"laser path real V-cycles per slice of the last step, head "
           f"first: {res['mg_cycles']}", flush=True)
@@ -1520,6 +1624,7 @@ def ionization_path(torch, counts, results):
     from hipace_tpu_torch.decks import ionization_wake
     from hipace_tpu_torch.ops import gather as gat
     from hipace_tpu_torch.ops.deposit import deposit
+    from hipace_tpu_torch.ops.deposit_values import deposit_values
     from hipace_tpu_torch.ops.gather import gather_main
     from hipace_tpu_torch.ops.mg_kernel import mg_solve
     from hipace_tpu_torch.particles import plasma as pl
@@ -1531,7 +1636,7 @@ def ionization_path(torch, counts, results):
     g = sim.geom
     n0 = int(sim.binned["valid"].sum())
     steps = 3
-    for fn in (deposit, gather_main, mg_solve):
+    for fn in (deposit, gather_main, mg_solve, deposit_values):
         fn.launches = 0
     ion_k2, kept, undo = counted_ionization(torch)
     events, copies = [], 0
@@ -1549,12 +1654,14 @@ def ionization_path(torch, counts, results):
     finally:
         undo()
     counts.update({"K1": deposit.launches, "K2": gather_main.launches,
-                   "K3": mg_solve.launches, "K2 ionization": ion_k2["K2"]})
+                   "K3": mg_solve.launches, "K2 ionization": ion_k2["K2"],
+                   "deposit values": deposit_values.launches})
     cfgs = sim.plasma_cfgs
     per_step = {"K1": sum(int(p.neutralize_background) for p in cfgs)
                 + g.nz * (len(cfgs) + 2),
                 "K2": g.nz * (plasma_k2(sim) + beam_k2(sim) + 1),
-                "K3": g.nz, "K2 ionization": g.nz}
+                "K3": g.nz, "K2 ionization": g.nz,
+                "deposit values": g.nz * len(cfgs)}
     n = int(sim.binned["valid"].sum())
     finite = bool(torch.isfinite(res["diag"]).all())
     comps = sim.cfg.diag_comps
@@ -1580,7 +1687,8 @@ def ionization_path(torch, counts, results):
     for k, count in counts.items():
         print(f"ionization path launches {k}: {count} (slice structure "
               f"predicts {per_step[k] * steps}: per slice two species' "
-              f"deposits and fused pushes, the beam's fused push (K2 in the "
+              f"deposits with their values and fused pushes, the beam's "
+              f"fused push (K2 in the "
               f"loops: {plasma_k2(sim) + beam_k2(sim)}), one ionization "
               f"gather)", flush=True)
     # the module and its gather alone, on the kept call's arguments
@@ -2095,6 +2203,7 @@ def mr_path(torch, counts, results):
     from hipace_tpu_torch.ops import deposit as dep
     from hipace_tpu_torch.ops import gather as gat
     from hipace_tpu_torch.ops.beam_push import beam_push
+    from hipace_tpu_torch.ops.deposit_values import deposit_values
     from hipace_tpu_torch.ops.mg_kernel import mg_solve
     from hipace_tpu_torch.particles import plasma as pl
     from hipace_tpu_torch.pipeline.simulation import Simulation
@@ -2123,7 +2232,8 @@ def mr_path(torch, counts, results):
                      gat.gather_main, keep=middle * per_slice_k2)
     k3 = CallKeeper(sim.slice_step.fine_mgs[0], "solve",
                     lambda a, k: True, mg_solve, keep=middle)
-    for f in (dep.deposit, gat.gather_main, mg_solve, beam_push):
+    for f in (dep.deposit, gat.gather_main, mg_solve, beam_push,
+              deposit_values):
         f.launches = 0
     steps, copies = 3, 0
     try:
@@ -2138,7 +2248,8 @@ def mr_path(torch, counts, results):
         for k in (k1, k2p, k3):
             k.undo()
     counts.update({"K1": dep.deposit.launches, "K2": gat.gather_main.launches,
-                   "K3": mg_solve.launches, "beam push": beam_push.launches})
+                   "K3": mg_solve.launches, "beam push": beam_push.launches,
+                   "deposit values": deposit_values.launches})
     # the kernels' own counts inside the level's calls
     counts["K1 fine"] = k1.launches
     counts["K2 fine"] = k2p.launches
@@ -2155,7 +2266,8 @@ def mr_path(torch, counts, results):
                 "K3": g.nz + n_act, "K1 fine": n_act,
                 "K2 fine": n_act * (pcfg.n_subcycles + all_sub),
                 "K3 fine": n_act,
-                "beam push": (g.nz - n_act) * fused_pushes(sim)}
+                "beam push": (g.nz - n_act) * fused_pushes(sim),
+                "deposit values": len(sim.plasma_cfgs) * (g.nz + n_act)}
     n = int(sim.binned["valid"].sum())
     rows = slice(lv.zeta_lo, lv.zeta_hi + 1)
     fine_line = res["diagf_lev1"][rows, 0].double().cpu()
@@ -2579,6 +2691,7 @@ def main() -> int:
         k3_phase(torch, g, dtype, results)
     beam_push_phase(torch, g, results)
     plasma_push_phase(torch, g, results)
+    deposit_values_phase(torch, g, results)
     counts: dict = {}
     main_path(torch, sim, counts)
     del sim
@@ -2670,6 +2783,11 @@ def main() -> int:
     entries += [("plasma push", "plasma push",
                  "plasma push, main path (the plasma's push, one launch per "
                  "species and slice)", counts["plasma push"])]
+    # the deposit values: the flagship's species, the flagship's count
+    entries += [("deposit values", "deposit values",
+                 "deposit values, main path (the plasma deposit's values, "
+                 "one launch per species and slice)",
+                 counts["deposit values"])]
     # the pipelined flagship runs the flagship's calls: their times, the
     # pipeline path's counts
     entries += [(k, k, f"{k} {fn}, pipelined flagship ({PIPE_STAGES} stages "

@@ -7,8 +7,8 @@
 // clamped so that the block fits), and the weighted sums of the block's
 // centre and of its centred differences, each summed over the m^2 taps in
 // the order of PyTorch's CUDA sum over the last dimension (reduce_sum).
-// Used by the fused plasma push (plasma_push.cu); the deposit's gather is
-// still the plain version.
+// Used by the fused plasma push (plasma_push.cu) and by the plasma deposit's
+// values kernel (deposit_values.cu), which needs only the value.
 #pragma once
 
 #include "push_common.cuh"

@@ -47,6 +47,8 @@ SIGNATURES = {
     "hipace_plasma_push": [_P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I,
                            _I, _I, _I, _P],
     "hipace_laser_gather": [_P, _P, _P, _P, _P, _LL, _I, _I, _I, _P],
+    "hipace_deposit_values": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                              _LL, _I, _I, _I, _I, _I, _P],
     "hipace_mg_solve": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                         _I, _D, _D, _I, _D, _I, _I, _P, _P, _P, _I, _P],
 }

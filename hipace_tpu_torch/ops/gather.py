@@ -18,8 +18,10 @@ they lie. ``gather_main`` returns a (6, N) tensor: CPU tensors take
 
 ``gather_laser_aabs``, the laser's |a|^2 and its centred derivatives at the
 plasma's lanes, is plain PyTorch on any device: the JAX package runs it on
-XLA, not in a Pallas kernel. The fused plasma push computes the same inline
-on the card (``csrc/laser_gather.cuh``); the deposit calls this one.
+XLA, not in a Pallas kernel. On the card the fused plasma push and the
+plasma deposit's values kernel compute the same inline
+(``csrc/laser_gather.cuh``); this one is their plain versions' gather, run
+on the CPU and by the predictor-corrector's deposit.
 """
 
 from __future__ import annotations

@@ -290,9 +290,9 @@ plasma_push.launches = 0
 
 
 def laser_gather_cuda(xp, yp, aabs, geom: Geometry, order: int):
-    """The push kernel's |a|^2 gather alone on CUDA tensors
-    (csrc/laser_gather.cuh), for its tests against ops/gather.py
-    gather_laser_aabs: (a2, a2_dx, a2_dy), each (N,)."""
+    """The |a|^2 gather of the fused push and the deposit-values kernel
+    alone on CUDA tensors (csrc/laser_gather.cuh), for its tests against
+    ops/gather.py gather_laser_aabs: (a2, a2_dx, a2_dy), each (N,)."""
     if not 0 <= order <= 3:
         raise ValueError(f"unsupported order {order}")
     NY, NX = aabs.shape

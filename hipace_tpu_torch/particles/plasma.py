@@ -22,10 +22,12 @@ feed it the JAX package's own draws (the two generators' streams differ).
 With a laser envelope, |a|^2 (the slice's ``aabs`` plane) enters as the
 ponderomotive terms (ref PushPlasmaParticles.H, PlasmaDepositCurrent.cpp,
 ExplicitDeposition.cpp): gathered at each lane by ``gather_laser_aabs`` with
-its centred derivatives, scaled by ``laser_norm`` = ((q/e)(m_e/m))^2, into
+its centred derivatives (on the card inside the fused push and the explicit
+deposit's values kernel), scaled by ``laser_norm`` = ((q/e)(m_e/m))^2, into
 the push's gamma and forces, the deposits' gamma, and the explicit
 deposit's sixth Sx/Sy channel, combined with the grid differences of
-|a|^2.
+|a|^2. The explicit deposit's lane algebra is ``ops/deposit_values.py``'s,
+one kernel launch per species and slice on the card.
 
 Field ionization (ref PlasmaParticleContainer.cpp:263-461): an ionizable
 species carries its lanes' ion level ``ion_lev`` (int32) and a particle
@@ -60,6 +62,7 @@ import torch
 from ..constants import SI_c, PhysConst
 from ..geometry import Geometry
 from ..ops import cuda_lib
+from ..ops import deposit_values as dv_ops
 from ..ops import plasma_push as push_ops
 from ..ops.deposit import deposit
 from ..ops.gather import PLANE_NAMES, gather_laser_aabs, gather_main
@@ -667,92 +670,34 @@ def fused_plasma_deposits(p: dict, stack_comps, fields: dict, geom: Geometry,
                           geom0: Geometry | None = None):
     """Main currents and the explicit Sx/Sy coefficient channels in ONE K1
     deposit (ref ExplicitDeposition.cpp; the JAX function's two branches).
-    deriv_type 2: the centered derivative channels deposit with plain
-    weights and become grid differences in combine_explicit_sxsy. deriv_type
-    0 or 1: they deposit with the derivative weights of that type, dw along
-    y for the two dy channels and along x for the two dx channels, on
-    order + deriv_type + 1 taps. stack_comps: jx, jy, chi, rhomjz and, where
-    the deck asks, rho and rho_<species>. With use_laser |a|^2 enters gamma
-    and a sixth coefficient channel (q/m)^2 mu0 rho / (4 psi^2) joins the
-    plain-weight ones. extra_mask and geom0 as in deposit_plasma; on a fine
-    level the returned state is the caller's to drop. Returns (fields, p,
-    dgrids)."""
-    charge = cfg.charge
-    cin = 1.0 / pc.c
-    invvol = deposit_invvol(geom, geom0, normalized_units)
-    psi_inv = 1.0 / p["psi"]
-    vx_c = p["ux"] * psi_inv            # velocity * c
-    vy_c = p["uy"] * psi_inv
-    vx = vx_c * cin                      # dimensionless
-    vy = vy_c * cin
-    q_invvol = charge * invvol * p["w"]
-    q_mu0_m = charge * pc.mu0 / cfg.mass
-    q_m = charge / cfg.mass
-    lnorm = laser_norm(cfg, pc)
-    if cfg.can_ionize:
-        ion = p["ion_lev"].to(psi_inv.dtype)
-        q_invvol = q_invvol * ion
-        q_mu0_m = q_mu0_m * ion
-        q_m = q_m * ion
-        lnorm = lnorm * ion * ion
-    if use_laser:
-        with span("laser: |a|^2 gather"):
-            a2 = gather_laser_aabs(p["x"], p["y"], fields["aabs"], geom,
-                                   order)[0] * lnorm
-        gamma_psi = 0.5 * ((1.0 + 0.5 * a2) * psi_inv * psi_inv
-                           + vx * vx + vy * vy + 1.0)
-    else:
-        gamma_psi = 0.5 * (psi_inv * psi_inv + vx * vx + vy * vy + 1.0)
-    wmask, bad = _qsa_mask(p, gamma_psi, psi_inv, cfg)
-    q_invvol = q_invvol * (wmask if extra_mask is None else wmask
-                           * extra_mask.to(wmask.dtype))
-    values = {
-        "jx": q_invvol * vx_c,
-        "jy": q_invvol * vy_c,
-        "jz": q_invvol * (gamma_psi - 1.0) * pc.c,
-        "rho": q_invvol * gamma_psi,
-        "chi": q_invvol * q_mu0_m * psi_inv,
-        "rhomjz": q_invvol,
-    }
-    # explicit Sx/Sy coefficient channels (ref ExplicitDeposition.cpp)
-    # on a fine level the JAX package's explicit deposit weighs the masked
-    # valid lanes without the QSA test (the level-0 deposit before it has
-    # already invalidated the lanes that fail it there)
-    cd_mu0 = charge * invvol * pc.mu0 * p["w"] * (
-        wmask if extra_mask is None
-        else (p["valid"] & extra_mask).to(wmask.dtype))
-    if cfg.can_ionize:
-        cd_mu0 = cd_mu0 * ion
-    qm_psi = q_m * psi_inv
-    base = cd_mu0 * qm_psi
-    chans = [base * vx, base * vy, base * vx * vy * cin,
-             base * (gamma_psi - vy * vy) * cin,
-             base * (gamma_psi - vx * vx) * cin]
-    if use_laser:
-        chans.append(0.25 * base * qm_psi)
-    cdc = cd_mu0 * pc.c
-    dx_inv, dy_inv = 1.0 / geom.dx, 1.0 / geom.dy
-    v2 = [cdc * dx_inv * vx * vy,
-          cdc * dx_inv * (gamma_psi - vx * vx - 1.0)]
-    v3 = [-cdc * dy_inv * (gamma_psi - vy * vy - 1.0),
-          -cdc * dy_inv * vx * vy]
-    # rho_<species> deposits the same charge density as rho
-    vmain = [values["rho" if c.startswith("rho_") else c]
-             for c in stack_comps] + chans
-    Cm, C1 = len(stack_comps), len(chans)
+    The lanes' values, K1's cell positions and the species' new w and valid
+    come from ops/deposit_values.py: one kernel launch on the card (|a|^2
+    gathered inside it), the plain lane algebra (deposit_values_plain) on
+    the CPU. deriv_type 2: the centered derivative channels deposit with
+    plain weights and become grid differences in combine_explicit_sxsy.
+    deriv_type 0 or 1: they deposit with the derivative weights of that
+    type, dw along y for the two dy channels and along x for the two dx
+    channels, on order + deriv_type + 1 taps. stack_comps: jx, jy, chi,
+    rhomjz and, where the deck asks, rho and rho_<species>. With use_laser |a|^2 enters gamma and a sixth
+    coefficient channel (q/m)^2 mu0 rho / (4 psi^2) joins the plain-weight
+    ones. extra_mask and geom0 as in deposit_plasma; on a fine level the
+    returned state is the caller's to drop. Returns (fields, p, dgrids)."""
+    args = (p, stack_comps, fields, geom, cfg, pc, order, normalized_units,
+            deriv_type, use_laser, extra_mask, geom0)
+    values, ym, xm, w, valid = dv_ops.deposit_values(*args)
+    Cm, C1 = len(stack_comps), 5 + int(use_laser)
     acc = torch.cat([torch.stack([fields[c] for c in stack_comps]),
                      torch.zeros((C1 + 4,) + geom.slice_shape,
-                                 dtype=psi_inv.dtype,
-                                 device=psi_inv.device)])
-    ym, xm, lattice = _deposit_positions(p, geom, extra_mask, geom0)
+                                 dtype=values.dtype, device=values.device)])
+    # the lanes keep the species' lattice order on every level
+    lattice = (geom0 if geom0 is not None else geom).nx
     if deriv_type == 2:
-        deposit(acc, ym, xm, torch.stack(vmain + v2 + v3), order,
-                deriv_type=2, lattice_width=lattice)
+        deposit(acc, ym, xm, values, order, deriv_type=2,
+                lattice_width=lattice)
         dgrids = (acc[Cm:Cm + C1], acc[Cm + C1:Cm + C1 + 2],
                   acc[Cm + C1 + 2:], True)
     else:
-        deposit(acc, ym, xm, torch.stack(vmain + v3 + v2), order,
-                deriv_type=deriv_type,
+        deposit(acc, ym, xm, values, order, deriv_type=deriv_type,
                 blocks=((W_KIND, W_KIND, Cm + C1), (DW_KIND, W_KIND, 2),
                         (W_KIND, DW_KIND, 2)), lattice_width=lattice)
         dgrids = (acc[Cm:Cm + C1], acc[Cm + C1 + 2:],
@@ -760,9 +705,10 @@ def fused_plasma_deposits(p: dict, stack_comps, fields: dict, geom: Geometry,
     out = dict(fields)
     out.update(zip(stack_comps, acc[:Cm]))
     new_p = dict(p)
-    new_p["w"] = p["w"] * wmask
-    new_p["valid"] = p["valid"] & ~bad
+    new_p["w"] = w
+    new_p["valid"] = valid
     return out, new_p, dgrids
+
 
 
 def combine_explicit_sxsy(fields: dict, dgrids, pc: PhysConst,

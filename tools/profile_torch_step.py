@@ -30,8 +30,10 @@ launched and the device's idle between them), its calls and the device
 activities launched inside it. With ``--deck laser`` the complex K3 solves
 are a group of their own, and the laser's two spans are printed apart: the
 envelope advance (every kernel it launches, its complex K3 solve included)
-and the |a|^2 gathers of the plasma deposits (the push's, inside its
-subcycles, have no span), with their share of the step's device time. With
+and the |a|^2 gathers of the plasma deposits' plain version, with their
+share of the step's device time (on the card the deposits' and the push's
+|a|^2 gathers run inside the deposit-values kernel and the fused push,
+outside any span, so that part reads 0 there). With
 ``--deck ionization`` the ionization module (its K2 field gather included)
 is such a span, with ``--deck collision`` the slice's collisions.
 ``--deck salame`` runs SALAME_WAKE, whose SALAME runs at step 0 only: the
